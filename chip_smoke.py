@@ -6,10 +6,12 @@ Builds every CUDA kernel of the port from this checkout, holds each
 against its plain PyTorch version on the card, drives the chapter-2
 rolling-max job through ``StreamExecutionEnvironment.execute`` at
 1M keys, and checks every emitted row against a host oracle. Prints the
-card's name and power limit, one line per kernel case, a ``kernels``
-JSON line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, when there is no CUDA device, when the package is
-not beside this script, or when any phase fails.
+card's name and power limit, one line per kernel case (with a per-launch
+device-time split from ``torch.profiler`` for the main case, a cold-L2
+time and ``torch.sort`` as a reference point), a ``kernels`` JSON line
+and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing
+no result, when there is no CUDA device, when the package is not beside
+this script, or when any phase fails.
 
 Options (the default runs everything): ``--phases kernel,job``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input).
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -28,6 +31,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+L2_BYTES = 50 * 2**20
 B_MAIN = 131072
 K_MAIN = 1 << 20
 
@@ -56,9 +60,9 @@ def build_kernels() -> None:
                 print("  ptxas:", line.strip())
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, before=None) -> float:
     """Median over ``reps`` of one call's device time (CUDA events), after
-    two warm-up calls."""
+    two warm-up calls; ``before`` runs ahead of each call, untimed."""
     import torch
 
     for _ in range(2):
@@ -66,6 +70,8 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -74,6 +80,29 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_split(fn, calls: int):
+    """``({kernel: device ms per call}, kernel launches per call)`` for
+    the kernels ``fn`` launches, from a ``torch.profiler`` trace of
+    ``calls`` calls (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+)(<[^()]*>)?\(", e.key)
+            split[name.group(0)[:-1] if name else e.key] = \
+                e.device_time_total / calls / 1e3
+            launches += e.count
+    return split, launches / calls
 
 
 def same_bits(a, b) -> bool:
@@ -85,9 +114,21 @@ def same_bits(a, b) -> bool:
     return bool((eq | nan).all())
 
 
+def interned_ids(names: np.ndarray) -> np.ndarray:
+    """Key ids as the job's string table gives them: 0, 1, 2, ... in
+    order of first arrival."""
+    _, first, inverse = np.unique(names, return_index=True,
+                                  return_inverse=True)
+    rank = np.empty(first.size, np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(first.size)
+    return rank[inverse]
+
+
 def kernel_phase(reps: int) -> dict:
-    """Every dtype x op at the main path's shape, plus a skewed and a
-    one-key input, kernel vs plain version on the card."""
+    """Every dtype x op at the main path's shape, plus skewed, one-key,
+    half-one-key and the job's own keys, kernel vs plain version on the
+    card; sum twice for determinism; a cold-L2 time and ``torch.sort``
+    as reference points for the main case."""
     import torch
 
     from tpustream_torch.ops import seq_rolling as S
@@ -101,10 +142,17 @@ def kernel_phase(reps: int) -> dict:
                            rng.integers(0, 1024, B_MAIN),
                            rng.integers(0, K_MAIN, B_MAIN)),
         "one_key": np.full(B_MAIN, 7),
+        # one noisy host sends half the lines
+        "half_one_key": np.where(rng.random(B_MAIN) < 0.5, 7,
+                                 rng.integers(0, K_MAIN, B_MAIN)),
+        # the job's first step: interned host ids in arrival order
+        "job_keys": interned_ids(make_hosts(B_MAIN, K_MAIN, seed=7)),
     }
     cases = [(dt, op, "uniform") for dt in ("float32", "float64")
              for op in S.OPS]
-    cases += [("float64", "max", "skewed"), ("float32", "sum", "one_key")]
+    cases += [("float64", "max", "skewed"), ("float64", "max", "half_one_key"),
+              ("float64", "max", "job_keys"), ("float64", "max", "one_key"),
+              ("float32", "sum", "one_key"), ("float32", "sum", "half_one_key")]
     results = {}
     for dt_name, op, dist in cases:
         dt = getattr(torch, dt_name)
@@ -116,8 +164,9 @@ def kernel_phase(reps: int) -> dict:
         plane0 = torch.where(torch.arange(K_MAIN, device=dev) % 2 == 0,
                              stored, torch.full_like(stored, S.IDENTITY[op]))
         pk, pr = plane0.clone(), plane0.clone()
-        ek = S.seq_rolling_reduce(pk, keys, vals, op)
-        er = S.seq_rolling_reduce_ref(pr, keys, vals, op)
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        ek = S.seq_rolling_reduce(pk, keys, vals, op, bad_keys=bad)
+        er = S.seq_rolling_reduce_ref(pr, keys, vals, op, bad_keys=bad)
         torch.cuda.synchronize()
         err = max(float((ek - er).abs().max()), float((pk - pr).abs().max()))
         if op in ("max", "min"):
@@ -130,17 +179,29 @@ def kernel_phase(reps: int) -> dict:
             eps = torch.finfo(dt).eps
             mult = torch.bincount(keys.long(), minlength=K_MAIN) + 1
             abs_run = S.seq_rolling_reduce_ref(
-                plane0.abs().double(), keys, vals.abs().double(), "sum")
+                plane0.abs().double(), keys, vals.abs().double(), "sum",
+                bad_keys=bad)
             bound = 2 * (mult[keys.long()] - 1).double() * eps * abs_run
             ok = bool(((ek.double() - er.double()).abs() <= bound).all())
             tol = "2*(m-1)*eps*sum|v| per row"
-        if not ok:
+            # the tree order is fixed: a second launch gives the same bits
+            p2 = plane0.clone()
+            e2 = S.seq_rolling_reduce(p2, keys, vals, op, bad_keys=bad)
+            torch.cuda.synchronize()
+            if not (torch.equal(e2.view(torch.int32), ek.view(torch.int32))
+                    and torch.equal(p2.view(torch.int32),
+                                    pk.view(torch.int32))):
+                raise AssertionError(
+                    f"two launches of {dt_name} sum {dist} differ in bits")
+            tol += "; two launches bitwise equal"
+        if not ok or int(bad[0]) != 0:
             raise AssertionError(
-                f"kernel != plain for {dt_name} {op} {dist}: max |diff| {err}")
+                f"kernel != plain for {dt_name} {op} {dist}: max |diff| {err}"
+                f", out-of-range count {int(bad[0])}")
         emis = torch.empty_like(vals)
-        ms = time_ms(lambda: S.launch(pk, keys, vals, op, emis), reps)
+        ms = time_ms(lambda: S.launch(pk, keys, vals, op, emis, bad), reps)
         plain_ms = time_ms(
-            lambda: S.seq_rolling_reduce_ref(pr, keys, vals, op), reps)
+            lambda: S.seq_rolling_reduce_ref(pr, keys, vals, op, bad), reps)
         touched = int(np.unique(keys_np).size)
         nbytes = B_MAIN * (4 + 2 * vals.element_size()) \
             + 2 * touched * vals.element_size()
@@ -149,25 +210,81 @@ def kernel_phase(reps: int) -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
         print(f"kernel seq_rolling_reduce {dt_name} {op} {dist} B={B_MAIN} "
               f"K={K_MAIN}: ok ({tol}) max_abs_err={err} ms={ms} "
-              f"plain_ms={plain_ms} bound_ms={bound_ms} bytes={nbytes}")
+              f"plain_ms={plain_ms} bound_ms={bound_ms} bytes={nbytes} "
+              f"keys={touched}")
+        if (dt_name, op, dist) == ("float64", "max", "uniform"):
+            results[(dt_name, op, dist)]["device_launches_per_call"] = \
+                main_reference_points(S, pk, keys, vals, op, emis, bad, ms,
+                                      reps)
 
-    # the kernel adds in arrival order: bit for bit the sequential fold
+    # the sum's tree order against the sequential fold, on arbitrary values
     keys_np = rng.integers(0, 64, 4096).astype(np.int32)
-    vals_np = rng.random(4096).astype(np.float32)
+    vals_np = rng.standard_normal(4096).astype(np.float32)
     plane_np = np.full(64, -0.0, np.float32)
     want = np.empty_like(vals_np)
+    abs_run = np.zeros(64)
+    bound = np.empty(4096)
+    mult = np.zeros(64, np.int64)
     for i, (k, v) in enumerate(zip(keys_np, vals_np)):
         plane_np[k] = np.float32(plane_np[k] + v)
         want[i] = plane_np[k]
+        abs_run[k] += abs(float(v))
+        mult[k] += 1
+        bound[i] = 2 * mult[k] * np.finfo(np.float32).eps * abs_run[k]
     plane = torch.full((64,), -0.0, dtype=torch.float32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
     got = S.seq_rolling_reduce(plane, torch.from_numpy(keys_np).to(dev),
-                               torch.from_numpy(vals_np).to(dev), "sum")
-    if not (np.array_equal(got.cpu().numpy(), want)
-            and np.array_equal(plane.cpu().numpy(), plane_np)):
-        raise AssertionError("kernel sum is not the sequential fold")
-    print("kernel seq_rolling_reduce float32 sum 64 keys B=4096: "
-          "bitwise equal to the sequential numpy fold")
+                               torch.from_numpy(vals_np).to(dev), "sum",
+                               bad_keys=bad).cpu().numpy()
+    diff = np.abs(got.astype(np.float64) - want)
+    if not np.all(diff <= bound):
+        raise AssertionError("kernel sum is outside the bound of the "
+                             "sequential fold")
+    print("kernel seq_rolling_reduce float32 sum 64 keys B=4096: within "
+          f"2*(m-1)*eps*sum|v| of the sequential numpy fold (max |diff| "
+          f"{diff.max()}, {int(np.sum(diff == 0))}/4096 rows bit-equal)")
     return results
+
+
+def main_reference_points(S, plane, keys, vals, op, emis, bad, ms, reps):
+    """For the main case: the device time of each launch of one call, the
+    call with a cold L2, and a stable ``torch.sort`` of the same keys.
+    Returns the device launches one call makes."""
+    import torch
+
+    launch = lambda: S.launch(plane, keys, vals, op, emis, bad)  # noqa: E731
+    split, launches = device_split(launch, reps)
+    busy = sum(split.values())
+    print(f"kernel seq_rolling_reduce float64 max uniform: {launches} "
+          f"device launches a call ({S.sort_passes(K_MAIN)} radix passes), "
+          f"device time {busy} ms of {ms} ms; " + ", ".join(
+              f"{name}={t}" for name, t in sorted(split.items())))
+    # the host's time to issue one call, and a call's time when calls
+    # queue back to back (the larger of host and device time)
+    n = 10 * reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        launch()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) / n * 1e3
+    print(f"kernel seq_rolling_reduce float64 max uniform: host_ms_per_call="
+          f"{host_ms} back_to_back_ms_per_call={queued_ms}")
+    # a write over more than the L2 between calls evicts keys, values and
+    # plane, as a step that runs after other work would find them
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    cold = time_ms(launch, reps, before=lambda: flush.fill_(1))
+    sort_ms = time_ms(lambda: torch.sort(keys, stable=True), reps)
+    print(f"kernel seq_rolling_reduce float64 max uniform: cold_l2_ms={cold} "
+          f"(a {2 * L2_BYTES >> 20} MB write between calls); reference "
+          f"point torch.sort(keys, stable=True) sort_ms={sort_ms}")
+    return launches
+
+
+def make_hosts(n: int, n_hosts: int, seed: int) -> np.ndarray:
+    """The host number of each of :func:`make_lines`'s lines."""
+    return np.random.default_rng(seed).integers(0, n_hosts, n)
 
 
 def make_lines(n: int, n_hosts: int, seed: int):
@@ -242,7 +359,39 @@ def job_phase(n_lines: int) -> dict:
           f"parse_s={s['host_time_s']} upload_s={s['upload_time_s']} "
           f"device_s={s['device_time_s']} fetch_s={s['fetch_time_s']} "
           f"emit_s={s['emit_time_s']}")
+    job_device_share(lines[: 4 * B_MAIN])
     return {"seq_rolling_reduce": launches}
+
+
+def job_device_share(lines) -> None:
+    """The job again over four batches, traced by ``torch.profiler``
+    (CUDA activity only): the device time per step of the keyed-reduce
+    kernel and of all kernels, against the median host-clock time of the
+    steps after the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpustream_torch import StreamExecutionEnvironment
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs.chapter2_max import build
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    env = StreamExecutionEnvironment(
+        StreamConfig(batch_size=B_MAIN, key_capacity=K_MAIN))
+    build(env, env.add_source(ReplaySource(lines))).collect()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        env.execute("ComputeCpuMax")
+    kernel_ms = all_ms = 0.0  # all: every kernel and copy on the card
+    for e in prof.key_averages():
+        all_ms += e.device_time_total / 1e3
+        if "seq_rolling_kernel" in e.key:
+            kernel_ms += e.device_time_total / 1e3
+    steps = env.metrics.steps
+    warm_ms = statistics.median(env.metrics.step_times_s[1:]) * 1e3
+    print(f"job traced: {steps} steps, step_ms_median_rest={warm_ms} "
+          f"device_ms_per_step_all={all_ms / steps} "
+          f"device_ms_per_step_seq_rolling={kernel_ms / steps} "
+          f"kernel_share_of_step={kernel_ms / steps / warm_ms} "
+          f"device_busy_share_of_step={all_ms / steps / warm_ms}")
 
 
 def main() -> int:
@@ -281,6 +430,7 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "device_launches_per_call": main_case["device_launches_per_call"],
         }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

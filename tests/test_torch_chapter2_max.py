@@ -149,3 +149,23 @@ def test_side_by_side_min_sum_with_jax_package(kind):
     else:
         np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
                                    rtol=1e-12, atol=0)
+
+
+def test_key_past_capacity_fails_the_step_before_any_row_is_emitted(monkeypatch):
+    # the keyed state normally grows before a batch whose keys would pass
+    # it; with growth switched off the step's device counter of
+    # out-of-range keys makes the Runner raise before its sink sees a row
+    from tpustream_torch.runtime import executor
+
+    monkeypatch.setattr(executor.Runner, "_check_capacity", lambda self: None)
+    lines = [f"{i} 10.0.0.{i} cpu0 {i}.5" for i in range(6)]
+    env = tpustream_torch.StreamExecutionEnvironment(
+        tpustream_torch.StreamConfig(device="cpu", batch_size=3, key_capacity=4))
+    handle = torch_job.build(
+        env, env.add_source(torch_sources.ReplaySource(lines))).collect()
+    with pytest.raises(IndexError, match="capacity of 4"):
+        env.execute("ComputeCpuMax")
+    # the first batch (keys 0..2) went out whole; the second (keys 3..5,
+    # two past the capacity) emitted nothing
+    assert [repr(t) for t in handle.items] == [
+        f"(10.0.0.{i},cpu0,{i}.5)" for i in range(3)]

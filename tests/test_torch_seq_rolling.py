@@ -160,8 +160,13 @@ def test_wrapper_checks():
     plane = torch.zeros(8, dtype=torch.float64)
     keys = torch.tensor([1, 8], dtype=torch.int32)
     vals = torch.ones(2, dtype=torch.float64)
+    # no counter: an out-of-range key raises at once on the CPU, where
+    # checking costs no wait on a device
     with pytest.raises(IndexError):
         S.seq_rolling_reduce(plane, keys, vals, "max")
+    with pytest.raises(ValueError):  # the counter must be one int32
+        S.seq_rolling_reduce(plane, keys, vals, "max",
+                             bad_keys=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(TypeError):
         S.seq_rolling_reduce(plane, keys.long(), vals, "max")
     with pytest.raises(TypeError):
@@ -175,3 +180,56 @@ def test_wrapper_checks():
     S.seq_rolling_reduce(plane, keys.clamp(max=7), vals, "max")
     assert S.seq_rolling_reduce.launches == before
 
+
+
+def test_out_of_range_keys_are_counted_not_folded():
+    # with a counter the call does not raise: such rows fold nothing,
+    # emit their own value and add to the count, as in the kernel
+    plane = torch.full((4,), -float("inf"), dtype=torch.float64)
+    keys = torch.tensor([1, 4, 1, 9, -1, 3], dtype=torch.int32)
+    vals = torch.tensor([2.0, 50.0, 1.0, 60.0, 7.0, 3.0], dtype=torch.float64)
+    bad = torch.zeros(1, dtype=torch.int32)
+    emis = S.seq_rolling_reduce(plane, keys, vals, "max", bad_keys=bad)
+    assert emis.tolist() == [2.0, 50.0, 2.0, 60.0, 7.0, 3.0]
+    assert plane.tolist() == [-float("inf"), 2.0, -float("inf"), 3.0]
+    assert int(bad[0]) == 2
+    S.seq_rolling_reduce(plane, keys, vals, "max", bad_keys=bad)
+    assert int(bad[0]) == 4  # the counter accumulates
+
+
+@pytest.mark.parametrize("n_keys, passes", [
+    (0, 1), (1, 1), (255, 1), (256, 2), (1000, 2), (65535, 2), (65536, 3),
+    (1 << 20, 3), ((1 << 20) + 1, 3), ((1 << 24) - 1, 3), (1 << 24, 4),
+    ((1 << 31) - 1, 4),
+])
+def test_sort_passes_cover_the_padding_key(n_keys, passes):
+    # keys run 0..K-1 and padding sorts as K, so the passes must hold the
+    # bits of K itself: K = 2^20 needs 21 bits, three 8-bit digits
+    assert S.sort_passes(n_keys) == passes
+    assert n_keys < 1 << (S.DIGIT_BITS * passes)
+
+
+@pytest.mark.parametrize("n_rows, n_keys, itemsize", [
+    (1, 1, 8), (1023, 100, 4), (1024, 100, 4), (4099, 1 << 12, 8),
+    (131072, 1 << 20, 8), (131072, 1 << 20, 4), (131073, (1 << 21) + 5, 8),
+])
+def test_scratch_layout_regions(n_rows, n_keys, itemsize):
+    # every region is 256-byte aligned, disjoint, in bounds, and as large
+    # as the kernel's entry point says it must be
+    offsets, total = S.scratch_layout(n_rows, n_keys, itemsize)
+    offsets = dict(zip(S.SCRATCH_REGIONS, offsets, strict=True))
+    tiles = -(-n_rows // S.TILE_ROWS)
+    need = {
+        "pairs_a": 8 * n_rows, "pairs_b": 8 * n_rows,
+        "counts": 4 * S.sort_passes(n_keys) * tiles * 256,
+        "xs": itemsize * n_rows, "agg_v": itemsize * tiles, "agg_f": 4 * tiles,
+    }
+    assert list(offsets) == list(need)
+    spans = sorted((offsets[r], offsets[r] + need[r]) for r in need)
+    assert all(lo % 256 == 0 for lo, _ in spans)
+    assert all(a_hi <= b_lo for (_, a_hi), (b_lo, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= total < spans[-1][1] + 256
+    if (n_rows, n_keys, itemsize) == (131072, 1 << 20, 8):
+        # the main shape: 128 tiles, 3 passes, about 3.5 MB in all
+        assert tiles == 128 and need["counts"] == 3 * 128 * 1024
+        assert total == 3 * 131072 * 8 + 3 * 128 * 1024 + 1024 + 512

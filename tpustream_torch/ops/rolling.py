@@ -8,10 +8,10 @@ other field keeps the value from the key's FIRST-ever record.
 
 Counterpart of the commutative path of tpustream/ops/rolling.py
 (``rolling_step`` -> ``_rolling_step_commutative``). The aggregated
-column goes through the record-at-a-time kernel
-(``ops/seq_rolling.py``), which replaces the reference's sort, segmented
+column goes through one call of the keyed-reduce kernel
+(``ops/seq_rolling.py``), which does the reference's sort, segmented
 scan, stored-value gather and tail scatter and yields the emissions in
-arrival order, so nothing is un-permuted. The keep-first leaves, the key
+arrival order, so nothing is un-permuted here. The keep-first leaves, the key
 column and the occupancy test stay plain tensor ops, as they are plain
 XLA ops in the reference.
 
@@ -146,6 +146,7 @@ def rolling_step(
     key_col: Optional[int] = None,
     key_emit: Optional[Callable] = None,
     sentinel_leaf: Optional[int] = None,
+    bad_keys: Optional[torch.Tensor] = None,
 ) -> Tuple[dict, Tuple[torch.Tensor, ...]]:
     """One batch through a rolling max/min/sum of leaf ``rolling_pos``.
 
@@ -158,6 +159,11 @@ def rolling_step(
     ``key_col``/``key_emit``: the keyed column, emitted straight from the
     key ids (``key_emit(keys)``) and never stored. ``sentinel_leaf``: a
     keep-first STR leaf whose plane doubles as the occupancy test.
+    ``bad_keys``: a one-element int32 device counter that gains the
+    number of valid rows whose key is ``>= K`` (see
+    :func:`seq_rolling.seq_rolling_reduce`; required on CUDA). A step
+    that counts any has void emissions and state: the caller must fail
+    it.
     """
     kind, pos = rolling_kind, rolling_pos
     _check_kind(kinds, kind, pos)
@@ -171,7 +177,9 @@ def rolling_step(
         sentinel_leaf = None
     n = keys.shape[0]
     kid = torch.where(valid, keys.to(torch.int32), -1)
-    safe = kid.clamp(min=0).long()
+    # out-of-range keys are counted by the kernel; clamped here so that
+    # no gather or scatter leaves the planes before the caller fails
+    safe = kid.clamp(0, state["seen"].shape[0] - 1).long()
 
     def gather_leaf(i):
         words = [p[safe] for p in planes[slices[i]]]
@@ -188,7 +196,8 @@ def rolling_step(
     # plane in arrival order and returns every row's running aggregate
     agg_plane = planes[slices[pos].start]
     emis_agg = seq_rolling_reduce(
-        agg_plane, kid, cols[pos].to(agg_plane.dtype).contiguous(), kind
+        agg_plane, kid, cols[pos].to(agg_plane.dtype).contiguous(), kind,
+        bad_keys=bad_keys,
     )
 
     # keep-first leaves change only for keys never seen before; a warm

@@ -9,8 +9,7 @@ a ``[K]`` plane and ``[B]`` keys and values, in arrival order::
 ``op`` is ``max``, ``min`` or ``sum``. Rows with a negative key (padding)
 fold nothing and emit their own value. A plane that starts at the op's
 identity (:data:`IDENTITY`) makes every emission the running aggregate
-of its key: Flink's rolling-aggregate contract, with no sort and no
-un-permute.
+of its key: Flink's rolling-aggregate contract.
 
 :func:`seq_rolling_reduce` launches the kernel in
 ``kernels/seq_rolling.cu`` for CUDA tensors and takes
@@ -20,6 +19,8 @@ un-permute.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -50,7 +51,43 @@ def _min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 REDUCERS = {"max": _max, "min": _min, "sum": torch.add}
 
 
-def _check(plane, keys, vals, op):
+# The kernel's layout (kTile and kDigitBits in kernels/seq_rolling.cu),
+# which sizes the scratch; checked against the library when it is bound.
+TILE_ROWS = 1024
+DIGIT_BITS = 8
+_ALIGN = 256
+# the scratch regions, in the order the kernel's entry point takes them
+SCRATCH_REGIONS = ("pairs_a", "pairs_b", "counts", "xs", "agg_v", "agg_f")
+
+
+def sort_passes(n_keys: int) -> int:
+    """Radix passes that sort the keys ``0..n_keys``: ``n_keys`` itself is
+    the sort key of padding and out-of-range rows, which sort last."""
+    return max(1, -(-n_keys.bit_length() // DIGIT_BITS))
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_layout(n_rows: int, n_keys: int, itemsize: int):
+    """``(byte offset of each of SCRATCH_REGIONS, total bytes)`` of one
+    call's scratch, each region aligned to 256 bytes and as large as the
+    kernel's entry point says."""
+    tiles = -(-n_rows // TILE_ROWS)
+    sizes = (
+        8 * n_rows,  # pairs_a
+        8 * n_rows,  # pairs_b
+        4 * sort_passes(n_keys) * tiles * (1 << DIGIT_BITS),  # counts
+        itemsize * n_rows,  # xs
+        itemsize * tiles,  # agg_v
+        4 * tiles,  # agg_f
+    )
+    offsets, end = [], 0
+    for size in sizes:
+        offsets.append(end)
+        end += -(-size // _ALIGN) * _ALIGN
+    return tuple(offsets), end
+
+
+def _check(plane, keys, vals, op, bad_keys):
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     if plane.dtype not in _DTYPE_CODES:
@@ -72,15 +109,18 @@ def _check(plane, keys, vals, op):
             f"plane ({plane.device}), keys ({keys.device}) and vals "
             f"({vals.device}) must be on one device"
         )
-    if keys.numel() and int(keys.max()) >= plane.numel():
-        raise IndexError(
-            f"key {int(keys.max())} is out of range for a plane of "
-            f"{plane.numel()} keys"
+    if bad_keys is not None and not (
+        bad_keys.dtype == torch.int32 and bad_keys.numel() == 1
+        and bad_keys.device == plane.device
+    ):
+        raise ValueError(
+            "bad_keys must be one int32 element on the plane's device"
         )
 
 
 def seq_rolling_reduce(
-    plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor, op: str = "max"
+    plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+    op: str = "max", bad_keys: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fold ``vals`` into ``plane`` by ``keys`` in arrival order and
     return the per-row emissions (shaped like ``vals``).
@@ -88,19 +128,31 @@ def seq_rolling_reduce(
     ``plane`` (float32 or float64, any shape, read as flat ``[K]``) is
     updated IN PLACE, as the TPU kernel aliases its plane input to its
     output. ``keys`` are int32, ``vals`` have the plane's dtype; all
-    three are contiguous and on one device. A key ``>= K`` raises.
+    three are contiguous and on one device.
+
+    A key ``>= K`` is an error. With ``bad_keys`` (one int32 element on
+    the plane's device) the call adds the number of such rows to it,
+    which the caller reads when it next fetches from the device; those
+    rows fold nothing and emit their own value. Without ``bad_keys`` a
+    CPU call raises ``IndexError`` at once, and a CUDA call is refused:
+    checking there would make the host wait on the card.
 
     CUDA tensors launch the kernel on the current stream (no
     synchronisation; a refused launch raises). CPU tensors take the plain
     version. Any other device raises.
     """
-    _check(plane, keys, vals, op)
+    _check(plane, keys, vals, op, bad_keys)
     if plane.device.type == "cpu":
-        return seq_rolling_reduce_ref(plane, keys, vals, op)
+        return seq_rolling_reduce_ref(plane, keys, vals, op, bad_keys)
     if plane.device.type != "cuda":
         raise RuntimeError(f"no seq_rolling_reduce kernel for {plane.device}")
+    if bad_keys is None:
+        raise ValueError(
+            "seq_rolling_reduce on CUDA needs bad_keys, the device counter "
+            "of out-of-range keys"
+        )
     emis = torch.empty_like(vals)
-    launch(plane, keys, vals, op, emis)
+    launch(plane, keys, vals, op, emis, bad_keys)
     seq_rolling_reduce.launches += 1
     return emis
 
@@ -110,43 +162,60 @@ def seq_rolling_reduce(
 seq_rolling_reduce.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel library's entry point, built, loaded and bound once."""
+    from ..kernels import load
+
+    lib = load("seq_rolling")
+    for name, want in (("seq_rolling_tile_rows", TILE_ROWS),
+                       ("seq_rolling_digit_bits", DIGIT_BITS)):
+        getter = getattr(lib, name)
+        getter.argtypes = []
+        getter.restype = ctypes.c_int
+        got = getter()
+        if got != want:
+            raise RuntimeError(
+                f"kernels/seq_rolling.cu has {name} {got}, the wrapper {want}"
+            )
+    fn = lib.seq_rolling_reduce_launch
+    fn.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 7
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(
     plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor, op: str,
-    emis: torch.Tensor,
+    emis: torch.Tensor, bad_keys: Optional[torch.Tensor] = None,
 ) -> None:
     """Launch the kernel into ``emis`` on the current stream, with none of
     :func:`seq_rolling_reduce`'s checks and without counting: for timing
     the kernel alone. The caller guarantees what the wrapper checks."""
-    from ..kernels import load
-
-    fn = load("seq_rolling").seq_rolling_reduce_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _entry()
+    n, k = keys.numel(), plane.numel()
+    offsets, total = scratch_layout(n, k, vals.element_size())
+    # freed on return: the caching allocator gives the block out again
+    # only to work queued after this launch on the same stream
+    scratch = torch.empty(total, dtype=torch.uint8, device=plane.device)
+    base = scratch.data_ptr()
     with torch.cuda.device(plane.device):
-        props = torch.cuda.get_device_properties(plane.device)
-        stream = torch.cuda.current_stream(plane.device).cuda_stream
         err = fn(
             _DTYPE_CODES[plane.dtype], _OP_CODES[op],
             keys.data_ptr(), vals.data_ptr(), plane.data_ptr(), emis.data_ptr(),
-            keys.numel(), _owners(props.multi_processor_count), stream,
+            None if bad_keys is None else bad_keys.data_ptr(),
+            n, k, sort_passes(k), *(base + o for o in offsets),
+            torch.cuda.current_stream(plane.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"seq_rolling_reduce launch failed: cudaError {err}")
 
 
-def _owners(n_sms: int) -> int:
-    """Owner warps: the largest power of two <= 8 warps per SM (one
-    256-thread block per SM on an H100: 1024 owners for 132 SMs)."""
-    n = 1
-    while n * 2 <= 8 * n_sms:
-        n *= 2
-    return n
-
-
 def seq_rolling_reduce_ref(
-    plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor, op: str = "max"
+    plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+    op: str = "max", bad_keys: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`seq_rolling_reduce`, on any device.
 
@@ -155,7 +224,9 @@ def seq_rolling_reduce_ref(
     back in arrival order, and the plane written at each segment's tail.
     Updates ``plane`` in place. max/min give the sequential fold's bits;
     sum adds in the scan's tree order, not in arrival order, so it agrees
-    with the kernel only to rounding.
+    with the kernel and the sequential fold only to rounding. Keys
+    ``>= K`` are counted into ``bad_keys`` and treated as padding, or
+    raise ``IndexError`` when there is no ``bad_keys``.
     """
     reducer = REDUCERS[op]
     flat = plane.view(-1)
@@ -165,6 +236,16 @@ def seq_rolling_reduce_ref(
     emis = v.clone()  # rows with a negative key pass their value through
     if n == 0:
         return emis.view(vals.shape)
+    over = k >= flat.numel()
+    if bad_keys is None:
+        if bool(over.any()):
+            raise IndexError(
+                f"key {int(k.max())} is out of range for a plane of "
+                f"{flat.numel()} keys"
+            )
+    else:
+        bad_keys += over.sum().to(bad_keys.dtype)
+        k = torch.where(over, -1, k)
     sk, perm = torch.sort(k, stable=True)
     x = v[perm]
     starts = torch.ones(n, dtype=torch.bool, device=k.device)

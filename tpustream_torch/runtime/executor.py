@@ -282,6 +282,14 @@ class Runner:
         m.steps += 1
         main = emissions["main"]
         with Stopwatch() as sw:
+            # checked before any row of the step reaches a sink
+            bad = main.get("bad_keys")
+            n_bad = 0 if bad is None else int(bad.cpu()[0])
+            if n_bad:
+                raise IndexError(
+                    f"{n_bad} rows carried a key id past the keyed state's "
+                    f"capacity of {self.cfg.key_capacity}"
+                )
             mask = main["mask"].cpu().numpy()
             sel = np.nonzero(mask)[0]
             out = [c.cpu().numpy()[sel] for c in main["cols"]]

@@ -96,6 +96,9 @@ class RollingProgram(BaseProgram):
         )
         self.out_kinds = self.post_chain.out_kinds
         self.out_tables = self.post_chain.out_tables
+        # rows whose key id passed the state's capacity, counted on the
+        # device; the Runner reads it with each step's fetch
+        self.bad_keys = torch.zeros(1, dtype=torch.int32, device=self.device)
 
     @property
     def sentinel_leaf(self):
@@ -122,11 +125,14 @@ class RollingProgram(BaseProgram):
         """One batch: ``cols`` are the record's ``[B]`` tensors, ``valid``
         bool[B]. Returns ``(state, {"main": stream})``; the stream's rows
         are in arrival order: ``mask`` (rows that emit), ``cols`` and
-        ``subtask`` (the key's owning subtask, for the print prefix)."""
+        ``subtask`` (the key's owning subtask, for the print prefix);
+        ``bad_keys`` counts rows whose key id was past the capacity, which
+        makes the step's output void."""
         mid_cols, mask = self._apply_pre(cols, valid)
         mid_cols, gkeys = self._split_key_col(mid_cols)
         keys = gkeys.to(torch.int32)
-        kwargs: Dict = {"sentinel_leaf": self.sentinel_leaf}
+        kwargs: Dict = {"sentinel_leaf": self.sentinel_leaf,
+                        "bad_keys": self.bad_keys}
         key_kind = None if self.plan.synthetic_key else self.mid_kinds[self.key_pos]
         if self.key_pos != self.pos and key_kind in (STR, I64):
             # key column is key-invariant: emit it straight from the key
@@ -141,7 +147,8 @@ class RollingProgram(BaseProgram):
         out_cols, out_mask = self.post_chain.apply(list(emitted), mask)
         n_shards = max(1, self.cfg.parallelism)
         subtask = torch.where(mask, keys, 0) % n_shards
-        main = {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask}
+        main = {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
+                "bad_keys": self.bad_keys}
         return state, {"main": main}
 
 
