@@ -5,22 +5,33 @@
 Builds every CUDA kernel of the port from this checkout, holds each
 against its plain PyTorch version on the card, drives the chapter-2
 rolling-max job through ``StreamExecutionEnvironment.execute`` at
-1M keys, and checks every emitted row against a host oracle. Prints the
-card's name and power limit, one line per kernel case (with a per-launch
-device-time split from ``torch.profiler`` for the main case, a cold-L2
-time and ``torch.sort`` as a reference point), a ``kernels`` JSON line
-and, last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing
-no result, when there is no CUDA device, when the package is not beside
-this script, or when any phase fails.
+1M keys, and checks every emitted row against a host oracle (phases
+``kernel`` and ``job``). Phase ``flagship`` drives the chapter-3
+event-time job (5 min / 5 s windows, 1 min delay) over 1M generated
+lines at B = 131072 and 1M channels, in the exact and the 32-bit
+configuration, checks every row against a host oracle and the loss
+counters against 0, prints its throughput, wall split and, from a
+second run, a ``torch.profiler`` split of four warm data steps beside
+those steps' wall times, and holds small runs (the
+event-time jump input, the processing-time goldens) against the same
+job on the CPU. Prints the card's name and power limit, one line per
+kernel case (with a per-launch device-time split from ``torch.profiler``
+for the main case, a cold-L2 time and ``torch.sort`` as a reference
+point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
+{...}}``. Exits non-zero, printing no result, when there is no CUDA
+device, when the package is not beside this script, or when any phase
+fails.
 
-Options (the default runs everything): ``--phases kernel,job``,
-``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input).
+Options (the default runs everything): ``--phases kernel,job,flagship``,
+``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
+``--flagship-lines N`` (flagship input).
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import datetime
 import json
 import re
 import statistics
@@ -394,11 +405,292 @@ def job_device_share(lines) -> None:
           f"device_busy_share_of_step={all_ms / steps / warm_ms}")
 
 
+# -- phase flagship: the chapter-3 event-time job ---------------------------
+
+T0_SEC = 1_566_957_600  # 2019-08-28T10:00:00 at UTC+8, the job's zone
+SIZE_MS, SLIDE_MS = 300_000, 5_000
+FLAGSHIP_CONFIGS = {
+    "exact": {},
+    # the 32-bit configuration: scatter-add planes and a fire budget
+    "int32": {"acc_dtype": "int32", "max_fires_per_step": 4},
+}
+ET_LINES = [
+    "2019-08-28T10:00:00 www.163.com 10000",
+    "2019-08-28T10:01:00 www.163.com 100",
+    "2019-08-28T10:02:00 www.163.com 100",
+    "2019-08-28T09:01:00 www.163.com 100",
+    "2019-08-28T10:06:00 www.163.com 100",
+]
+JUMP_LINES = [
+    "2019-08-28T09:03:00 www.163.com 1000",
+    "2019-08-28T09:04:00 www.163.com 2000",
+    "2019-08-28T09:05:00 www.163.com 3000",
+    "2019-08-28T09:01:00 www.163.com 9999",
+    "2019-08-28T10:06:00 www.163.com 5000",
+]
+FLOW_LINES = [
+    "2019-08-28T10:00:00 www.163.com 10000",
+    "2019-08-28T10:01:00 www.163.com 100",
+    "2019-08-28T10:02:00 www.163.com 100",
+    "2019-08-28T10:03:00 www.163.com 1000",
+]
+
+
+def make_flagship_input(n: int, n_channels: int, seed: int):
+    """``(lines, ts_sec, channel)``: n lines ``ISO-ts channel flow`` over
+    20 min of event time, each jittered back by up to 30 s (under the
+    1 min delay, so nothing is late); half from 1024 hot channels, half
+    uniform over ``n_channels``. Channels with ``id % 128 == 0`` send
+    1-1000 bytes and alert; the rest send 1e9 bytes (127 Mbps, filtered)."""
+    rng = np.random.default_rng(seed)
+    ts = T0_SEC + (np.arange(n, dtype=np.int64) * 1200) // n \
+        - rng.integers(0, 31, n)
+    ch = np.where(rng.random(n) < 0.5, rng.integers(0, 1024, n),
+                  rng.integers(0, n_channels, n))
+    flow = np.where(ch % 128 == 0, rng.integers(1, 1001, n), 10**9)
+    tz = datetime.timezone(datetime.timedelta(hours=8))
+    iso = {int(t): datetime.datetime.fromtimestamp(int(t), tz).strftime(
+        "%Y-%m-%dT%H:%M:%S") for t in np.unique(ts)}
+    lines = [f"{iso[t]} www.{c:07d}.com {f}" for t, c, f in
+             zip(ts.tolist(), ch.tolist(), flow.tolist())]
+    return lines, ts, ch, flow
+
+
+def flagship_oracle(ts, ch, flow, int32_panes=False):
+    """Flink's sliding event-time windows (5 min, 5 s): the flows of each
+    channel are summed per 5 s pane, and a window sums its 60 panes;
+    nothing is late and the end of the stream fires every window, so the
+    rows are every (window, channel) that passes the filter, in order of
+    window end, then of the channel's first arrival (its key id). Mbps
+    as the job computes it (a division by a constant is a multiply by
+    its reciprocal, as in the JAX package), filtered < 100.
+
+    ``int32_panes``: the 32-bit configuration stores each pane sum in
+    int32, which wraps mod 2^32 (three 1e9-byte records already do), and
+    adds the stored pane sums in int64 at the fire, as the JAX package
+    does. A channel whose pane sums are all exact has windows of at
+    least 1e9 bytes unless it alerts (``id % 128 == 0``), so only the
+    alerting channels and those with a wrapped pane sum are enumerated."""
+    rank = interned_ids(ch)
+    n_win = SIZE_MS // SLIDE_MS
+    cells, inv = np.unique((ts * 1000 // SLIDE_MS) * (1 << 21) + rank,
+                           return_inverse=True)
+    part = np.zeros(cells.size, np.int64)
+    np.add.at(part, inv, flow)
+    stored = ((part + 2**31) % 2**32) - 2**31 if int32_panes else part
+    cell_key, cell_pane = cells % (1 << 21), cells >> 21
+    names = np.empty(rank.max() + 1, np.int64)
+    names[rank] = ch
+    keep = np.zeros(names.size, bool)
+    keep[names % 128 == 0] = True
+    keep[cell_key[stored != part]] = True
+    sel = keep[cell_key]
+    # pane p lies in the windows ending at (p + 1) * slide .. (p + 60) * slide
+    ends = ((cell_pane[sel, None] + 1 + np.arange(n_win)) * SLIDE_MS).ravel()
+    keys = np.repeat(cell_key[sel], n_win)
+    wins, winv = np.unique(ends * (1 << 21) + keys, return_inverse=True)
+    sums = np.zeros(wins.size, np.int64)
+    np.add.at(sums, winv, np.repeat(stored[sel], n_win))
+    mbps = sums * 8.0 * (1 / 60) * (1 / 1024) * (1 / 1024)
+    return [(f"www.{int(names[k]):07d}.com", float(m)) for k, m in
+            zip(wins % (1 << 21), mbps) if m < 100.0]
+
+
+def run_flagship(lines, device, batch=B_MAIN, keys=K_MAIN, processing=False,
+                 **config):
+    """The chapter-3 job (event time, or the processing-time job) through
+    ``execute``: (rows, metrics, wall seconds)."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth, chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.sources import AdvanceProcessingTime, ReplaySource
+
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=device, batch_size=batch, key_capacity=keys,
+        alert_capacity=1 << 16, **config))
+    if processing:
+        env.set_stream_time_characteristic(TimeCharacteristic.ProcessingTime)
+        src = ReplaySource(lines + [AdvanceProcessingTime(61_000)])
+        handle = chapter3_bandwidth.build(env, env.add_source(src)).collect()
+    else:
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        handle = chapter3_bandwidth_eventtime.build(
+            env, env.add_source(ReplaySource(lines))).collect()
+    t0 = time.perf_counter()
+    env.execute("BandwidthMonitorWithEventTime")
+    return [repr(t) for t in handle.items], env.metrics, time.perf_counter() - t0
+
+
+def flagship_profile(lines, name: str, config: dict, main_step_s: list,
+                     first: int = 2, n: int = 4) -> None:
+    """The job over all ``lines`` again, ``torch.profiler`` (CPU and CUDA
+    activity) on from data step ``first`` through data step
+    ``first + n - 1`` (0-based, warm), with the drain steps among them
+    and none after. Each program step in that window runs in a labelled
+    range, so the device time of an aten op (the kernels it launches
+    itself) belongs to the step that issued it. Prints, from the same
+    steps of this one run: each data step's wall and device ms, the
+    drain steps' (int32 config) apart, the card's busy share of a warm
+    data step and the device ms of a data step by op (top 10); and the
+    same steps' wall ms in the unprofiled run (``main_step_s``), where
+    the host issues the same kernels without the profiler's cost, with
+    the busy share against those. The end-of-stream flush lies outside
+    the window."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tpustream_torch.runtime.window_program import WindowProgram
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = []  # (step index, "data" | "drain") of the profiled steps
+    seen = {"steps": 0, "data": 0, "on": False, "last_done": False}
+    plain_step = WindowProgram.step
+
+    def step(self, state, cols, valid, ts, wm_lower):
+        i = seen["steps"]
+        seen["steps"] += 1
+        kind = "data" if valid.shape[0] > 1 else "drain"  # drains: 1 row
+        d = seen["data"]
+        if seen["last_done"]:
+            # stopping takes seconds: it falls in the step after the
+            # window, which is not reported
+            prof.stop()
+            seen["on"] = seen["last_done"] = False
+        if kind == "data":
+            seen["data"] += 1
+            if d == first:
+                prof.start()
+                seen["on"] = True
+        if not seen["on"]:
+            return plain_step(self, state, cols, valid, ts, wm_lower)
+        window.append((i, kind))
+        with record_function(f"chip_smoke_step_{i}"):
+            out = plain_step(self, state, cols, valid, ts, wm_lower)
+            torch.cuda.synchronize()
+        seen["last_done"] = kind == "data" and d == first + n - 1
+        return out
+
+    WindowProgram.step = step
+    try:
+        _, m, _ = run_flagship(lines, "cuda", **config)
+    finally:
+        WindowProgram.step = plain_step
+    if seen["on"] or not window:
+        raise AssertionError(f"flagship {name}: the run has under "
+                             f"{first + n} data steps to profile")
+    if m.steps != len(main_step_s):
+        raise AssertionError(f"flagship {name}: {m.steps} steps profiled "
+                             f"run vs {len(main_step_s)} unprofiled")
+
+    events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    int(e.name.rsplit("_", 1)[1])) for e in events
+                   if e.name.startswith("chip_smoke_step_"))
+    starts = [s[0] for s in spans]
+    dev = {i: 0.0 for i, _ in window}
+    by_op = {}
+    kinds = dict(window)
+    for e in events:
+        t = getattr(e, "self_device_time_total", 0) / 1e3
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        if t <= 0 or j < 0 or e.time_range.start >= spans[j][1]:
+            continue
+        i = spans[j][2]
+        dev[i] += t
+        if kinds[i] == "data":
+            by_op[e.key] = by_op.get(e.key, 0.0) + t
+    data = [i for i, k in window if k == "data"]
+    drain = [i for i, k in window if k == "drain"]
+    wall = {i: m.step_times_s[i] * 1e3 for i, _ in window}
+    plain_wall = [main_step_s[i] * 1e3 for i in data]
+    dev_data = sum(dev[i] for i in data)
+    print(f"flagship {name} profiled run: data steps {data} (step indices) "
+          f"wall_ms={[wall[i] for i in data]} "
+          f"device_ms={[dev[i] for i in data]} "
+          f"device_busy_share_of_data_step="
+          f"{dev_data / sum(wall[i] for i in data)}; unprofiled run, same "
+          f"steps (same kernels, no profiler on the host): wall_ms="
+          f"{plain_wall} device_busy_share={dev_data / sum(plain_wall)}")
+    print(f"flagship {name} profiled run: {len(drain)} drain steps among "
+          f"them, wall_ms_sum={sum(wall[i] for i in drain)} "
+          f"device_ms_sum={sum(dev[i] for i in drain)}")
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+    print(f"flagship {name} device ms per data step by op: " + ", ".join(
+        f"{k}={v / len(data)}" for k, v in top))
+
+
+def flagship_phase(n_lines: int) -> None:
+    from tpustream_torch.ops import seq_rolling as S
+
+    t0 = time.perf_counter()
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    print(f"flagship input: {n_lines} lines over 20 min of event time, "
+          f"{np.unique(ch).size} channels "
+          f"({time.perf_counter() - t0:.1f} s to generate)")
+    for name, config in FLAGSHIP_CONFIGS.items():
+        t0 = time.perf_counter()
+        want = flagship_oracle(ts, ch, flow, int32_panes=name == "int32")
+        print(f"flagship {name}: {len(want)} oracle rows "
+              f"({time.perf_counter() - t0:.1f} s)")
+        # the flagship runs no hand-written kernel: the count shows it
+        S.seq_rolling_reduce.launches = 0
+        rows, m, wall = run_flagship(lines, "cuda", **config)
+        print(f"flagship {name}: seq_rolling_reduce launches="
+              f"{S.seq_rolling_reduce.launches}")
+        want_repr = [f"({c},{v!r})" for c, v in want]
+        if rows != want_repr:
+            bad = next((i for i, (a, b) in enumerate(zip(rows, want_repr))
+                        if a != b), min(len(rows), len(want_repr)))
+            raise AssertionError(
+                f"flagship {name}: {len(rows)} rows vs {len(want_repr)} from "
+                f"the oracle, first difference at row {bad}")
+        losses = {k: getattr(m, k) for k in
+                  ("late_dropped", "alert_overflow", "evicted_unfired")}
+        if any(losses.values()):
+            raise AssertionError(f"flagship {name}: loss counters {losses}")
+        s = m.summary()
+        rest = m.step_times_s[1:] or m.step_times_s
+        stages = {k: s[f"{k}_time_s"] for k in
+                  ("build", "host", "upload", "device", "fetch", "emit")}
+        print(f"flagship {name}: {len(rows)} rows equal the oracle; {losses}; "
+              f"window_fires={m.window_fires} steps={m.steps} "
+              f"d2h_syncs_per_step={m.d2h_syncs / m.steps}")
+        # build: the program (liveness traces, whose first one in a
+        # process also imports torch's tracing modules, and the state);
+        # other: the source and the loop around the stages
+        print(f"flagship {name}: events_per_s_end_to_end={n_lines / wall} "
+              f"wall_s={wall} build_s={stages['build']} "
+              f"parse_s={stages['host']} upload_s={stages['upload']} "
+              f"step_s={stages['device']} fetch_s={stages['fetch']} "
+              f"emit_s={stages['emit']} other_s={wall - sum(stages.values())} "
+              f"step_ms_first={m.step_times_s[0] * 1e3} "
+              f"step_ms_median_rest={statistics.median(rest) * 1e3}")
+        flagship_profile(lines, name, config, m.step_times_s)
+
+    # small runs: the card's rows equal the same job's on the CPU
+    small = [("event-time jump, batch 8", JUMP_LINES, dict(batch=8)),
+             ("event-time jump, batch 1", JUMP_LINES, dict(batch=1)),
+             ("event-time golden, batch 1", ET_LINES, dict(batch=1)),
+             ("processing-time tumbling golden", FLOW_LINES,
+              dict(batch=8, processing=True))]
+    for label, small_lines, kw in small:
+        for name, config in FLAGSHIP_CONFIGS.items():
+            card, _, _ = run_flagship(small_lines, "cuda", keys=1024, **kw, **config)
+            cpu, _, _ = run_flagship(small_lines, "cpu", keys=1024, **kw, **config)
+            if card != cpu or not card:
+                raise AssertionError(
+                    f"{label} {name}: card rows {card} != CPU rows {cpu}")
+            print(f"flagship small run {label} {name}: {len(card)} rows, "
+                  f"card equals CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernel,job")
+    ap.add_argument("--phases", default="kernel,job,flagship")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
+    ap.add_argument("--flagship-lines", type=int, default=1_000_000)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -416,6 +708,8 @@ def main() -> int:
     build_kernels()
     cases = kernel_phase(args.reps) if "kernel" in phases else {}
     launches = job_phase(args.lines) if "job" in phases else {}
+    if "flagship" in phases:
+        flagship_phase(args.flagship_lines)
     main_case = cases.get(("float64", "max", "uniform"))
     if main_case is not None:
         print(json.dumps({"kernels": [{

@@ -23,7 +23,10 @@ def test_import_loads_no_jax_and_no_reference_package():
     code = (
         "import sys\n"
         "import tpustream_torch, tpustream_torch.jobs.chapter2_max\n"
+        "import tpustream_torch.jobs.chapter3_bandwidth\n"
+        "import tpustream_torch.jobs.chapter3_bandwidth_eventtime\n"
         "import tpustream_torch.runtime.executor, tpustream_torch.kernels\n"
+        "import tpustream_torch.runtime.window_program\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -32,6 +35,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         capture_output=True, text=True, check=True,
     ).stdout.split()
     assert "tpustream_torch.jobs.chapter2_max" in out
+    assert "tpustream_torch.jobs.chapter3_bandwidth_eventtime" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -65,4 +69,25 @@ def test_cuda_device_without_card_raises(monkeypatch):
     handle = build(env, env.add_source(ReplaySource(["1 h cpu0 1.0"]))).collect()
     with pytest.raises(RuntimeError, match="cuda"):
         env.execute("k")
+    assert handle.items == []
+
+
+def test_flagship_on_cuda_without_card_raises(monkeypatch):
+    from tpustream_torch import (
+        StreamConfig,
+        StreamExecutionEnvironment,
+        TimeCharacteristic,
+    )
+    from tpustream_torch.jobs.chapter3_bandwidth_eventtime import build
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = StreamExecutionEnvironment(StreamConfig())
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    assert env.config.device == "cuda"
+    lines = ["2019-08-28T10:00:00 www.163.com 10000",
+             "2019-08-28T10:06:00 www.163.com 100"]
+    handle = build(env, env.add_source(ReplaySource(lines))).collect()
+    with pytest.raises(RuntimeError, match="cuda"):
+        env.execute("BandwidthMonitorWithEventTime")
     assert handle.items == []

@@ -7,6 +7,14 @@ program step, fetches the emissions and hands them to the sinks, and the
 stream ends when the source yields its final batch. Output bytes match
 the reference's for the same input.
 
+Time: each step gets the batch's event timestamps (event time) or
+processing timestamps, and a watermark floor from the host clock
+(``proc_now - 1`` in processing time). A processing-time tick
+(``AdvanceProcessingTime``) runs an empty step at the new clock, and the
+end of the stream runs one at ``MAX_WATERMARK`` (event time) or at the
+clock (processing time), so every remaining window fires. Under
+``max_fires_per_step`` empty steps drain deferred fires after each step.
+
 Not ported here, and refused by :func:`execute_job` rather than ignored:
 checkpoints and restore, supervised restarts, the observability layer,
 ingest lanes, dead-letter quarantine and chained stages. The reference's
@@ -23,10 +31,11 @@ import numpy as np
 import torch
 
 from ..api.functions import as_callable
-from ..api.watermarks import AssignerWithPunctuatedWatermarks
+from ..api.timeapi import TimeCharacteristic
+from ..api.watermarks import LONG_MIN, MAX_WATERMARK, AssignerWithPunctuatedWatermarks
 from ..config import StreamConfig
 from ..hostparse import PlanEvaluator, run_fallback_map
-from ..records import STR, Batch, Column, DerivedKeyTable, StringTable
+from ..records import NUMPY_DTYPES, STR, Batch, Column, DerivedKeyTable, StringTable
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
 from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink
@@ -219,6 +228,10 @@ class Runner:
     """Feeds batches through the program on its device and fans the
     emissions out to the sinks."""
 
+    _COUNTER_NAMES = (
+        "window_fires", "late_dropped", "alert_overflow", "evicted_unfired",
+    )
+
     def __init__(self, plan: JobPlan, cfg: StreamConfig, metrics: Metrics):
         self.plan = plan
         self.cfg = cfg
@@ -230,6 +243,8 @@ class Runner:
         self.formatter = EmissionFormatter(
             self.program.out_kinds, self.program.out_tables
         )
+        self.event_time = plan.time_characteristic == TimeCharacteristic.EventTime
+        self._empty: Optional[Batch] = None
 
     def _check_capacity(self) -> None:
         """Keyed state grows without bound, Flink's contract
@@ -246,13 +261,46 @@ class Runner:
         self.state = self.program.grow_state(self.state, cap)
         self.cfg = dataclasses.replace(self.cfg, key_capacity=cap)
 
-    def feed(self, batch: Batch) -> None:
+    def feed(self, batch: Batch, wm_lower: int = LONG_MIN + 1) -> None:
         self._check_capacity()
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
-            self._run_step(batch.slice_rows(start, stop))
+            self._run_step(batch.slice_rows(start, stop), wm_lower)
             self.metrics.records_in += stop - start
+            # deferred window ends fire before the next batch can move
+            # the ring past them
+            self._drain(wm_lower)
+
+    def flush(self, wm_lower: int) -> None:
+        """Advance time with an empty batch (processing-time tick / end
+        of stream), then drain any fires deferred by the budget."""
+        if not self.program.fires_on_clock:
+            return
+        self._run_step(self._empty_batch(), wm_lower)
+        self._drain(wm_lower)
+
+    def _drain(self, wm_lower: int) -> None:
+        """Empty steps until no window end stays deferred by
+        ``max_fires_per_step`` (each still fires at most the budget)."""
+        if self.cfg.max_fires_per_step is None:
+            return
+        for _ in range(self.program.ring.n_fire_candidates + 2):
+            if not self.state.get("pending_fires"):
+                return
+            self._run_step(self._empty_batch(), wm_lower)
+
+    def _empty_batch(self) -> Batch:
+        """One invalid row of the input layout."""
+        if self._empty is None:
+            cols = [
+                Column(k, np.zeros(1, dtype=NUMPY_DTYPES[k]), t)
+                for k, t in zip(self.plan.record_kinds, self.plan.tables)
+            ]
+            zero = np.zeros(1, dtype=np.int64)
+            self._empty = Batch(1, cols, ts=zero, proc_ts=zero,
+                                valid=np.zeros(1, dtype=np.bool_))
+        return self._empty
 
     def _upload(self, batch: Batch):
         pin = self.device.type == "cuda"
@@ -263,43 +311,83 @@ class Runner:
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=pin)
 
-        return [put(c.data) for c in batch.columns], put(batch.valid)
+        cols = [put(c.data) for c in batch.columns]
+        if not self.program.fires_on_clock:
+            return cols, put(batch.valid), None
+        if self.event_time and batch.ts is not None:
+            ts = batch.ts
+        elif batch.proc_ts is not None:
+            ts = batch.proc_ts
+        else:
+            ts = np.zeros(batch.n, dtype=np.int64)
+        return cols, put(batch.valid), put(ts)
+
+    def _to_host(self, tensors) -> List[np.ndarray]:
+        """Copy device tensors to the host with one wait for them all."""
+        self.metrics.d2h_syncs += 1
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for o, t in zip(outs, tensors):
+            o.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [o.numpy() for o in outs]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_step(self, batch: Batch) -> None:
+    def _run_step(self, batch: Batch, wm_lower: int) -> None:
         m = self.metrics
         with Stopwatch() as sw:
-            cols, valid = self._upload(batch)
+            cols, valid, ts = self._upload(batch)
             self._sync()
         m.upload_times_s.append(sw.elapsed)
+        reads = self.program.host_reads
         with Stopwatch() as sw:
-            self.state, emissions = self.program.step(self.state, cols, valid)
+            self.state, emissions = self.program.step(
+                self.state, cols, valid, ts, wm_lower)
             self._sync()
         m.step_times_s.append(sw.elapsed)
+        m.d2h_syncs += self.program.host_reads - reads
         m.steps += 1
         main = emissions["main"]
         with Stopwatch() as sw:
-            # checked before any row of the step reaches a sink
-            bad = main.get("bad_keys")
-            n_bad = 0 if bad is None else int(bad.cpu()[0])
-            if n_bad:
-                raise IndexError(
-                    f"{n_bad} rows carried a key id past the keyed state's "
-                    f"capacity of {self.cfg.key_capacity}"
-                )
-            mask = main["mask"].cpu().numpy()
-            sel = np.nonzero(mask)[0]
-            out = [c.cpu().numpy()[sel] for c in main["cols"]]
-            subtask = main["subtask"].cpu().numpy()[sel]
+            out, subtask = self._fetch(main)
         m.fetch_times_s.append(sw.elapsed)
         with Stopwatch() as sw:
             for j, row in enumerate(self.formatter.rows(out)):
                 self._emit_row(row, int(subtask[j]))
-            m.records_emitted += int(sel.size)
+            m.records_emitted += len(subtask)
         m.emit_times_s.append(sw.elapsed)
+
+    def _fetch(self, main):
+        """The step's emitted rows on the host: (columns, subtasks)."""
+        n_shards = max(1, self.cfg.parallelism)
+        if self.program.main_emission_prefix:
+            # read the count, then copy only that many rows
+            count = main["count"]
+            if isinstance(count, torch.Tensor):
+                (count,) = self._to_host([count])
+            n = int(count)
+            if n == 0:
+                return [], np.zeros(0, dtype=np.int64)
+            got = self._to_host([c[:n] for c in main["cols"]] + [main["key"][:n]])
+            return got[:-1], got[-1].astype(np.int64) % n_shards
+        # checked before any row of the step reaches a sink
+        bad = main.get("bad_keys")
+        extra = [] if bad is None else [bad]
+        got = self._to_host(
+            [main["mask"], main["subtask"]] + list(main["cols"]) + extra)
+        if bad is not None and int(got[-1][0]):
+            raise IndexError(
+                f"{int(got[-1][0])} rows carried a key id past the keyed "
+                f"state's capacity of {self.cfg.key_capacity}"
+            )
+        sel = np.nonzero(got[0])[0]
+        cols = got[2:len(got) - len(extra)]
+        return [c[sel] for c in cols], got[1][sel]
 
     def _emit_row(self, row, subtask: int) -> None:
         """Fan one emitted record out to every branch: the branch's
@@ -308,6 +396,28 @@ class Runner:
             item, keep = _apply_ops(ops, row)
             if keep:
                 sink.emit(item, subtask=subtask)
+
+    def finalize_metrics(self) -> None:
+        """Fold the device-side counters into Metrics (one read a job)."""
+        names = [n for n in self._COUNTER_NAMES if n in self.state]
+        if names:
+            vals = self._to_host([self.state[n] for n in names])
+            for n, v in zip(names, vals):
+                setattr(self.metrics, n, int(v))
+
+    def check_strict(self) -> None:
+        """strict_overflow: fail loudly if any loss counter is nonzero
+        (call after :meth:`finalize_metrics`)."""
+        if not self.cfg.strict_overflow:
+            return
+        bad = {n: v for n, v in self.metrics.overflow_counts().items() if v}
+        if bad:
+            raise RuntimeError(
+                "strict_overflow: records were lost or truncated: "
+                + ", ".join(f"{n}={v}" for n, v in sorted(bad.items()))
+                + " — raise the relevant capacity (alert_capacity / "
+                "pane_ring_slack)"
+            )
 
 
 def _check_supported(env, cfg: StreamConfig) -> None:
@@ -346,32 +456,49 @@ def execute_job(env, sink_nodes) -> JobResult:
     cfg = env.config
     _check_supported(env, cfg)
     resolve_device(cfg.device)  # refuse a missing card before any work
-    plans = build_plan_chain(env, sink_nodes)
-    if len(plans) > 1:
-        raise NotImplementedError(
-            "chained stages (key_by after a keyed operator) are not ported "
-            "to the PyTorch runtime yet"
-        )
-    plan = plans[0]
-    if plan.side_outputs:
-        raise NotImplementedError(
-            "side outputs are not ported to the PyTorch runtime yet"
-        )
-    host = HostStage(plan, cfg)
-    metrics = Metrics()
+    with Stopwatch() as setup:
+        plans = build_plan_chain(env, sink_nodes)
+        if len(plans) > 1:
+            raise NotImplementedError(
+                "chained stages (key_by after a keyed operator) are not "
+                "ported to the PyTorch runtime yet"
+            )
+        plan = plans[0]
+        if plan.side_outputs:
+            raise NotImplementedError(
+                "side outputs are not ported to the PyTorch runtime yet"
+            )
+        host = HostStage(plan, cfg)
+    metrics = Metrics(build_time_s=setup.elapsed)
     env.metrics = metrics
     runner: Optional[Runner] = None
+    processing_time = plan.time_characteristic == TimeCharacteristic.ProcessingTime
+    proc_now = 0
     for sb in plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms):
         with Stopwatch() as hw:
             batch = host.process(_lines(sb), sb.proc_ts)
         metrics.host_times_s.append(hw.elapsed)
         metrics.batches += 1
+        if sb.proc_ts.size:
+            proc_now = max(proc_now, int(sb.proc_ts.max()))
+        if sb.advance_proc_to is not None:
+            proc_now = max(proc_now, int(sb.advance_proc_to))
         if batch is not None:
             if runner is None:
                 # built on the first batch: an adaptive parse schema is
                 # known only then
-                runner = Runner(plan, cfg, metrics)
-            runner.feed(batch)
+                with Stopwatch() as bw:
+                    runner = Runner(plan, cfg, metrics)
+                metrics.build_time_s += bw.elapsed
+            runner.feed(batch, proc_now - 1 if processing_time else LONG_MIN + 1)
+        elif sb.advance_proc_to is not None and runner is not None and processing_time:
+            runner.flush(proc_now - 1)  # the processing-time clock ticked
         if sb.final:
             break
+    if runner is not None:
+        # Flink's end of input: a MAX watermark fires every remaining
+        # event-time window; processing time fires up to the clock
+        runner.flush(proc_now - 1 if processing_time else MAX_WATERMARK)
+        runner.finalize_metrics()
+        runner.check_strict()
     return JobResult(metrics)

@@ -3,6 +3,8 @@
 A plain counterpart of tpustream/runtime/metrics.py without its metrics
 registry. Every time is a host-clock interval; the step interval ends in
 a device synchronise, so it covers the device's work for the batch.
+``window_fires``, ``late_dropped`` and the loss counters accumulate on
+the device and are folded in once per job (``Runner.finalize_metrics``).
 """
 
 from __future__ import annotations
@@ -18,11 +20,24 @@ class Metrics:
     records_in: int = 0        # records fed to the device program
     records_emitted: int = 0   # records handed to the sinks
     steps: int = 0             # device steps run
+    d2h_syncs: int = 0         # waits on a device-to-host copy
+    window_fires: int = 0      # (key, window) results fired
+    late_dropped: int = 0      # records behind the watermark, dropped
+    alert_overflow: int = 0    # fired rows past alert_capacity, lost
+    evicted_unfired: int = 0   # records cleared from the ring unfired
+    build_time_s: float = 0.0  # set-up: plan, host stage, program, state
     host_times_s: List[float] = field(default_factory=list)   # parse
     upload_times_s: List[float] = field(default_factory=list)  # host -> device
     step_times_s: List[float] = field(default_factory=list)    # step + sync
     fetch_times_s: List[float] = field(default_factory=list)   # device -> host
     emit_times_s: List[float] = field(default_factory=list)    # format + sinks
+
+    def overflow_counts(self) -> dict:
+        """The loss counters a strict job must keep at zero."""
+        return {
+            "alert_overflow": self.alert_overflow,
+            "evicted_unfired": self.evicted_unfired,
+        }
 
     def summary(self) -> dict:
         step = sum(self.step_times_s)
@@ -31,6 +46,12 @@ class Metrics:
             "records_in": self.records_in,
             "records_emitted": self.records_emitted,
             "steps": self.steps,
+            "d2h_syncs": self.d2h_syncs,
+            "window_fires": self.window_fires,
+            "late_dropped": self.late_dropped,
+            "alert_overflow": self.alert_overflow,
+            "evicted_unfired": self.evicted_unfired,
+            "build_time_s": self.build_time_s,
             "host_time_s": sum(self.host_times_s),
             "upload_time_s": sum(self.upload_times_s),
             "device_time_s": step,

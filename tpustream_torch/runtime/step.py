@@ -2,9 +2,11 @@
 job, run eagerly with PyTorch on ``StreamConfig.device``.
 
 Counterpart of tpustream/runtime/step.py for one device. Ported: the
-keyed rolling max/min/sum (``RollingProgram``). Every other program
+keyed rolling max/min/sum (``RollingProgram``) and the tumbling/sliding
+window ``reduce`` (``window_program.WindowProgram``). Every other program
 family, and ``parallelism > 1``, raises ``NotImplementedError`` from
-:func:`build_program`.
+:func:`build_program`. A step takes ``(state, cols, valid, ts,
+wm_lower)``, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +36,13 @@ def resolve_device(name: str) -> torch.device:
 
 class BaseProgram:
     """Common structure: pre chain -> stateful core -> post chain."""
+
+    # False for programs with no time semantics: a clock tick or the end
+    # of the stream can never make them emit, so the executor skips it
+    fires_on_clock = False
+    # True when the "main" emission's rows are a compacted prefix of its
+    # buffers (``count`` rows), False when a ``mask`` selects them
+    main_emission_prefix = False
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         self.plan = plan
@@ -99,6 +108,7 @@ class RollingProgram(BaseProgram):
         # rows whose key id passed the state's capacity, counted on the
         # device; the Runner reads it with each step's fetch
         self.bad_keys = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.host_reads = 0  # the step reads nothing back itself
 
     @property
     def sentinel_leaf(self):
@@ -121,9 +131,10 @@ class RollingProgram(BaseProgram):
             sentinel_leaf=self.sentinel_leaf,
         )
 
-    def step(self, state: dict, cols, valid) -> tuple:
+    def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` are the record's ``[B]`` tensors, ``valid``
-        bool[B]. Returns ``(state, {"main": stream})``; the stream's rows
+        bool[B]; a rolling aggregate has no clock, so ``ts`` and
+        ``wm_lower`` are ignored. Returns ``(state, {"main": stream})``; the stream's rows
         are in arrival order: ``mask`` (rows that emit), ``cols`` and
         ``subtask`` (the key's owning subtask, for the print prefix);
         ``bad_keys`` counts rows whose key id was past the capacity, which
@@ -165,6 +176,10 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
         )
     if plan.stateful.kind in ("rolling", "rolling_reduce"):
         return RollingProgram(plan, cfg)
+    if plan.stateful.kind == "window":
+        from .window_program import WindowProgram
+
+        return WindowProgram(plan, cfg)
     raise NotImplementedError(
         f"{plan.stateful.kind} programs are not ported to the PyTorch "
         f"runtime yet"

@@ -1,0 +1,654 @@
+"""Windowed keyed aggregation on a pane ring (PyTorch).
+
+Counterpart of tpustream/runtime/window_program.py for ``reduce`` over
+tumbling and sliding time windows, in processing and event time
+(reference chapter3/.../BandwidthMonitor.java:32-41,
+chapter3/.../BandwidthMonitorWithEventTime.java:45-55). One step:
+
+  1. masked pre-chain (map/filter) over the batch,
+  2. watermark update: monotone ``max(max_seen - delay, clock_hint)``,
+  3. late split against the PRE-batch watermark,
+  4. state merge into flat ``[slot * K + key]`` word planes, either a
+     non-unique scatter-add/min/max (``acc_dtype="int32"`` with a
+     commutative combiner) or a stable sort by cell, a segmented scan
+     with the user combiner, a gather of the old cell and a set-scatter
+     at segment tails (the exact default),
+  5. fire: window ends that crossed the watermark fire IN ORDER, at most
+     ``max_fires_per_step`` a step; each fire folds its panes densely
+     over all keys, runs the post chain, and append-compacts the rows it
+     keeps into a ``[alert_capacity]`` buffer.
+
+The reference's traced control flow (``lax.cond``, ``scan``,
+``while_loop``) is Python control flow here. Ring metadata (``hi``,
+``slot_pane``, the watermark, ``fired_through``, ``pending_fires``) is
+kept on the host, so a step reads the device once for the batch's
+decision scalars (its newest timestamp, newest and oldest live pane,
+largest key), once per fire pass for the slots that hold a record (a
+fire skips the others), and, only on the jump sweep, once per sweep
+iteration. The
+loss and fire counters accumulate on the device and are read once per
+job. Each flat plane carries one trailing sink cell that masked rows of
+a scatter write to.
+
+Not ported (``NotImplementedError`` naming the roadmap item):
+``aggregate`` (item 3), ``process`` (item 5), allowed lateness and late
+side outputs (item 3), and ``acc_dtype="float32"``: a float scatter-add
+through atomics has no fixed order on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..api.functions import as_callable
+from ..api.timeapi import TimeCharacteristic
+from ..records import F64, STR
+from ..ops import liveness
+from ..ops import panes as pane_ops
+from ..ops.panes import W0
+from ..ops.segments import (
+    segment_ranks,
+    segment_tails,
+    segmented_scan,
+    sort_by_key,
+)
+from ..ops.wordplanes import pack_words, plane_dtypes, unpack_words
+from ..arith import reference_arithmetic
+from .device import TORCH_DTYPES, DeviceChain, dummy_leaf, unwrap_record, wrap_record
+from .plan import JobPlan
+from .step import BaseProgram
+
+INF = 2**62
+COUNTERS = ("window_fires", "late_dropped", "alert_overflow", "evicted_unfired")
+
+
+class _Emission:
+    """The step's append-compacted output buffer: ``cols`` (post-chain
+    columns, then the key id and the window end) of ``[capacity]`` rows,
+    allocated at the first fire; ``count`` the rows written (a device
+    int32)."""
+
+    def __init__(self):
+        self.cols: Optional[List[torch.Tensor]] = None
+        self.count: Optional[torch.Tensor] = None
+
+    def append(self, emit, src_cols, capacity: int):
+        """Append the rows of ``src_cols`` where ``emit``, in key order,
+        after the rows already written (``panes.append_compact``).
+        Returns the rows that did not fit (a device int64)."""
+        self.cols, self.count, overflowed = pane_ops.append_compact(
+            emit, src_cols, self.cols, self.count, capacity
+        )
+        return overflowed
+
+
+class WindowProgram(BaseProgram):
+    accepted_kinds = ("tumbling", "sliding")
+    fires_on_clock = True
+    main_emission_prefix = True  # append-compacted alert buffer
+
+    def __init__(self, plan: JobPlan, cfg):
+        super().__init__(plan, cfg)
+        st = plan.stateful
+        spec = st.window
+        if spec.kind not in self.accepted_kinds:
+            raise NotImplementedError(
+                f"{spec.kind} windows are not ported to the PyTorch runtime "
+                f"yet (roadmap queue items 6-7)"
+            )
+        if st.apply_kind != "reduce":
+            item = {"aggregate": 3, "process": 5}.get(st.apply_kind)
+            raise NotImplementedError(
+                f"window {st.apply_kind}() is not ported to the PyTorch "
+                f"runtime yet (roadmap queue item {item}); reduce() is"
+            )
+        if st.allowed_lateness_ms > 0 or st.late_tag is not None or plan.side_outputs:
+            raise NotImplementedError(
+                "allowed lateness and late side outputs are not ported to "
+                "the PyTorch runtime yet (roadmap queue item 3)"
+            )
+        if str(cfg.acc_dtype) not in ("float64", "int32"):
+            raise NotImplementedError(
+                f"acc_dtype={cfg.acc_dtype!r} is not ported to the PyTorch "
+                f"runtime: a float scatter-add through atomics has no fixed "
+                f"order on the card; use 'float64' or 'int32'"
+            )
+        self.key_pos = plan.key_pos
+        if (
+            spec.time_domain == TimeCharacteristic.EventTime
+            and plan.time_characteristic == TimeCharacteristic.EventTime
+            and plan.ts_assigner is None
+            and not plan.upstream_supplies_ts
+        ):
+            raise RuntimeError(
+                "event-time windows need assign_timestamps_and_watermarks "
+                "before other operators (reference "
+                "chapter3/.../BandwidthMonitorWithEventTime.java:29)"
+            )
+        self.domain = spec.time_domain
+        # processing time: wm = max_proc_seen - 1 so a record at T fires
+        # windows ending <= T (timer semantics); ingestion time rides the
+        # event machinery with the assigner's delay
+        self.delay_ms = (
+            plan.ts_delay_ms if self.domain == TimeCharacteristic.EventTime else 1
+        )
+        self.ring = pane_ops.make_ring_spec(
+            spec.size_ms, spec.slide_ms, self.delay_ms, 0, cfg.pane_ring_slack
+        )
+        self._build_agg()
+        self.post_chain = DeviceChain(
+            plan.device_post, self.result_kinds, self.result_tables
+        )
+        self.out_kinds = self.post_chain.out_kinds
+        self.out_tables = self.post_chain.out_tables
+        self._analyze_columns()
+        self._check_cells(cfg.key_capacity)
+        # device reads of this program (the executor counts its own)
+        self.host_reads = 0
+        self._key_ids = {}
+
+    # ------------------------------------------------------------------
+    # aggregation plumbing: lift / combine / finalize on leaf tuples
+    # ------------------------------------------------------------------
+    def _build_agg(self) -> None:
+        kinds, tables = self.mid_kinds, self.mid_tables
+        fn = as_callable(self.plan.stateful.apply_fn, "reduce")
+
+        def combine(a, b):
+            with reference_arithmetic():
+                ra = wrap_record(kinds, tables, list(a))
+                rb = wrap_record(kinds, tables, list(b))
+                out, _, _ = unwrap_record(fn(ra, rb))
+            return tuple(out)
+
+        self.combine = combine
+        self.acc_kinds = list(kinds)
+        self.result_kinds = list(kinds)
+        self.result_tables = list(tables)
+
+    def _analyze_columns(self) -> None:
+        """Which accumulator leaves to store (liveness over the post
+        chain and the combiner), whether the key leaf is rebuilt from the
+        cell index, and whether the scatter-reduce path applies."""
+        arity = len(self.acc_kinds)
+        dummies = [dummy_leaf(k) for k in self.acc_kinds]
+
+        def result_probe(*acc):
+            outs, keep, _, _ = self.post_chain._record_fn(
+                list(acc), torch.tensor(True)
+            )
+            return tuple(outs) + (keep,)
+
+        def combine_probe(*ab):
+            return self.combine(tuple(ab[:arity]), tuple(ab[arity:]))
+
+        live = liveness.live_accumulator_leaves(
+            result_probe, combine_probe, dummies, arity
+        )
+        self.live_idx = [i for i, l in enumerate(live) if l]
+        passthrough = liveness.passthrough_outputs(
+            combine_probe, dummies + dummies, arity
+        )
+        self.key_leaf: Optional[int] = None
+        if self.key_pos in self.live_idx and passthrough[self.key_pos]:
+            self.key_leaf = self.key_pos
+        self.stored_idx = [i for i in self.live_idx if i != self.key_leaf]
+        self.stored_kinds = [self.acc_kinds[i] for i in self.stored_idx]
+        ops = liveness.leaf_algebraic_ops(combine_probe, dummies, arity)
+        self.stored_ops = [ops[i] for i in self.stored_idx]
+        wants32 = str(self.cfg.acc_dtype) == "int32"
+        self.compact32 = [
+            wants32 and op in ("add", "min", "max") for op in self.stored_ops
+        ]
+        self.plane_dtypes = plane_dtypes(self.stored_kinds, self.compact32)
+        self.fast_reduce = (
+            wants32
+            and all(op in ("add", "min", "max") for op in self.stored_ops)
+            and len(self.plane_dtypes) == len(self.stored_idx)
+        )
+        if self.fast_reduce and any(
+            dt.is_floating_point and op == "add"
+            for dt, op in zip(self.plane_dtypes, self.stored_ops)
+        ):
+            raise NotImplementedError(
+                "acc_dtype='int32' over a float leaf summed by the combiner "
+                "is not ported: a float scatter-add through atomics has no "
+                "fixed order on the card; use acc_dtype='float64'"
+            )
+
+    def _check_cells(self, key_capacity: int) -> None:
+        n = self.ring.n_slots
+        if n * key_capacity >= 2**31 - 1:
+            raise ValueError(
+                f"pane ring cells ({n} slots x {key_capacity} keys) exceed "
+                "int32 addressing; lower key_capacity or window/pane ratio"
+            )
+
+    def _plane_identities(self) -> List:
+        """Value each plane starts at and is cleared to: the op's
+        identity on the scatter-reduce path (it merges straight into the
+        plane), else 0."""
+        if not self.fast_reduce:
+            return [0 for _ in self.plane_dtypes]
+        out = []
+        for dt, op in zip(self.plane_dtypes, self.stored_ops):
+            info = torch.finfo(dt) if dt.is_floating_point else torch.iinfo(dt)
+            out.append({"min": info.max, "max": info.min}.get(op, 0))
+        return out
+
+    def _combine_live(self, a_live, b_live) -> Tuple:
+        """User combiner restricted to live leaves (dead inputs zero —
+        sound because liveness closed over the combiner's dependence)."""
+        arity = len(self.acc_kinds)
+        like = a_live[0]
+
+        def fill(live_vals):
+            full = [None] * arity
+            for pos, i in enumerate(self.live_idx):
+                full[i] = live_vals[pos]
+            for i in range(arity):
+                if full[i] is None:
+                    full[i] = torch.zeros(
+                        (), dtype=TORCH_DTYPES[self.acc_kinds[i]],
+                        device=like.device,
+                    ).expand(like.shape)
+            return tuple(full)
+
+        out = self.combine(fill(a_live), fill(b_live))
+        return tuple(out[i] for i in self.live_idx)
+
+    def _live_from_stored(self, stored_vals: List, key_ids) -> List:
+        """Assemble the live-leaf tuple from stored values + key ids."""
+        out, si = [], 0
+        for i in self.live_idx:
+            if i == self.key_leaf:
+                out.append(key_ids.to(TORCH_DTYPES[self.acc_kinds[i]]))
+            else:
+                out.append(stored_vals[si])
+                si += 1
+        return out
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+    def key_capacity(self, state) -> int:
+        return (state["cnt"].shape[0] - 1) // self.ring.n_slots
+
+    def init_state(self, key_capacity: int = None) -> dict:
+        """Flat ``[slot * K + key]`` planes (plus a sink cell each), the
+        per-cell record counts, host ring metadata and device counters."""
+        n, kk = self.ring.n_slots, key_capacity or self.cfg.key_capacity
+        self._check_cells(kk)
+        dev = self.device
+        state = {
+            "planes": [
+                torch.full((n * kk + 1,), ident, dtype=dt, device=dev)
+                for dt, ident in zip(self.plane_dtypes, self._plane_identities())
+            ],
+            "cnt": torch.zeros((n * kk + 1,), dtype=torch.int32, device=dev),
+            "slot_pane": pane_ops.slot_targets(-1, self.ring),
+            "hi": -1,
+            "wm": W0,
+            "max_ts": W0,
+            "fired_through": W0,
+            "pending_fires": 0,
+        }
+        for name in COUNTERS:
+            state[name] = torch.zeros((), dtype=torch.int64, device=dev)
+        return state
+
+    def grow_state(self, state: dict, key_capacity: int) -> dict:
+        """The same state at a larger ``key_capacity``: interned key ids
+        are stable, so each slot's old run of keys is copied to the head
+        of its new, longer run; new keys start fresh."""
+        n, k_old = self.ring.n_slots, self.key_capacity(state)
+        new = self.init_state(key_capacity)
+        for dst, src in zip(new["planes"] + [new["cnt"]],
+                            state["planes"] + [state["cnt"]]):
+            dst[: n * key_capacity].view(n, key_capacity)[:, :k_old] = \
+                src[: n * k_old].view(n, k_old)
+        for name, v in state.items():
+            if name not in ("planes", "cnt"):
+                new[name] = v
+        return new
+
+    def state_from_jax_numpy(self, state_np: dict) -> dict:
+        """Turn the reference package's window state (numpy flat
+        ``planes`` and ``cnt`` of ``n_slots * K``, ``slot_pane`` and the
+        scalar leaves, tpustream/runtime/window_program.py init_state)
+        into this program's state on its device."""
+        dev = self.device
+        idents = self._plane_identities()
+        planes = [
+            torch.from_numpy(
+                np.append(np.asarray(p), np.asarray(ident, dtype=np.asarray(p).dtype))
+            ).to(dev)
+            for p, ident in zip(state_np["planes"], idents)
+        ]
+        cnt_np = np.asarray(state_np["cnt"], np.int32)
+        state = {
+            "planes": planes,
+            "cnt": torch.from_numpy(np.append(cnt_np, np.int32(0))).to(dev),
+            "slot_pane": np.asarray(state_np["slot_pane"], np.int64).copy(),
+        }
+        for name in ("hi", "wm", "max_ts", "fired_through", "pending_fires"):
+            state[name] = int(state_np[name])
+        for name in COUNTERS:
+            state[name] = torch.tensor(
+                int(state_np[name]), dtype=torch.int64, device=dev
+            )
+        self._check_cells(self.key_capacity(state))
+        return state
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """One device-to-host copy of a small tensor (one wait)."""
+        self.host_reads += 1
+        return t.cpu().numpy()
+
+    def _emission_keys(self, kk: int) -> torch.Tensor:
+        ids = self._key_ids.get(kk)
+        if ids is None:
+            ids = torch.arange(kk, dtype=torch.int32, device=self.device)
+            self._key_ids = {kk: ids}
+        return ids
+
+    # ------------------------------------------------------------------
+    # the state merge
+    # ------------------------------------------------------------------
+    def _retarget(self, state, hi: int, wm: int) -> None:
+        n = self.ring.n_slots
+        kk = self.key_capacity(state)
+        rows = [p[: n * kk].view(n, kk) for p in state["planes"]]
+        _, _, state["slot_pane"], evicted = pane_ops.retarget_rows(
+            rows, state["cnt"][: n * kk].view(n, kk), state["slot_pane"],
+            hi, wm, self.ring, self._plane_identities(),
+        )
+        if isinstance(evicted, torch.Tensor):
+            state["evicted_unfired"] += evicted
+
+    def _scatter_words(self, state, keys, mid_cols, live, pane) -> None:
+        """Merge a batch's ``live`` rows into the flat cell planes, in
+        place.
+
+        Scatter-reduce path (commutative combiner, 32-bit planes): one
+        non-unique scatter-add/min/max per plane straight into the
+        identity-initialized state. Exact path: stable sort by cell,
+        combine same-cell records with a segmented scan over live leaves,
+        merge each segment with the cell's old value, set-scatter at
+        segment tails."""
+        n = self.ring.n_slots
+        kk = self.key_capacity(state)
+        sink = n * kk
+        planes, cnt = state["planes"], state["cnt"]
+        slot = torch.remainder(pane, n).to(torch.int32)
+        cell = slot * kk + keys  # slot-major == plane memory order
+
+        if self.fast_reduce:
+            idx = torch.where(live, cell, sink).clamp(0, sink).to(torch.int64)
+            for s, (p, i, op) in enumerate(
+                zip(planes, self.stored_idx, self.stored_ops)
+            ):
+                (val,) = pack_words(
+                    [mid_cols[i]], [self.acc_kinds[i]], [self.compact32[s]]
+                )
+                val = val.to(p.dtype)
+                if op == "add":
+                    p.index_add_(0, idx, val)
+                else:
+                    p.scatter_reduce_(0, idx, val, "a" + op)
+            cnt.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+            return
+
+        perm, sc, sv, seg_starts = sort_by_key(cell, live, max_key=sink)
+        sc = sc.to(torch.int32)
+        live_sorted = tuple(mid_cols[i][perm] for i in self.live_idx)
+        prefix = segmented_scan(live_sorted, seg_starts, self._combine_live)
+        tails = segment_tails(seg_starts) & sv
+
+        seg_count = segment_ranks(seg_starts) + 1
+
+        sc_c = sc.clamp(0, sink - 1).to(torch.int64)
+        old_words = [p[sc_c] for p in planes]
+        old_cnt = cnt[sc_c]
+        old_stored = unpack_words(old_words, self.stored_kinds, self.compact32)
+        old_live = self._live_from_stored(old_stored, torch.remainder(sc_c, kk))
+        merged = self._combine_live(tuple(old_live), prefix)
+        has_old = (old_cnt > 0) & sv
+        new_live = [torch.where(has_old, m, p) for m, p in zip(merged, prefix)]
+        new_stored = [new_live[self.live_idx.index(i)] for i in self.stored_idx]
+        new_words = pack_words(new_stored, self.stored_kinds, self.compact32)
+
+        flat_idx = torch.where(tails, sc, sink).to(torch.int64)
+        for p, w in zip(planes, new_words):
+            p.scatter_(0, flat_idx, w.to(p.dtype))
+        cnt.scatter_(0, flat_idx, old_cnt + torch.where(tails, seg_count, 0))
+
+    # ------------------------------------------------------------------
+    # dense fire path
+    # ------------------------------------------------------------------
+    def _fire_dense(
+        self, state, hi: int, wm_new: int, ft: int, emission: _Emission,
+        budget_on: bool = True,
+    ) -> Tuple[int, int]:
+        """Fire due window ends from the ring, appending their rows to
+        ``emission``. ``budget_on`` False suspends ``max_fires_per_step``
+        on a sweep iteration that is not the last: a deferred fire there
+        would fall out of ring coverage before a drain step reached it.
+        Returns ``(fired_through, deferred fires)``."""
+        ring = self.ring
+        n, f, p_win = ring.n_slots, ring.n_fire_candidates, ring.panes_per_window
+        cand = hi - n + 1 + np.arange(f, dtype=np.int64)
+        ends = (cand + 1) * ring.pane_ms
+        aligned = np.mod(ends, ring.slide_ms) == 0
+        pending = aligned & (ends - 1 <= wm_new) & (ends - 1 > ft)
+        budget = (self.cfg.max_fires_per_step or f) if budget_on else f
+        fire_now = pending & (np.cumsum(pending) <= budget)
+        n_deferred = int(pending.sum() - fire_now.sum())
+        if not fire_now.any():
+            return ft, n_deferred
+        ft = max(ft, int(ends[fire_now].max()) - 1)
+        # one read: a slot without a record folds nothing (the windows of
+        # a stream's first minutes reach back to panes before its start)
+        occupied = self._read(self._occupancy(state)).astype(bool)
+        for jj in np.flatnonzero(fire_now):
+            self._fire_one(state, int(cand[jj]), int(ends[jj]), p_win,
+                           occupied, emission)
+        return ft, n_deferred
+
+    def _occupancy(self, state) -> torch.Tensor:
+        """int64 ``[n_slots]``: 1 where the slot holds a record."""
+        n, kk = self.ring.n_slots, self.key_capacity(state)
+        return (state["cnt"][: n * kk].view(n, kk) > 0).any(dim=1).to(torch.int64)
+
+    def _fire_one(self, state, e_pane: int, end: int, p_win: int,
+                  occupied: np.ndarray, emission: _Emission) -> None:
+        """One window end: fold its panes over all keys in pane order,
+        run the post chain, append the rows it keeps."""
+        n = self.ring.n_slots
+        kk = self.key_capacity(state)
+        slot_pane = state["slot_pane"]
+        key_col = self._emission_keys(kk)
+        has = acc = None
+        for o in range(p_win):
+            pane_sel = e_pane - (p_win - 1) + o
+            slot_sel = pane_sel % n
+            if (pane_sel < 0 or int(slot_pane[slot_sel]) != pane_sel
+                    or not occupied[slot_sel]):
+                continue  # another pane, or no record: nothing to fold
+            row = slice(slot_sel * kk, (slot_sel + 1) * kk)
+            present = state["cnt"][row] > 0
+            stored = unpack_words(
+                [p[row] for p in state["planes"]], self.stored_kinds,
+                self.compact32,
+            )
+            cell = self._live_from_stored(stored, key_col)
+            if has is None:
+                acc = [
+                    torch.where(present, c, torch.zeros((), dtype=c.dtype,
+                                                        device=c.device))
+                    for c in cell
+                ]
+                has = present
+                continue
+            merged = self._combine_live(tuple(acc), tuple(cell))
+            both = present & has
+            acc = [
+                torch.where(both, m, torch.where(present, c, a))
+                for m, c, a in zip(merged, cell, acc)
+            ]
+            has = has | present
+        if has is None:
+            return  # no pane of the window is in the ring
+
+        full = [None] * len(self.acc_kinds)
+        for posi, i in enumerate(self.live_idx):
+            full[i] = acc[posi]
+        for i, kd in enumerate(self.acc_kinds):
+            if full[i] is None:
+                full[i] = torch.zeros((kk,), dtype=TORCH_DTYPES[kd],
+                                      device=self.device)
+        post_cols, post_mask = self.post_chain.apply(full, has)
+
+        cap = self.cfg.alert_capacity
+        if emission.cols is None:
+            dtypes = [TORCH_DTYPES[k] for k in self.out_kinds] + [
+                torch.int32, torch.int64,
+            ]
+            emission.cols = [
+                torch.zeros((cap,), dtype=dt, device=self.device)
+                for dt in dtypes
+            ]
+            emission.count = torch.zeros((), dtype=torch.int32, device=self.device)
+        end_col = torch.full((), end, dtype=torch.int64,
+                             device=self.device).expand(kk)
+        state["alert_overflow"] += emission.append(
+            post_mask & has, list(post_cols) + [key_col, end_col], cap
+        )
+        # every (key, window) with content is one window fire, counted
+        # BEFORE the post-chain filter (Flink's per-trigger accounting)
+        state["window_fires"] += has.sum(dtype=torch.int64)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    def step(self, state, cols, valid, ts, wm_lower: int):
+        """One batch: ``cols`` the record's ``[B]`` tensors, ``valid``
+        bool[B], ``ts`` int64[B] (event or processing time), ``wm_lower``
+        the host clock's watermark floor. Returns ``(state, {"main":
+        stream})``; the stream's rows are the first ``count`` of ``cols``
+        (post-chain columns), ``key`` and ``window_end``, in fire order
+        then key id; ``count`` is 0 (a Python int) when nothing fired."""
+        mid_cols, mask = self._apply_pre(cols, valid)
+        ring = self.ring
+        n, g = ring.n_slots, ring.pane_ms
+        kk = self.key_capacity(state)
+        mid_cols, key_col = self._split_key_col(mid_cols)
+        keys = key_col.to(torch.int32)
+
+        wm_old = state["wm"]
+        late = pane_ops.late_mask(ts, wm_old, 0, ring) & mask
+        live = mask & ~late
+        pane = pane_ops.pane_of(ts, g)
+        state["late_dropped"] += late.sum(dtype=torch.int64)
+        # the step's decisions need four scalars of the batch: one copy
+        batch_max, batch_hi, min_live_pane, max_key = (
+            int(v) for v in self._read(torch.stack([
+                torch.where(mask, ts, W0).max(),
+                torch.where(live, pane, -1).max(),
+                torch.where(live, pane, INF).min(),
+                torch.where(live, keys.to(torch.int64), -1).max(),
+            ]))
+        )
+        if max_key >= kk:
+            raise IndexError(
+                f"a record carried key id {max_key}, past the window "
+                f"state's key capacity of {kk}"
+            )
+        new_max = max(state["max_ts"], batch_max)
+        wm_new = max(wm_old, max(new_max - self.delay_ms, wm_lower))
+        hi = max(state["hi"], batch_hi)
+        ft0 = state["fired_through"]
+
+        # The fast path (retarget -> scatter -> one fire pass) is sound
+        # only when retargeting to `hi` evicts no slot whose windows still
+        # owe fires, and every live record's pane fits the ring at `hi`.
+        # A large event-time jump breaks both; the sweep advances the ring
+        # in safe chunks instead. Virgin slots (pane < 0) hold nothing.
+        slot_pane = state["slot_pane"]
+        stale = slot_pane != pane_ops.slot_targets(hi, ring)
+        last_end = (slot_pane + ring.panes_per_window) * g
+        may_evict = bool(np.any(stale & (last_end - 1 > ft0) & (slot_pane >= 0)))
+        emission = _Emission()
+        if not may_evict and min_live_pane > hi - n:
+            if hi > state["hi"]:
+                self._retarget(state, hi, ft0)
+            self._scatter_words(state, keys, mid_cols, live, pane)
+            new_ft, pending = self._fire_dense(state, hi, wm_new, ft0, emission)
+        else:
+            new_ft, pending = self._sweep(
+                state, hi, ft0, wm_new, keys, mid_cols, live, pane, emission
+            )
+        # ends whose last pane fell below ring coverage can never fire
+        # again: advance fired_through past them
+        new_ft = max(new_ft, min(wm_new, (hi - n + 1) * g - 1))
+        state.update(hi=hi, wm=wm_new, max_ts=new_max, fired_through=new_ft,
+                     pending_fires=pending)
+        if emission.cols is None:
+            return state, {"main": {"count": 0}}
+        cols = emission.cols
+        main = {
+            "count": emission.count,
+            "cols": tuple(cols[:-2]),
+            "key": cols[-2],
+            "window_end": cols[-1],
+        }
+        return state, {"main": main}
+
+    def _sweep(self, state, hi_target, ft0, wm_new, keys, mid_cols, live,
+               pane, emission) -> Tuple[int, int]:
+        """Advance the ring from its current head to ``hi_target`` in
+        safe chunks when one step spans more panes than the ring covers
+        (a batch with a large event-time jump, or a stream gap).
+
+        Each iteration picks the largest head advance that neither evicts
+        a slot with due-but-unfired windows nor strips coverage from a
+        record not yet scattered, retargets, scatters the newly covered
+        records, and fires every end the watermark and the scatter
+        frontier both allow. Flink parity: a record-at-a-time runtime
+        interleaves fires with arrivals in exactly this order (reference
+        chapter3/README.md:195-213). Returns ``(fired_through, deferred
+        fires)``."""
+        ring = self.ring
+        n, g, p_win = ring.n_slots, ring.pane_ms, ring.panes_per_window
+        first = True
+        hi_cur = int(state["slot_pane"].max())
+        scattered_hi = -INF
+        ft, pending = ft0, 0
+        while first or hi_cur < hi_target:
+            unscat = live & (pane > scattered_hi)
+            # one copy: each slot's occupancy and the oldest unscattered pane
+            got = self._read(torch.cat([
+                self._occupancy(state),
+                torch.where(unscat, pane, INF).min().reshape(1),
+            ]))
+            occ, min_unscat = got[:n].astype(bool), int(got[n])
+            slot_pane = state["slot_pane"]
+            unsafe = occ & ((slot_pane + p_win) * g - 1 > ft)
+            unsafe_min = int(slot_pane[unsafe].min()) if unsafe.any() else INF
+            hi_next = min(hi_target, unsafe_min + (n - 1), min_unscat + (n - p_win))
+            hi_next = max(hi_next, hi_cur)
+            if hi_next > hi_cur:
+                self._retarget(state, hi_next, ft)
+            self._scatter_words(
+                state, keys, mid_cols, unscat & (pane <= hi_next), pane
+            )
+            is_final = hi_next >= hi_target
+            wm_eff = wm_new if is_final else min(wm_new, hi_next * g - 1)
+            ft, pending = self._fire_dense(
+                state, hi_next, wm_eff, ft, emission, budget_on=is_final
+            )
+            first, hi_cur, scattered_hi = False, hi_next, hi_next
+        return ft, pending
