@@ -14,7 +14,13 @@ counters against 0, prints its throughput, wall split and, from a
 second run, a ``torch.profiler`` split of four warm data steps beside
 those steps' wall times, and holds small runs (the
 event-time jump input, the processing-time goldens) against the same
-job on the CPU. Prints the card's name and power limit, one line per
+job on the CPU. Phases ``ch1``, ``avg`` and ``median`` drive the
+chapter-1 threshold filter and the chapter-2 windowed average and
+median over 1M lines each against host oracles, with the loss counters
+at 0; phase ``small`` holds their goldens, ``max_by`` and the
+allowed-lateness cases (main and side-output rows) on the card against
+the CPU. Each phase prints its wall time. Prints the card's name and
+power limit, one line per
 kernel case (with a per-launch device-time split from ``torch.profiler``
 for the main case, a cold-L2 time and ``torch.sort`` as a reference
 point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
@@ -22,9 +28,10 @@ point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
 device, when the package is not beside this script, or when any phase
 fails.
 
-Options (the default runs everything): ``--phases kernel,job,flagship``,
-``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
-``--flagship-lines N`` (flagship input).
+Options (the default runs everything): ``--phases
+kernel,job,flagship,ch1,avg,median,small``, ``--reps N`` (timed repeats
+per kernel case), ``--lines N`` (job input), ``--flagship-lines N``
+(flagship input), ``--new-lines N`` (input of ch1, avg and median).
 """
 
 from __future__ import annotations
@@ -685,12 +692,352 @@ def flagship_phase(n_lines: int) -> None:
                   f"card equals CPU")
 
 
+# -- phases ch1, avg, median: the rest of the tutorial's jobs ---------------
+
+def wall_split(m, wall: float) -> str:
+    """``events/s`` and the stages of one run from its Metrics."""
+    s = m.summary()
+    stages = {k: s[f"{k}_time_s"] for k in
+              ("build", "host", "upload", "device", "fetch", "emit")}
+    rest = m.step_times_s[1:] or m.step_times_s
+    return (f"events_per_s_end_to_end={m.records_in / wall} wall_s={wall} "
+            f"build_s={stages['build']} parse_s={stages['host']} "
+            f"upload_s={stages['upload']} step_s={stages['device']} "
+            f"fetch_s={stages['fetch']} emit_s={stages['emit']} "
+            f"other_s={wall - sum(stages.values())} steps={m.steps} "
+            f"step_ms_first={m.step_times_s[0] * 1e3} "
+            f"step_ms_median_rest={statistics.median(rest) * 1e3} "
+            f"d2h_syncs={m.d2h_syncs} d2h_bytes={m.d2h_bytes}")
+
+
+def run_job(module, items, device="cuda", name="job", **cfg):
+    """A job module's ``build`` over ``items`` through ``execute``:
+    (collected items, metrics, wall seconds)."""
+    from tpustream_torch import StreamExecutionEnvironment
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    env = StreamExecutionEnvironment(StreamConfig(device=device, **cfg))
+    handle = module.build(env, env.add_source(ReplaySource(items))).collect()
+    t0 = time.perf_counter()
+    env.execute(name)
+    return handle.items, env.metrics, time.perf_counter() - t0
+
+
+def check_losses(phase: str, m, names) -> dict:
+    losses = {k: getattr(m, k) for k in names}
+    if any(losses.values()):
+        raise AssertionError(f"{phase}: loss counters {losses}")
+    return losses
+
+
+def ch1_phase(n_lines: int, batch: int = 65536) -> None:
+    """The chapter-1 threshold job on bench.py's chapter-1 shape
+    (``_render_ch1_lines``): 256 hosts, cpu0-3, usage 91.5 on one line
+    in 128 and 50.5 otherwise. The oracle is the lines above 90, in
+    order."""
+    from tpustream_torch.jobs import chapter1_threshold
+    from tpustream_torch.ops import seq_rolling as S
+
+    g = np.arange(n_lines, dtype=np.int64)
+    h = g * 2654435761
+    hosts = ((h ^ (h >> 31)) % 256).tolist()
+    cpus = (g % 4).tolist()
+    alert = (g % 128 == 0).tolist()
+    lines = [f"1563450000 h{hh:06d} cpu{c} {'91.5' if a else '50.5'}"
+             for hh, c, a in zip(hosts, cpus, alert)]
+    want = [(f"h{hh:06d}", f"cpu{c}", 91.5)
+            for hh, c, a in zip(hosts, cpus, alert) if a]
+    S.seq_rolling_reduce.launches = 0
+    items, m, wall = run_job(chapter1_threshold, lines, batch_size=batch,
+                             name="Window WordCount")
+    launches = S.seq_rolling_reduce.launches
+    got = [tuple(t.values()) for t in items]
+    if got != want:
+        raise AssertionError(f"ch1: {len(got)} rows vs {len(want)} from the "
+                             f"oracle")
+    losses = check_losses("ch1", m, ("alert_overflow",))
+    print(f"ch1 chapter1_threshold: {n_lines} lines at B={batch}, {len(got)} "
+          f"rows equal the oracle; {losses}; seq_rolling_reduce launches="
+          f"{launches}")
+    print(f"ch1 {wall_split(m, wall)}")
+
+
+def with_minutes(lines, per_minute: int):
+    """``lines`` with an ``AdvanceProcessingTime`` to the next minute
+    after every ``per_minute`` lines and at the end: the k-th run of
+    lines falls in the processing-time window [k, k + 1) minutes."""
+    from tpustream_torch.runtime.sources import AdvanceProcessingTime
+
+    items = []
+    for k, start in enumerate(range(0, len(lines), per_minute)):
+        items += lines[start:start + per_minute]
+        items.append(AdvanceProcessingTime((k + 1) * 60_000))
+    return items
+
+
+def window_groups(hosts: np.ndarray, per_minute: int):
+    """``(order, starts)`` grouping the lines by (minute, key id) in fire
+    order: the minute, then the host's key id (its first arrival in the
+    whole stream). ``order`` sorts the lines; ``starts`` marks each
+    group's first position in it."""
+    minute = np.arange(hosts.size) // per_minute
+    key = interned_ids(hosts)
+    order = np.lexsort((key, minute))
+    cell = minute[order] * (1 << 21) + key[order]
+    starts = np.r_[True, cell[1:] != cell[:-1]]
+    return order, starts
+
+
+def avg_phase(n_lines: int, per_minute: int = 100_000) -> None:
+    """The chapter-2 windowed average (window ``aggregate``) on the job
+    phase's lines, a processing-time minute every ``per_minute`` lines.
+    The oracle is numpy's mean per (window, host) in fire order. The
+    job adds a cell's values in the reference's scan order and numpy in
+    arrival order, so a row of m values agrees to 2(m-1)·eps·mean."""
+    from tpustream_torch.jobs import chapter2_avg
+    from tpustream_torch.ops import seq_rolling as S
+
+    t0 = time.perf_counter()
+    hosts = make_hosts(n_lines, K_MAIN, seed=7)
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    usage = np.array([float(l.rsplit(" ", 1)[1]) for l in lines])
+    order, starts = window_groups(hosts, per_minute)
+    idx = np.flatnonzero(starts)
+    sums = np.add.reduceat(usage[order], idx)
+    counts = np.diff(np.r_[idx, n_lines])
+    want = sums / counts
+    print(f"avg input: {n_lines} lines, {np.unique(hosts).size} hosts, "
+          f"{want.size} (window, host) cells "
+          f"({time.perf_counter() - t0:.1f} s to generate)")
+    S.seq_rolling_reduce.launches = 0
+    items, m, wall = run_job(chapter2_avg, with_minutes(lines, per_minute),
+                             batch_size=B_MAIN, key_capacity=K_MAIN,
+                             alert_capacity=1 << 18, name="ComputeCpuAvg")
+    launches = S.seq_rolling_reduce.launches
+    got = np.array(items, dtype=np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"avg: {got.size} rows vs {want.size} from the "
+                             f"oracle")
+    bound = 2 * (counts - 1) * np.finfo(np.float64).eps * want
+    err = np.abs(got - want)
+    if not np.all(err <= bound):
+        bad = int(np.flatnonzero(err > bound)[0])
+        raise AssertionError(f"avg: row {bad} is {got[bad]!r}, the oracle "
+                             f"{want[bad]!r} ({counts[bad]} values)")
+    losses = check_losses("avg", m, ("late_dropped", "alert_overflow",
+                                     "evicted_unfired"))
+    print(f"avg chapter2_avg: {n_lines} lines at B={B_MAIN}, "
+          f"K={K_MAIN}, {m.window_fires} fires, {got.size} rows equal the "
+          f"oracle within 2(m-1)*eps*mean ({int(np.sum(err == 0))} bit-equal, "
+          f"max |diff| {err.max()}); {losses}; seq_rolling_reduce "
+          f"launches={launches}")
+    print(f"avg {wall_split(m, wall)}")
+
+
+def median_phase(n_lines: int, n_hosts: int = 1 << 14,
+                 per_minute: int = 100_000, cap: int = 128) -> None:
+    """The chapter-2 windowed median (full-window ``process()``): each
+    second every host sends one sample, in a shuffled order; a
+    processing-time minute every ``per_minute`` lines. The oracle is the
+    median per (window, host) in fire order, taken as the job takes it
+    (the middle value, or the mean of the two middles)."""
+    from tpustream_torch.jobs import chapter2_median
+    from tpustream_torch.runtime import process_program as P
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    sec = np.arange(n_lines) // n_hosts
+    hosts = np.concatenate([rng.permutation(n_hosts)
+                            for _ in range(sec[-1] + 1)])[:n_lines]
+    usage = rng.integers(0, 10000, n_lines) / 100
+    lines = [f"{1563452000 + s} 10.9.{h >> 8}.{h & 255} cpu{h % 4} {u}"
+             for s, h, u in zip(sec.tolist(), hosts.tolist(), usage.tolist())]
+    order, starts = window_groups(hosts, per_minute)
+    idx = np.flatnonzero(starts)
+    counts = np.diff(np.r_[idx, n_lines])
+    # sort each group's values: by group, then value
+    group = np.cumsum(starts) - 1
+    vals = usage[order]
+    srt = vals[np.lexsort((vals, group))]
+    lo = srt[idx + (counts - 1) // 2]
+    hi = srt[idx + counts // 2]
+    want = np.where(counts % 2 == 1, hi, (hi + lo) / 2)
+    print(f"median input: {n_lines} lines, {n_hosts} hosts, {want.size} "
+          f"(window, host) cells, at most {counts.max()} values a cell "
+          f"({time.perf_counter() - t0:.1f} s to generate)")
+    # the element buffers' size, read from the program's state
+    buf_bytes = {}
+    plain_init = P.ProcessWindowProgram.init_state
+
+    def init_state(self, key_capacity=None):
+        state = plain_init(self, key_capacity)
+        buf_bytes["n"] = sum(t.numel() * t.element_size()
+                             for t in state["buf"] + [state["cnt"]])
+        return state
+
+    P.ProcessWindowProgram.init_state = init_state
+    try:
+        items, m, wall = run_job(
+            chapter2_median, with_minutes(lines, per_minute),
+            batch_size=B_MAIN, key_capacity=n_hosts,
+            process_buffer_capacity=cap, name="ComputeCpuMiddle")
+    finally:
+        P.ProcessWindowProgram.init_state = plain_init
+    got = np.array(items, dtype=np.float64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"median: {got.size} rows vs {want.size} from "
+                             f"the oracle, or a row differs")
+    losses = check_losses("median", m, ("late_dropped", "buffer_overflow",
+                                        "evicted_unfired"))
+    firing = sum(1 for t in m.fetch_times_s if t > 0)
+    print(f"median chapter2_median: {n_lines} lines at B={B_MAIN}, "
+          f"{m.window_fires} (host, window) fires, {got.size} rows equal the "
+          f"oracle (bitwise); {losses}; element buffers and counts "
+          f"{buf_bytes['n']} bytes on the card, d2h_bytes of the run "
+          f"{m.d2h_bytes} (a whole-buffer copy a firing step would be "
+          f"{buf_bytes['n']} bytes x {firing} steps)")
+    print(f"median {wall_split(m, wall)}")
+
+
+# -- phase small: the new jobs on the card equal the same jobs on the CPU ---
+
+AVG_LINES = [
+    "1563452056 10.8.22.1 cpu0 80.5",
+    "1563452050 10.8.22.1 cpu0 78.4",
+    "1563452056 10.8.22.1 cpu0 99.9",
+    "1563452056 10.8.22.2 cpu1 20.2",
+]
+LATE_BASE = 1_200_000  # epoch seconds, a multiple of 60
+
+
+def lateness_job(lines, device, lateness_s=0, tag=False, **cfg):
+    """tests/test_lateness_sideoutput.py's job: 1-minute event-time
+    windows summing a flow, the late rows to a side output when
+    ``tag``. (main rows, side rows, late_dropped)."""
+    from tpustream_torch import (BoundedOutOfOrdernessTimestampExtractor,
+                                 StreamExecutionEnvironment, Time,
+                                 TimeCharacteristic, Tuple2, Tuple3)
+    from tpustream_torch.api.output import OutputTag
+    from tpustream_torch.api.windows import TumblingEventTimeWindows
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    class Seconds(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.seconds(0))
+
+        def extract_timestamp(self, line):
+            return int(line.split(" ")[0]) * 1000
+
+    def parse(line):
+        p = line.split(" ")
+        return Tuple3(int(p[0]), p[1], int(p[2]))
+
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=device, batch_size=1, key_capacity=16, **cfg))
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    w = (env.add_source(ReplaySource(lines))
+         .assign_timestamps_and_watermarks(Seconds()).map(parse).key_by(1)
+         .window(TumblingEventTimeWindows.of(Time.seconds(60))))
+    if lateness_s:
+        w = w.allowed_lateness(Time.seconds(lateness_s))
+    late_tag = OutputTag("late-data") if tag else None
+    if tag:
+        w = w.side_output_late_data(late_tag)
+    summed = w.reduce(lambda a, b: Tuple3(a.f0, a.f1, a.f2 + b.f2))
+    main = summed.map(lambda t: Tuple2(t.f1, t.f2)).collect()
+    late = summed.get_side_output(late_tag).collect() if tag else None
+    env.execute("lateness")
+    return ([repr(t) for t in main.items],
+            None if late is None else [repr(t) for t in late.items],
+            env.metrics.late_dropped)
+
+
+def small_phase() -> None:
+    """The goldens of the new jobs, the max_by golden and the four
+    allowed-lateness cases, each on the card equal to the same run on
+    the CPU and to the golden rows."""
+    from tpustream_torch.jobs import (chapter1_threshold, chapter2_avg,
+                                      chapter2_max, chapter2_median)
+    from tpustream_torch.runtime.sources import AdvanceProcessingTime
+
+    class MaxBy:
+        @staticmethod
+        def build(env, text):
+            return text.map(chapter2_max.parse).key_by(0).max_by(2)
+
+    tick = [AdvanceProcessingTime(61_000)]
+    cases = [
+        ("ch1 filter golden", chapter1_threshold,
+         ["1563452051 10.8.22.1 cpu2 10.5", "1563452051 10.8.22.1 cpu2 99.2"],
+         {}, ["(10.8.22.1,cpu2,99.2)"]),
+        ("max_by golden", MaxBy,
+         ["1 h1 cpu0 50.0", "2 h1 cpu7 60.0", "3 h1 cpu3 55.0"], {},
+         ["(h1,cpu0,50.0)", "(h1,cpu7,60.0)", "(h1,cpu7,60.0)"]),
+        ("avg golden", chapter2_avg, AVG_LINES + tick, {},
+         ["86.26666666666667", "20.2"]),
+        ("avg golden, batch 1", chapter2_avg, AVG_LINES + tick,
+         {"batch_size": 1}, ["86.26666666666667", "20.2"]),
+        ("avg two windows", chapter2_avg,
+         AVG_LINES + tick + ["1563452056 10.8.22.1 cpu0 10.0",
+                             "1563452056 10.8.22.1 cpu0 20.0",
+                             AdvanceProcessingTime(130_000)], {},
+         ["86.26666666666667", "20.2", "15.0"]),
+        ("median golden", chapter2_median, AVG_LINES + tick, {},
+         ["80.5", "20.2"]),
+        ("median golden, batch 1", chapter2_median, AVG_LINES + tick,
+         {"batch_size": 1}, ["80.5", "20.2"]),
+        ("median even count", chapter2_median,
+         ["1 h1 cpu0 1.0", "1 h1 cpu0 2.0", "1 h1 cpu0 10.0",
+          "1 h1 cpu0 4.0"] + tick, {}, ["3.0"]),
+    ]
+    for label, module, items, cfg, golden in cases:
+        card, m, _ = run_job(module, items, "cuda", **cfg)
+        cpu, _, _ = run_job(module, items, "cpu", **cfg)
+        card, cpu = [repr(t) for t in card], [repr(t) for t in cpu]
+        if card != cpu or card != golden:
+            raise AssertionError(f"small run {label}: card {card}, CPU {cpu}, "
+                                 f"golden {golden}")
+        print(f"small run {label}: {len(card)} rows, card equals CPU and the "
+              f"golden")
+
+    b = LATE_BASE
+    early = [f"{b + 10} www.a.com 100", f"{b + 70} www.a.com 7",
+             f"{b + 20} www.a.com 900"]
+    late_cases = [
+        ("dropped by default", early + [f"{b + 140} www.a.com 5"], {},
+         ("(www.a.com,1000)", False)),
+        ("refire within the lateness", early + [f"{b + 400} www.a.com 5"],
+         {"lateness_s": 300}, ("(www.a.com,1000)", True)),
+        ("side output past the lateness", early + [f"{b + 140} www.a.com 5"],
+         {"tag": True}, ("(www.a.com,1000)", False)),
+        ("refire under a fire budget", early + [f"{b + 400} www.a.com 5"],
+         {"lateness_s": 300, "max_fires_per_step": 1},
+         ("(www.a.com,1000)", True)),
+    ]
+    for label, lines, kw, (refired, expect_refire) in late_cases:
+        card = lateness_job(lines, "cuda", **kw)
+        cpu = lateness_job(lines, "cpu", **kw)
+        ok = (card == cpu and "(www.a.com,100)" in card[0]
+              and (refired in card[0]) == expect_refire)
+        if kw.get("tag"):
+            ok = ok and card[1] == [f"({b + 20},www.a.com,900)"] and card[2] == 0
+        if not ok:
+            raise AssertionError(f"lateness {label}: card {card}, CPU {cpu}")
+        print(f"small run lateness {label}: main {card[0]}, side {card[1]}, "
+              f"late_dropped {card[2]}; card equals CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernel,job,flagship")
+    ap.add_argument("--phases",
+                    default="kernel,job,flagship,ch1,avg,median,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000)
+    ap.add_argument("--new-lines", type=int, default=1_000_000,
+                    help="input of the ch1, avg and median phases")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -706,10 +1053,27 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     build_kernels()
-    cases = kernel_phase(args.reps) if "kernel" in phases else {}
-    launches = job_phase(args.lines) if "job" in phases else {}
+    t_all = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    cases = timed("kernel", kernel_phase, args.reps) if "kernel" in phases else {}
+    launches = timed("job", job_phase, args.lines) if "job" in phases else {}
     if "flagship" in phases:
-        flagship_phase(args.flagship_lines)
+        timed("flagship", flagship_phase, args.flagship_lines)
+    if "ch1" in phases:
+        timed("ch1", ch1_phase, args.new_lines)
+    if "avg" in phases:
+        timed("avg", avg_phase, args.new_lines)
+    if "median" in phases:
+        timed("median", median_phase, args.new_lines)
+    if "small" in phases:
+        timed("small", small_phase)
+    print(f"phases: {time.perf_counter() - t_all:.1f} s")
     main_case = cases.get(("float64", "max", "uniform"))
     if main_case is not None:
         print(json.dumps({"kernels": [{

@@ -89,11 +89,14 @@ def test_rolling_min_and_sum():
 
 
 def test_rolling_max_by_replaces_whole_record():
-    # max_by takes the reference's general rolling path, which this
-    # slice of the port leaves out: it must refuse, naming the feature
+    # tests/test_chapter2_max_golden.py: max_by keeps the whole winning
+    # record (the reference's general rolling path)
     lines = ["1 h1 cpu0 50.0", "2 h1 cpu7 60.0", "3 h1 cpu3 55.0"]
-    with pytest.raises(NotImplementedError, match="max_by"):
-        _run_kind(lines, "max_by")
+    assert [repr(t) for t in _run_kind(lines, "max_by")] == [
+        "(h1,cpu0,50.0)",
+        "(h1,cpu7,60.0)",
+        "(h1,cpu7,60.0)",
+    ]
 
 
 def _lines(n, n_hosts, seed):
@@ -149,6 +152,38 @@ def test_side_by_side_min_sum_with_jax_package(kind):
     else:
         np.testing.assert_allclose([r[2] for r in got], [r[2] for r in want],
                                    rtol=1e-12, atol=0)
+
+
+def _general(pkg, job, stream, kind):
+    if kind == "reduce":
+        # the newest cpu, the usage summed: a user reduce over whole records
+        return stream.reduce(lambda a, b: pkg.Tuple3(a.f0, b.f1, a.f2 + b.f2))
+    return getattr(stream, kind)(2)
+
+
+@pytest.mark.parametrize("batch_size", [1, 3, 64])
+@pytest.mark.parametrize("kind", ["max_by", "min_by", "reduce"])
+def test_side_by_side_general_path_with_jax_package(kind, batch_size, capsys):
+    # the general rolling path (sort, segmented scan in the reference's
+    # combination order, stored-leaf gather, tail scatter): rows and
+    # print() bytes bitwise equal, the user reduce's float sum included
+    lines = _lines(240, 12, seed=20 + batch_size)
+
+    def run_pkg(pkg, job, sources, **cfg):
+        env = pkg.StreamExecutionEnvironment(
+            pkg.StreamConfig(batch_size=batch_size, **cfg))
+        s = env.add_source(sources.ReplaySource(lines)).map(job.parse).key_by(0)
+        out = _general(pkg, job, s, kind)
+        h = out.collect()
+        out.print()
+        capsys.readouterr()
+        env.execute("k")
+        return [repr(t) for t in h.items], capsys.readouterr().out
+
+    want = run_pkg(tpustream, jax_job, jax_sources)
+    got = run_pkg(tpustream_torch, torch_job, torch_sources, device="cpu")
+    assert len(got[0]) == 240
+    assert got == want
 
 
 def test_key_past_capacity_fails_the_step_before_any_row_is_emitted(monkeypatch):

@@ -149,8 +149,81 @@ def test_state_without_sentinel_uses_seen_bitmap():
 
 
 def test_general_rolling_path_not_ported():
-    with pytest.raises(NotImplementedError, match="max_by"):
-        TR.init_rolling_state(K, KINDS, "max_by", POS, SENTINEL, CPU)
+    # the general path runs with the exact float64 accumulator only: its
+    # 32-bit modes refuse by name (roadmap queue item 4)
+    import tpustream_torch
+    from tpustream_torch.jobs.chapter2_max import parse
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    for acc in ("int32", "float32"):
+        env = tpustream_torch.StreamExecutionEnvironment(
+            tpustream_torch.StreamConfig(device="cpu", acc_dtype=acc))
+        (env.add_source(ReplaySource(["1 h1 cpu0 5.0"])).map(parse).key_by(0)
+         .max_by(2).collect())
+        with pytest.raises(NotImplementedError, match="queue item 4"):
+            env.execute("k")
+
+
+# -- the general path (max_by, min_by, a user reduce) ----------------------
+
+def _jax_general(state, batch, kind):
+    keys, cpu, usage, valid = batch
+    state, emis, sv, sk, inv = R.rolling_step(
+        state, jnp.asarray(keys),
+        (jnp.asarray(keys), jnp.asarray(cpu), jnp.asarray(usage)),
+        jnp.asarray(valid), R.make_combiner(kind, POS), KINDS,
+        rolling_kind=kind, rolling_pos=POS,
+    )
+    inv = np.asarray(inv)
+    return state, [np.asarray(e)[inv] for e in emis]
+
+
+def _torch_general(state, batch, kind):
+    keys, cpu, usage, valid = batch
+    t = torch.from_numpy
+    state, emis = TR.rolling_step_general(
+        state, t(keys), (t(keys), t(cpu), t(usage)), t(valid),
+        TR.make_combiner(kind, POS), KINDS,
+    )
+    return state, [e.numpy() for e in emis]
+
+
+def _check_general_state(tstate, jstate):
+    assert np.array_equal(tstate["seen"].numpy(), np.asarray(jstate["seen"]))
+    for tp, jp in zip(tstate["planes"], jstate["planes"]):
+        assert np.array_equal(tp.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("kind", ["max_by", "min_by"])
+def test_general_rolling_step_matches_reference(kind):
+    # rows in arrival order (the reference's un-permuted with its inv) and
+    # the state planes, bitwise
+    jstate = R.init_rolling_state(K, KINDS)
+    tstate = TR.init_rolling_state(K, KINDS, kind, POS, None, CPU)
+    for batch in _batches(41, 5):
+        jstate, want = _jax_general(jstate, batch, kind)
+        tstate, got = _torch_general(tstate, batch, kind)
+        _check_rows(got, want, batch[3], kind)
+        _check_general_state(tstate, jstate)
+
+
+@pytest.mark.parametrize("kind", ["max_by", "min_by"])
+def test_general_state_carries_over_from_reference(kind):
+    # three batches through the reference, its state carried across, the
+    # fourth batch through both packages
+    batches = _batches(43, 4)
+    jstate = R.init_rolling_state(K, KINDS)
+    for batch in batches[:3]:
+        jstate, _ = _jax_general(jstate, batch, kind)
+    state_np = {"seen": np.asarray(jstate["seen"]),
+                "planes": [np.asarray(p) for p in jstate["planes"]]}
+    assert state_np["seen"].any()
+    tstate = TR.state_from_jax_numpy(state_np, KINDS, kind, POS, None, CPU)
+    _check_general_state(tstate, jstate)
+    jstate, want = _jax_general(jstate, batches[3], kind)
+    tstate, got = _torch_general(tstate, batches[3], kind)
+    _check_rows(got, want, batches[3][3], kind)
+    _check_general_state(tstate, jstate)
 
 
 def test_wordplanes_match_reference_layout():

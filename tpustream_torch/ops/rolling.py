@@ -1,24 +1,36 @@
-"""Keyed rolling aggregates max/min/sum (PyTorch).
+"""Keyed rolling aggregates: max/min/sum/max_by/min_by/reduce (PyTorch).
 
 Implements Flink's rolling-aggregate semantics exactly as the golden
 transcript proves them (reference chapter2/.../ComputeCpuMax.java:26,
 chapter2/README.md:52-66): EVERY input record emits the current
 aggregate for its key, only the aggregated field updates, and every
 other field keeps the value from the key's FIRST-ever record.
+``max_by``/``min_by`` instead keep the whole winning record (first wins
+ties), and a user ``reduce`` folds whole records.
 
-Counterpart of the commutative path of tpustream/ops/rolling.py
-(``rolling_step`` -> ``_rolling_step_commutative``). The aggregated
-column goes through one call of the keyed-reduce kernel
-(``ops/seq_rolling.py``), which does the reference's sort, segmented
-scan, stored-value gather and tail scatter and yields the emissions in
-arrival order, so nothing is un-permuted here. The keep-first leaves, the key
-column and the occupancy test stay plain tensor ops, as they are plain
-XLA ops in the reference.
+Counterpart of tpustream/ops/rolling.py, in two paths:
+
+* :func:`rolling_step`, the commutative field aggregates (the
+  reference's ``_rolling_step_commutative``). The aggregated column
+  goes through one call of the keyed-reduce kernel
+  (``ops/seq_rolling.py``), which does the reference's sort, segmented
+  scan, stored-value gather and tail scatter and yields the emissions in
+  arrival order. The keep-first leaves, the key column and the occupancy
+  test stay plain tensor ops, as they are plain XLA ops in the
+  reference.
+* :func:`rolling_step_general`, every other combiner (the reference's
+  general path, ``rolling_step`` lines 159-191): a stable sort by key, a
+  segmented scan with the combiner, a gather of the stored leaves, a
+  ``where`` on seen keys and a set-scatter at segment tails, all torch
+  ops. The reference leaves its emissions in key-sorted order for the
+  host to un-permute; here the device gathers them back into arrival
+  order with the inverse permutation.
 
 State is dense per-key planes (ops/wordplanes.py) plus a ``seen``
-bitmap. Unlike the reference, the aggregated plane starts at the op's
-identity (``seq_rolling.IDENTITY``) rather than 0, so the kernel's fold
-needs no occupancy test; :func:`state_from_jax_numpy` converts.
+bitmap. Unlike the reference, a commutative aggregate's plane starts at
+the op's identity (``seq_rolling.IDENTITY``) rather than 0, so the
+kernel's fold needs no occupancy test; :func:`state_from_jax_numpy`
+converts. The general path's state is the reference's layout as it is.
 """
 
 from __future__ import annotations
@@ -29,24 +41,62 @@ import numpy as np
 import torch
 
 from ..records import F64, STR
+from .segments import inverse_permutation, segment_tails, segmented_scan, sort_by_key
 from .seq_rolling import IDENTITY, seq_rolling_reduce
-from .wordplanes import leaf_plane_slices, pack_words, plane_dtypes, unpack_words
+from .wordplanes import (
+    TORCH_DTYPES,
+    leaf_plane_slices,
+    pack_words,
+    plane_dtypes,
+    unpack_words,
+)
 
 COMMUTATIVE = ("max", "min", "sum")
 
 
 def _check_kind(kinds: Sequence[str], kind: str, pos: int) -> None:
-    if kind not in COMMUTATIVE:
-        raise NotImplementedError(
-            f"rolling {kind!r} is not ported to the PyTorch runtime yet: "
-            f"only the commutative field aggregates {COMMUTATIVE} are "
-            f"(max_by/min_by and a user reduce need the general rolling path)"
-        )
-    if kinds[pos] != F64:
+    if kind in COMMUTATIVE and kinds[pos] != F64:
         raise NotImplementedError(
             f"rolling {kind} over a {kinds[pos]!r} field is not ported yet: "
             f"the kernel aggregates float64 fields only"
         )
+
+
+def _combine_field_agg(pos: int, reducer: Callable):
+    """Combiner for max/min/sum(pos): aggregate field ``pos``, keep-left rest."""
+
+    def combine(a, b):
+        out = list(a)
+        out[pos] = reducer(a[pos], b[pos])
+        return tuple(out)
+
+    return combine
+
+
+def _combine_by(pos: int, is_max: bool):
+    """Combiner for max_by/min_by: keep the whole better record, first
+    wins ties."""
+
+    def combine(a, b):
+        better_b = b[pos] > a[pos] if is_max else b[pos] < a[pos]
+        return tuple(torch.where(better_b, fb, fa) for fa, fb in zip(a, b))
+
+    return combine
+
+
+def make_combiner(kind: str, pos: int) -> Callable:
+    """The leaf-tuple combiner of a built-in rolling aggregate."""
+    if kind == "max":
+        return _combine_field_agg(pos, torch.maximum)
+    if kind == "min":
+        return _combine_field_agg(pos, torch.minimum)
+    if kind == "sum":
+        return _combine_field_agg(pos, lambda a, b: a + b)
+    if kind == "max_by":
+        return _combine_by(pos, True)
+    if kind == "min_by":
+        return _combine_by(pos, False)
+    raise ValueError(f"unknown rolling kind {kind}")
 
 
 def init_rolling_state(
@@ -57,15 +107,21 @@ def init_rolling_state(
     sentinel_leaf: Optional[int] = None,
     device: torch.device = torch.device("cpu"),
 ) -> dict:
-    """Fresh state for ``key_capacity`` keys: the aggregated leaf's plane
-    at the identity of ``kind``, a ``sentinel_leaf`` (a keep-first STR
-    leaf whose plane doubles as the occupancy test; interned ids are
-    >= 0) at -1, every other plane at 0."""
+    """Fresh state for ``key_capacity`` keys. A commutative ``kind``
+    starts the aggregated leaf's plane at its identity and a
+    ``sentinel_leaf`` (a keep-first STR leaf whose plane doubles as the
+    occupancy test; interned ids are >= 0) at -1; every other plane, and
+    every plane of the general path, starts at 0."""
     _check_kind(kinds, kind, pos)
     planes = [
         torch.zeros((key_capacity,), dtype=dt, device=device)
         for dt in plane_dtypes(kinds)
     ]
+    if kind not in COMMUTATIVE:
+        return {
+            "seen": torch.zeros((key_capacity,), dtype=torch.bool, device=device),
+            "planes": planes,
+        }
     slices = leaf_plane_slices(kinds)
     planes[slices[pos].start].fill_(IDENTITY[kind])
     if sentinel_leaf is not None:
@@ -114,21 +170,27 @@ def state_from_jax_numpy(
     init_rolling_state) into this module's state for a rolling ``kind``
     over leaf ``rolling_pos``.
 
-    The reference leaves the aggregated plane at 0 for a never-seen key
-    and tests occupancy instead; here such rows take the identity. With
-    a ``sentinel_leaf`` the reference never updates ``seen`` (the
-    sentinel plane is the occupancy test), so occupancy is read from that
-    plane (``>= 0``) and ``seen`` is rebuilt from it.
+    The general path (``max_by``, ``min_by``, a user reduce) keeps the
+    reference's layout, so its planes and ``seen`` are copied as they
+    are. For a commutative ``kind`` the reference leaves the aggregated
+    plane at 0 for a never-seen key and tests occupancy instead; here
+    such rows take the identity. With a ``sentinel_leaf`` the reference
+    never updates ``seen`` (the sentinel plane is the occupancy test), so
+    occupancy is read from that plane (``>= 0``) and ``seen`` is rebuilt
+    from it.
     """
     _check_kind(kinds, kind, rolling_pos)
     slices = leaf_plane_slices(kinds)
     planes = [np.array(p) for p in state_np["planes"]]
-    if sentinel_leaf is not None:
+    if kind not in COMMUTATIVE:
+        seen = np.array(state_np["seen"], dtype=bool)
+    elif sentinel_leaf is not None:
         seen = planes[slices[sentinel_leaf].start] >= 0
     else:
         seen = np.array(state_np["seen"], dtype=bool)
-    agg = planes[slices[rolling_pos].start]
-    agg[~seen] = IDENTITY[kind]
+    if kind in COMMUTATIVE:
+        agg = planes[slices[rolling_pos].start]
+        agg[~seen] = IDENTITY[kind]
     return {
         "seen": torch.from_numpy(seen).to(device),
         "planes": [torch.from_numpy(p).to(device) for p in planes],
@@ -234,3 +296,54 @@ def rolling_step(
             emis.append(keep_emis[kj])
             kj += 1
     return state, tuple(emis)
+
+
+def rolling_step_general(
+    state: dict,
+    keys: torch.Tensor,
+    cols: Tuple[torch.Tensor, ...],
+    valid: torch.Tensor,
+    combine: Callable,
+    kinds: List[str],
+    bad_keys: Optional[torch.Tensor] = None,
+) -> Tuple[dict, Tuple[torch.Tensor, ...]]:
+    """One batch through a rolling aggregate with any associative
+    ``combine(a_leaves, b_leaves) -> leaves`` (``max_by``, ``min_by``, a
+    user reduce), the reference's general path.
+
+    Returns ``(state, emissions)`` with the emission columns in ARRIVAL
+    order, each of its leaf kind's dtype (rows that are not valid carry
+    unspecified values); the planes and ``seen`` are updated in place.
+    ``bad_keys`` (a one-element int32 counter) gains the valid rows
+    whose key id is outside ``[0, K)``; those rows fold into nothing,
+    and a step that counts any is void."""
+    planes, seen_plane = state["planes"], state["seen"]
+    k = seen_plane.shape[0]
+    n = keys.shape[0]
+    kid = keys.to(torch.int32)
+    bad = valid & ((kid < 0) | (kid >= k))
+    if bad_keys is not None:
+        bad_keys += bad.sum(dtype=torch.int32)
+    valid = valid & ~bad
+    perm, sk, sv, seg_starts = sort_by_key(kid, valid, max_key=k)
+    # within-batch inclusive per-key fold, arrival order kept by the
+    # stable sort
+    prefix = segmented_scan(tuple(c[perm] for c in cols), seg_starts, combine)
+    safe = torch.where(sv, sk, 0).clamp(0, k - 1).to(torch.int64)
+    seen = seen_plane[safe] & sv
+    stored = tuple(unpack_words([p[safe] for p in planes], kinds))
+    combined = combine(stored, prefix)
+    emis_sorted = [
+        torch.broadcast_to(torch.where(seen, c, p), (n,))
+        for c, p in zip(combined, prefix)
+    ]
+    # one tail per key carries the key's new value into the planes
+    rows = (segment_tails(seg_starts) & sv).nonzero().squeeze(1)
+    tail_keys = safe[rows]
+    for p, w in zip(planes, pack_words([e[rows] for e in emis_sorted], kinds)):
+        p[tail_keys] = w.to(p.dtype)
+    seen_plane[tail_keys] = True
+    inv = inverse_permutation(perm)
+    return state, tuple(
+        e[inv].to(TORCH_DTYPES[kd]) for e, kd in zip(emis_sorted, kinds)
+    )

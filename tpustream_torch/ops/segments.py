@@ -99,3 +99,13 @@ def segment_ranks(seg_starts: torch.Tensor) -> torch.Tensor:
     pos = torch.arange(n, dtype=torch.int32, device=seg_starts.device)
     seg_first = torch.cummax(torch.where(seg_starts, pos, 0), dim=0).values
     return pos - seg_first
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """``inv`` with ``inv[perm[i]] == i`` (int64): gathering a sorted
+    column with it puts its rows back in arrival order."""
+    n = perm.shape[0]
+    inv = torch.empty(n, dtype=torch.int64, device=perm.device)
+    inv.scatter_(0, perm.to(torch.int64),
+                 torch.arange(n, dtype=torch.int64, device=perm.device))
+    return inv

@@ -23,9 +23,14 @@ from typing import List, Sequence, Union
 
 import torch
 
-from ..records import BOOL, F64, I64
+from ..records import BOOL, F64, I64, STR
 
 Compact = Union[bool, Sequence[bool]]
+
+# the torch dtype of each leaf kind (interned strings are int32 ids)
+TORCH_DTYPES = {
+    F64: torch.float64, I64: torch.int64, STR: torch.int32, BOOL: torch.bool,
+}
 
 
 def _per_leaf(compact32: Compact, kinds: Sequence[str]) -> List[bool]:

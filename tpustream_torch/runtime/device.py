@@ -26,12 +26,8 @@ import torch
 from ..api.functions import as_callable
 from ..api.tuples import TupleBase, make_tuple
 from ..arith import reference_arithmetic
+from ..ops.wordplanes import TORCH_DTYPES
 from ..records import BOOL, F64, I64, STR, StringTable
-
-# torch dtype of each leaf kind (interned strings are int32 ids)
-TORCH_DTYPES = {
-    F64: torch.float64, I64: torch.int64, STR: torch.int32, BOOL: torch.bool,
-}
 
 
 class StrVal:
@@ -103,6 +99,21 @@ def unwrap_record(rec) -> Tuple[list, list, list]:
         kinds.append(kind)
         tables.append(table)
     return values, kinds, tables
+
+
+def record_combiner(fn: Callable, kinds: Sequence[str],
+                    tables: Sequence[Optional[StringTable]]) -> Callable:
+    """A user two-record function (``reduce``, an aggregate's ``merge``)
+    as a combiner on leaf tuples, run with the reference's arithmetic."""
+
+    def combine(a, b):
+        with reference_arithmetic():
+            ra = wrap_record(kinds, tables, list(a))
+            rb = wrap_record(kinds, tables, list(b))
+            out, _, _ = unwrap_record(fn(ra, rb))
+        return tuple(out)
+
+    return combine
 
 
 def dummy_leaf(kind: str) -> torch.Tensor:

@@ -15,6 +15,12 @@ end of the stream runs one at ``MAX_WATERMARK`` (event time) or at the
 clock (processing time), so every remaining window fires. Under
 ``max_fires_per_step`` empty steps drain deferred fires after each step.
 
+Emissions reach the sinks in the reference's order: a full-window
+``process()`` program's fires are evaluated on the host against the
+state the step left (before the next step), then the ``main`` stream's
+rows go to every branch, then the rows late past the allowed lateness
+go to each late-data side output.
+
 Not ported here, and refused by :func:`execute_job` rather than ignored:
 checkpoints and restore, supervised restarts, the observability layer,
 ingest lanes, dead-letter quarantine and chained stages. The reference's
@@ -35,6 +41,7 @@ from ..api.timeapi import TimeCharacteristic
 from ..api.watermarks import LONG_MIN, MAX_WATERMARK, AssignerWithPunctuatedWatermarks
 from ..config import StreamConfig
 from ..hostparse import PlanEvaluator, run_fallback_map
+from ..ops.panes import compact_positions
 from ..records import NUMPY_DTYPES, STR, Batch, Column, DerivedKeyTable, StringTable
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
@@ -207,8 +214,9 @@ class JobResult:
 
 
 def _make_sinks(plan: JobPlan, cfg: StreamConfig):
-    """(host-side branch ops, sink) per main branch; the ops run over the
-    fetched emissions, as in the reference's stream fan-out."""
+    """``(main, side)``: (host-side branch ops, sink) per main branch, and
+    per side-output tag id; the ops run over the fetched emissions, as in
+    the reference's stream fan-out."""
     pp = cfg.print_parallelism if cfg.print_parallelism is not None else cfg.parallelism
 
     def build_sink(node):
@@ -218,10 +226,15 @@ def _make_sinks(plan: JobPlan, cfg: StreamConfig):
             return CollectSink(node.params["handle"])
         return FnSink(node.params["fn"])
 
-    return [
+    main = [
         (_bind_ops(branch.ops), build_sink(branch.sink_node))
         for branch in plan.branches
     ]
+    side = {
+        so.tag.id: (_bind_ops(so.ops), build_sink(so.sink_node))
+        for so in plan.side_outputs
+    }
+    return main, side
 
 
 class Runner:
@@ -229,7 +242,8 @@ class Runner:
     emissions out to the sinks."""
 
     _COUNTER_NAMES = (
-        "window_fires", "late_dropped", "alert_overflow", "evicted_unfired",
+        "window_fires", "late_dropped", "alert_overflow", "buffer_overflow",
+        "evicted_unfired",
     )
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig, metrics: Metrics):
@@ -239,9 +253,14 @@ class Runner:
         self.program = build_program(plan, cfg)
         self.device = self.program.device
         self.state = self.program.init_state()
-        self.sinks = _make_sinks(plan, cfg)
+        self.sinks, self.side_sinks = _make_sinks(plan, cfg)
+        # a host-evaluated window's post map/filter tail
+        self.post_ops = _bind_ops(plan.device_post)
         self.formatter = EmissionFormatter(
             self.program.out_kinds, self.program.out_tables
+        )
+        self.late_formatter = EmissionFormatter(
+            self.program.mid_kinds, self.program.mid_tables
         )
         self.event_time = plan.time_characteristic == TimeCharacteristic.EventTime
         self._empty: Optional[Batch] = None
@@ -325,6 +344,7 @@ class Runner:
     def _to_host(self, tensors) -> List[np.ndarray]:
         """Copy device tensors to the host with one wait for them all."""
         self.metrics.d2h_syncs += 1
+        self.metrics.d2h_bytes += sum(t.numel() * t.element_size() for t in tensors)
         if self.device.type != "cuda":
             return [t.numpy() for t in tensors]
         outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -352,18 +372,80 @@ class Runner:
         m.step_times_s.append(sw.elapsed)
         m.d2h_syncs += self.program.host_reads - reads
         m.steps += 1
-        main = emissions["main"]
+        fire_info = emissions.get("process_fire")
+        if fire_info is not None:
+            self._evaluate_fires(fire_info)
+        main = emissions.get("main")
+        if main is not None:
+            with Stopwatch() as sw:
+                out, subtask = self._fetch(main)
+            m.fetch_times_s.append(sw.elapsed)
+            with Stopwatch() as sw:
+                for j, row in enumerate(self.formatter.rows(out)):
+                    self._emit_row(row, None if subtask is None else int(subtask[j]))
+                m.records_emitted += len(out[0]) if out else 0
+            m.emit_times_s.append(sw.elapsed)
+        late = emissions.get("late")
+        if late is not None and self.side_sinks:
+            with Stopwatch() as sw:
+                self._dispatch_late(late)
+            m.emit_times_s.append(sw.elapsed)
+
+    def _evaluate_fires(self, fire_info) -> None:
+        """A full-window program's fires: the program gathers each fired
+        window's elements from the live state and calls the user
+        function on the host; each result takes the window's post ops,
+        then goes to every branch. Its copies count as fetch time, the
+        rest as emit time."""
+        m = self.metrics
+        fetch_s = 0.0
+        emitted = 0
+
+        def emit(item, subtask):
+            nonlocal emitted
+            item, keep = _apply_ops(self.post_ops, item)
+            if keep:
+                self._emit_row(item, subtask)
+                emitted += 1
+
+        def fetch(tensors):
+            nonlocal fetch_s
+            with Stopwatch() as sw:
+                got = self._to_host(tensors)
+            fetch_s += sw.elapsed
+            return got
+
         with Stopwatch() as sw:
-            out, subtask = self._fetch(main)
-        m.fetch_times_s.append(sw.elapsed)
-        with Stopwatch() as sw:
-            for j, row in enumerate(self.formatter.rows(out)):
-                self._emit_row(row, int(subtask[j]))
-            m.records_emitted += len(subtask)
-        m.emit_times_s.append(sw.elapsed)
+            fired = self.program.evaluate_fires(
+                self.state, fire_info, emit, fetch)
+        m.fetch_times_s.append(fetch_s)
+        m.emit_times_s.append(sw.elapsed - fetch_s)
+        m.records_emitted += emitted
+        m.window_fires += fired
+
+    def _dispatch_late(self, late) -> None:
+        """Rows late past the allowed lateness, to every late-data side
+        output (after its host-side ops). Their count is read first, then
+        only that many rows, compacted on the device, are copied. (The
+        device counts drops itself, in ``late_dropped``, for jobs with no
+        side output.)"""
+        mask = late["mask"]
+        idx, count = compact_positions(mask, mask.shape[0])
+        (n,) = self._to_host([count])
+        n = int(n)
+        if n == 0:
+            return
+        rows = idx[:n].to(torch.int64)
+        cols = self._to_host([c[rows] for c in late["cols"]])
+        for ops, sink in self.side_sinks.values():
+            for row in self.late_formatter.rows(cols):
+                item, keep = _apply_ops(ops, row)
+                if keep:
+                    sink.emit(item)
 
     def _fetch(self, main):
-        """The step's emitted rows on the host: (columns, subtasks)."""
+        """The step's emitted rows on the host: (columns, subtasks);
+        subtasks are None for a stream without a key."""
         n_shards = max(1, self.cfg.parallelism)
         if self.program.main_emission_prefix:
             # read the count, then copy only that many rows
@@ -371,9 +453,13 @@ class Runner:
             if isinstance(count, torch.Tensor):
                 (count,) = self._to_host([count])
             n = int(count)
+            key = main.get("key")
             if n == 0:
-                return [], np.zeros(0, dtype=np.int64)
-            got = self._to_host([c[:n] for c in main["cols"]] + [main["key"][:n]])
+                return [], None
+            extra = [] if key is None else [key[:n]]
+            got = self._to_host([c[:n] for c in main["cols"]] + extra)
+            if key is None:
+                return got, None
             return got[:-1], got[-1].astype(np.int64) % n_shards
         # checked before any row of the step reaches a sink
         bad = main.get("bad_keys")
@@ -389,7 +475,7 @@ class Runner:
         cols = got[2:len(got) - len(extra)]
         return [c[sel] for c in cols], got[1][sel]
 
-    def _emit_row(self, row, subtask: int) -> None:
+    def _emit_row(self, row, subtask: Optional[int]) -> None:
         """Fan one emitted record out to every branch: the branch's
         host-side map/filter tail, then its sink."""
         for ops, sink in self.sinks:
@@ -416,7 +502,7 @@ class Runner:
                 "strict_overflow: records were lost or truncated: "
                 + ", ".join(f"{n}={v}" for n, v in sorted(bad.items()))
                 + " — raise the relevant capacity (alert_capacity / "
-                "pane_ring_slack)"
+                "process_buffer_capacity / pane_ring_slack)"
             )
 
 
@@ -464,10 +550,6 @@ def execute_job(env, sink_nodes) -> JobResult:
                 "ported to the PyTorch runtime yet"
             )
         plan = plans[0]
-        if plan.side_outputs:
-            raise NotImplementedError(
-                "side outputs are not ported to the PyTorch runtime yet"
-            )
         host = HostStage(plan, cfg)
     metrics = Metrics(build_time_s=setup.elapsed)
     env.metrics = metrics

@@ -4,7 +4,8 @@ A plain counterpart of tpustream/runtime/metrics.py without its metrics
 registry. Every time is a host-clock interval; the step interval ends in
 a device synchronise, so it covers the device's work for the batch.
 ``window_fires``, ``late_dropped`` and the loss counters accumulate on
-the device and are folded in once per job (``Runner.finalize_metrics``).
+the device and are folded in once per job (``Runner.finalize_metrics``);
+a full-window ``process()`` job counts its fires on the host.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ class Metrics:
     records_emitted: int = 0   # records handed to the sinks
     steps: int = 0             # device steps run
     d2h_syncs: int = 0         # waits on a device-to-host copy
+    d2h_bytes: int = 0         # bytes the executor copied device -> host
     window_fires: int = 0      # (key, window) results fired
     late_dropped: int = 0      # records behind the watermark, dropped
     alert_overflow: int = 0    # fired rows past alert_capacity, lost
+    buffer_overflow: int = 0   # window elements past process_buffer_capacity
     evicted_unfired: int = 0   # records cleared from the ring unfired
     build_time_s: float = 0.0  # set-up: plan, host stage, program, state
     host_times_s: List[float] = field(default_factory=list)   # parse
@@ -36,6 +39,7 @@ class Metrics:
         """The loss counters a strict job must keep at zero."""
         return {
             "alert_overflow": self.alert_overflow,
+            "buffer_overflow": self.buffer_overflow,
             "evicted_unfired": self.evicted_unfired,
         }
 
@@ -47,9 +51,11 @@ class Metrics:
             "records_emitted": self.records_emitted,
             "steps": self.steps,
             "d2h_syncs": self.d2h_syncs,
+            "d2h_bytes": self.d2h_bytes,
             "window_fires": self.window_fires,
             "late_dropped": self.late_dropped,
             "alert_overflow": self.alert_overflow,
+            "buffer_overflow": self.buffer_overflow,
             "evicted_unfired": self.evicted_unfired,
             "build_time_s": self.build_time_s,
             "host_time_s": sum(self.host_times_s),

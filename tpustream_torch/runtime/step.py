@@ -2,9 +2,13 @@
 job, run eagerly with PyTorch on ``StreamConfig.device``.
 
 Counterpart of tpustream/runtime/step.py for one device. Ported: the
-keyed rolling max/min/sum (``RollingProgram``) and the tumbling/sliding
-window ``reduce`` (``window_program.WindowProgram``). Every other program
-family, and ``parallelism > 1``, raises ``NotImplementedError`` from
+stateless map/filter chain (``StatelessProgram``), the keyed rolling
+aggregates (``RollingProgram``: max/min/sum through the hand-written
+kernel, max_by/min_by/a user reduce through the general path), the
+tumbling/sliding window ``reduce`` and ``aggregate``
+(``window_program.WindowProgram``) and the full-window ``process``
+(``process_program.ProcessWindowProgram``). Session and count windows,
+CEP, and ``parallelism > 1`` raise ``NotImplementedError`` from
 :func:`build_program`. A step takes ``(state, cols, valid, ts,
 wm_lower)``, as in the reference.
 """
@@ -15,10 +19,12 @@ from typing import Dict
 
 import torch
 
+from ..api.functions import as_callable
 from ..config import StreamConfig
+from ..ops import panes as pane_ops
 from ..ops import rolling as rolling_ops
 from ..records import I64, STR
-from .device import DeviceChain
+from .device import DeviceChain, record_combiner
 from .plan import JobPlan
 
 
@@ -79,27 +85,75 @@ class BaseProgram:
         return self.mid_tables[self.key_pos]
 
 
+class StatelessProgram(BaseProgram):
+    """map/filter-only pipeline (reference chapter1 job,
+    chapter1/.../Main.java:15-34).
+
+    The rows the chain keeps are compacted on the device into a prefix
+    of the step's output, so the host fetches the kept rows' count and
+    then only that many rows: for a sparse filter like the > 90
+    threshold, a small part of the batch."""
+
+    main_emission_prefix = True
+
+    def __init__(self, plan: JobPlan, cfg: StreamConfig):
+        super().__init__(plan, cfg)
+        self.out_kinds = self.mid_kinds
+        self.out_tables = self.mid_tables
+        # never lossy: a filterless pipeline emits the whole batch
+        self.emit_capacity = max(cfg.alert_capacity, cfg.batch_size)
+        self.host_reads = 0  # the step reads nothing back itself
+
+    def key_table(self):
+        return None  # no key: nothing to grow
+
+    def init_state(self, key_capacity: int = None) -> dict:
+        return {"alert_overflow": torch.zeros((), dtype=torch.int64,
+                                              device=self.device)}
+
+    def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
+        """One batch: ``cols`` the record's ``[B]`` tensors, ``valid``
+        bool[B]. Returns ``(state, {"main": stream})``; the stream's rows
+        are the first ``count`` of ``cols``, in arrival order."""
+        out_cols, mask = self.pre_chain.apply(cols, valid)
+        m = min(mask.shape[0], self.emit_capacity)
+        idx, count = pane_ops.compact_positions(mask, m)
+        idx = idx.to(torch.int64)
+        state["alert_overflow"] += torch.clamp(
+            count - self.emit_capacity, min=0).to(torch.int64)
+        main = {
+            "count": torch.clamp(count, max=self.emit_capacity),
+            "cols": tuple(c[idx] for c in out_cols),
+        }
+        return state, {"main": main}
+
+
 class RollingProgram(BaseProgram):
-    """keyBy + rolling max/min/sum, emitting per record
-    (reference chapter2/.../ComputeCpuMax.java:26)."""
+    """keyBy + rolling aggregate, emitting per record
+    (reference chapter2/.../ComputeCpuMax.java:26). max/min/sum of a
+    float64 field take the kernel's path; max_by, min_by and a user
+    reduce take the general path (:func:`rolling_ops.rolling_step_general`)."""
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         super().__init__(plan, cfg)
         st = plan.stateful
-        if st.kind != "rolling" or st.rolling_kind not in rolling_ops.COMMUTATIVE:
-            what = "a user reduce" if st.kind == "rolling_reduce" else st.rolling_kind
-            raise NotImplementedError(
-                f"rolling {what} is not ported to the PyTorch runtime yet: "
-                f"only max/min/sum are (the general rolling path waits)"
-            )
         if str(cfg.acc_dtype) != "float64":
             raise NotImplementedError(
-                f"acc_dtype={cfg.acc_dtype!r} is not ported to the PyTorch "
-                f"runtime yet: only the exact float64 accumulator is"
+                f"rolling acc_dtype={cfg.acc_dtype!r} is not ported to the "
+                f"PyTorch runtime yet (roadmap queue item 4): only the exact "
+                f"float64 accumulator is"
             )
-        self.kind = st.rolling_kind
-        self.pos = st.rolling_pos
+        if st.kind == "rolling":
+            self.kind, self.pos = st.rolling_kind, st.rolling_pos
+        else:
+            self.kind, self.pos = "reduce", None
         self.key_pos = plan.key_pos
+        if self.kind == "reduce":
+            self.combine = record_combiner(
+                as_callable(st.rolling_fn, "reduce"), self.mid_kinds,
+                self.mid_tables)
+        elif self.kind not in rolling_ops.COMMUTATIVE:
+            self.combine = rolling_ops.make_combiner(self.kind, self.pos)
         self.post_chain = DeviceChain(
             plan.device_post, self.mid_kinds, self.mid_tables
         )
@@ -113,7 +167,9 @@ class RollingProgram(BaseProgram):
     @property
     def sentinel_leaf(self):
         """Keep-first STR leaf whose plane doubles as occupancy (interned
-        ids >= 0; -1 marks unseen)."""
+        ids >= 0; -1 marks unseen); the kernel's path only."""
+        if self.kind not in rolling_ops.COMMUTATIVE:
+            return None
         for i, kd in enumerate(self.mid_kinds):
             if kd == STR and i != self.pos and i != self.key_pos:
                 return i
@@ -142,6 +198,12 @@ class RollingProgram(BaseProgram):
         mid_cols, mask = self._apply_pre(cols, valid)
         mid_cols, gkeys = self._split_key_col(mid_cols)
         keys = gkeys.to(torch.int32)
+        if self.kind not in rolling_ops.COMMUTATIVE:
+            state, emitted = rolling_ops.rolling_step_general(
+                state, keys, tuple(mid_cols), mask, self.combine,
+                self.mid_kinds, bad_keys=self.bad_keys,
+            )
+            return state, {"main": self._main(emitted, mask, keys)}
         kwargs: Dict = {"sentinel_leaf": self.sentinel_leaf,
                         "bad_keys": self.bad_keys}
         key_kind = None if self.plan.synthetic_key else self.mid_kinds[self.key_pos]
@@ -155,12 +217,16 @@ class RollingProgram(BaseProgram):
             state, keys, tuple(mid_cols), mask, self.mid_kinds,
             self.kind, self.pos, **kwargs,
         )
+        return state, {"main": self._main(emitted, mask, keys)}
+
+    def _main(self, emitted, mask, keys) -> dict:
+        """The step's output stream: the post chain over the arrival-order
+        emissions, and each row's owning subtask."""
         out_cols, out_mask = self.post_chain.apply(list(emitted), mask)
         n_shards = max(1, self.cfg.parallelism)
         subtask = torch.where(mask, keys, 0) % n_shards
-        main = {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
+        return {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
                 "bad_keys": self.bad_keys}
-        return state, {"main": main}
 
 
 def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
@@ -170,13 +236,14 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
             f"runtime yet: it runs on one device"
         )
     if plan.stateful is None:
-        raise NotImplementedError(
-            "stateless map/filter jobs are not ported to the PyTorch "
-            "runtime yet"
-        )
+        return StatelessProgram(plan, cfg)
     if plan.stateful.kind in ("rolling", "rolling_reduce"):
         return RollingProgram(plan, cfg)
     if plan.stateful.kind == "window":
+        if plan.stateful.apply_kind == "process":
+            from .process_program import ProcessWindowProgram
+
+            return ProcessWindowProgram(plan, cfg)
         from .window_program import WindowProgram
 
         return WindowProgram(plan, cfg)

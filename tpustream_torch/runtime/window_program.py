@@ -1,22 +1,31 @@
 """Windowed keyed aggregation on a pane ring (PyTorch).
 
-Counterpart of tpustream/runtime/window_program.py for ``reduce`` over
-tumbling and sliding time windows, in processing and event time
-(reference chapter3/.../BandwidthMonitor.java:32-41,
-chapter3/.../BandwidthMonitorWithEventTime.java:45-55). One step:
+Counterpart of tpustream/runtime/window_program.py for ``reduce`` and
+``aggregate`` over tumbling and sliding time windows, in processing and
+event time (reference chapter2/.../ComputeCpuAvg.java:27-60,
+chapter3/.../BandwidthMonitor.java:32-41,
+chapter3/.../BandwidthMonitorWithEventTime.java:45-55), with bounded
+out-of-orderness, allowed lateness and the late-data side output
+(chapter3/README.md:195-228). One step:
 
-  1. masked pre-chain (map/filter) over the batch,
+  1. masked pre-chain (map/filter) over the batch, then the lift
+     (``aggregate``: the user ``add`` of each record into a fresh
+     accumulator),
   2. watermark update: monotone ``max(max_seen - delay, clock_hint)``,
-  3. late split against the PRE-batch watermark,
+  3. late split against the PRE-batch watermark and the allowed
+     lateness (late rows are the ``late`` stream a side output reads),
   4. state merge into flat ``[slot * K + key]`` word planes, either a
      non-unique scatter-add/min/max (``acc_dtype="int32"`` with a
      commutative combiner) or a stable sort by cell, a segmented scan
      with the user combiner, a gather of the old cell and a set-scatter
      at segment tails (the exact default),
   5. fire: window ends that crossed the watermark fire IN ORDER, at most
-     ``max_fires_per_step`` a step; each fire folds its panes densely
-     over all keys, runs the post chain, and append-compacts the rows it
-     keeps into a ``[alert_capacity]`` buffer.
+     ``max_fires_per_step`` a step, and, under allowed lateness, ends
+     already fired whose panes took a record this step fire again
+     (exempt from the budget); each fire folds its panes densely over
+     all keys, finalizes (``aggregate``: the user ``get_result``), runs
+     the post chain, and append-compacts the rows it keeps into a
+     ``[alert_capacity]`` buffer.
 
 The reference's traced control flow (``lax.cond``, ``scan``,
 ``while_loop``) is Python control flow here. Ring metadata (``hi``,
@@ -24,16 +33,17 @@ The reference's traced control flow (``lax.cond``, ``scan``,
 kept on the host, so a step reads the device once for the batch's
 decision scalars (its newest timestamp, newest and oldest live pane,
 largest key), once per fire pass for the slots that hold a record (a
-fire skips the others), and, only on the jump sweep, once per sweep
-iteration. The
+fire skips the others) and, under allowed lateness, the slots the step
+wrote, and, only on the jump sweep, once per sweep iteration. The
 loss and fire counters accumulate on the device and are read once per
 job. Each flat plane carries one trailing sink cell that masked rows of
 a scatter write to.
 
-Not ported (``NotImplementedError`` naming the roadmap item):
-``aggregate`` (item 3), ``process`` (item 5), allowed lateness and late
-side outputs (item 3), and ``acc_dtype="float32"``: a float scatter-add
-through atomics has no fixed order on the card.
+``process()`` windows keep raw elements instead
+(``process_program.ProcessWindowProgram``, a subclass). Not ported
+(``NotImplementedError``): session and count windows (roadmap items
+6-7), and ``acc_dtype="float32"``: a float scatter-add through atomics
+has no fixed order on the card.
 """
 
 from __future__ import annotations
@@ -57,12 +67,30 @@ from ..ops.segments import (
 )
 from ..ops.wordplanes import pack_words, plane_dtypes, unpack_words
 from ..arith import reference_arithmetic
-from .device import TORCH_DTYPES, DeviceChain, dummy_leaf, unwrap_record, wrap_record
+from .device import (
+    TORCH_DTYPES,
+    DeviceChain,
+    dummy_leaf,
+    record_combiner,
+    unwrap_record,
+    wrap_record,
+)
 from .plan import JobPlan
 from .step import BaseProgram
 
 INF = 2**62
 COUNTERS = ("window_fires", "late_dropped", "alert_overflow", "evicted_unfired")
+
+
+def _dirty(slot_pane: np.ndarray, touched: np.ndarray, cand: np.ndarray,
+           p_win: int) -> np.ndarray:
+    """bool ``[F]``: the candidate windows (last pane ``cand``) that hold
+    a touched slot. The reference multiplies the int32 ``touched`` vector
+    into the slot-by-window member matrix; an ``any`` over the member
+    mask is the same test."""
+    member = ((slot_pane[:, None] <= cand[None, :])
+              & (slot_pane[:, None] > cand[None, :] - p_win))
+    return (touched[:, None] & member).any(axis=0)
 
 
 class _Emission:
@@ -99,18 +127,8 @@ class WindowProgram(BaseProgram):
                 f"{spec.kind} windows are not ported to the PyTorch runtime "
                 f"yet (roadmap queue items 6-7)"
             )
-        if st.apply_kind != "reduce":
-            item = {"aggregate": 3, "process": 5}.get(st.apply_kind)
-            raise NotImplementedError(
-                f"window {st.apply_kind}() is not ported to the PyTorch "
-                f"runtime yet (roadmap queue item {item}); reduce() is"
-            )
-        if st.allowed_lateness_ms > 0 or st.late_tag is not None or plan.side_outputs:
-            raise NotImplementedError(
-                "allowed lateness and late side outputs are not ported to "
-                "the PyTorch runtime yet (roadmap queue item 3)"
-            )
-        if str(cfg.acc_dtype) not in ("float64", "int32"):
+        self.apply_kind = st.apply_kind
+        if self.apply_kind != "process" and str(cfg.acc_dtype) not in ("float64", "int32"):
             raise NotImplementedError(
                 f"acc_dtype={cfg.acc_dtype!r} is not ported to the PyTorch "
                 f"runtime: a float scatter-add through atomics has no fixed "
@@ -128,6 +146,10 @@ class WindowProgram(BaseProgram):
                 "before other operators (reference "
                 "chapter3/.../BandwidthMonitorWithEventTime.java:29)"
             )
+        self.allowed_lateness_ms = st.allowed_lateness_ms
+        # Flink's numLateRecordsDropped counts only records NOT consumed
+        # by a late side output: with one configured they are delivered
+        self.count_late_as_dropped = not plan.side_outputs
         self.domain = spec.time_domain
         # processing time: wm = max_proc_seen - 1 so a record at T fires
         # windows ending <= T (timer semantics); ingestion time rides the
@@ -136,15 +158,22 @@ class WindowProgram(BaseProgram):
             plan.ts_delay_ms if self.domain == TimeCharacteristic.EventTime else 1
         )
         self.ring = pane_ops.make_ring_spec(
-            spec.size_ms, spec.slide_ms, self.delay_ms, 0, cfg.pane_ring_slack
+            spec.size_ms, spec.slide_ms, self.delay_ms,
+            self.allowed_lateness_ms, cfg.pane_ring_slack,
         )
         self._build_agg()
-        self.post_chain = DeviceChain(
-            plan.device_post, self.result_kinds, self.result_tables
-        )
-        self.out_kinds = self.post_chain.out_kinds
-        self.out_tables = self.post_chain.out_tables
-        self._analyze_columns()
+        if self.apply_kind == "process":
+            # the user function and the post ops run on the host
+            self.post_chain = None
+            self.out_kinds = list(self.result_kinds)
+            self.out_tables = list(self.result_tables)
+        else:
+            self.post_chain = DeviceChain(
+                plan.device_post, self.result_kinds, self.result_tables
+            )
+            self.out_kinds = self.post_chain.out_kinds
+            self.out_tables = self.post_chain.out_tables
+            self._analyze_columns()
         self._check_cells(cfg.key_capacity)
         # device reads of this program (the executor counts its own)
         self.host_reads = 0
@@ -154,20 +183,64 @@ class WindowProgram(BaseProgram):
     # aggregation plumbing: lift / combine / finalize on leaf tuples
     # ------------------------------------------------------------------
     def _build_agg(self) -> None:
+        """``lift`` (record columns -> accumulator leaves), ``combine``
+        (two accumulators -> one) and ``finalize`` (accumulator ->
+        result leaves; None for ``reduce``, whose accumulator is the
+        record), with the accumulator's and the result's leaf kinds.
+        Every call into a user function runs under
+        :func:`reference_arithmetic`."""
         kinds, tables = self.mid_kinds, self.mid_tables
-        fn = as_callable(self.plan.stateful.apply_fn, "reduce")
+        if self.apply_kind == "reduce":
+            fn = as_callable(self.plan.stateful.apply_fn, "reduce")
+            self.combine = record_combiner(fn, kinds, tables)
+            self.lift = list
+            self.finalize = None
+            self.acc_kinds = list(kinds)
+            self.result_kinds = list(kinds)
+            self.result_tables = list(tables)
+            return
+        agg = self.plan.stateful.apply_fn
+        create = as_callable(agg, "create_accumulator")
+        add = as_callable(agg, "add")
+        get_result = as_callable(agg, "get_result")
 
-        def combine(a, b):
+        def add_fresh(cols):
+            # a fresh accumulator each call: add() may mutate it
             with reference_arithmetic():
-                ra = wrap_record(kinds, tables, list(a))
-                rb = wrap_record(kinds, tables, list(b))
-                out, _, _ = unwrap_record(fn(ra, rb))
+                out, out_kinds, out_tables = unwrap_record(
+                    add(wrap_record(kinds, tables, list(cols)), create()))
+            return out, out_kinds, out_tables
+
+        # the accumulator's layout from one add on 0-d stand-ins: a count
+        # that starts at Python 0 is I64, a sum that starts at 0.0 F64,
+        # the JAX package's kinds under x64
+        _, acc_kinds, acc_tables = add_fresh([dummy_leaf(k) for k in kinds])
+        self.acc_kinds = acc_kinds
+
+        def lift(cols):
+            # the user add runs once over [B] fields; a leaf it returns
+            # as a constant (the count's 0 + 1) is broadcast
+            out, _, _ = add_fresh(cols)
+            n, dev = cols[0].shape, cols[0].device
+            return [
+                torch.broadcast_to(v.to(device=dev, dtype=TORCH_DTYPES[k]), n)
+                for v, k in zip(out, acc_kinds)
+            ]
+
+        def finalize(leaves):
+            with reference_arithmetic():
+                out, _, _ = unwrap_record(
+                    get_result(wrap_record(acc_kinds, acc_tables, list(leaves))))
             return tuple(out)
 
-        self.combine = combine
-        self.acc_kinds = list(kinds)
-        self.result_kinds = list(kinds)
-        self.result_tables = list(tables)
+        self.combine = record_combiner(
+            as_callable(agg, "merge"), acc_kinds, acc_tables)
+        self.lift = lift
+        self.finalize = finalize
+        with reference_arithmetic():
+            res = get_result(wrap_record(
+                acc_kinds, acc_tables, [dummy_leaf(k) for k in acc_kinds]))
+            _, self.result_kinds, self.result_tables = unwrap_record(res)
 
     def _analyze_columns(self) -> None:
         """Which accumulator leaves to store (liveness over the post
@@ -177,8 +250,9 @@ class WindowProgram(BaseProgram):
         dummies = [dummy_leaf(k) for k in self.acc_kinds]
 
         def result_probe(*acc):
+            res = acc if self.finalize is None else self.finalize(acc)
             outs, keep, _, _ = self.post_chain._record_fn(
-                list(acc), torch.tensor(True)
+                list(res), torch.tensor(True)
             )
             return tuple(outs) + (keep,)
 
@@ -189,12 +263,15 @@ class WindowProgram(BaseProgram):
             result_probe, combine_probe, dummies, arity
         )
         self.live_idx = [i for i, l in enumerate(live) if l]
-        passthrough = liveness.passthrough_outputs(
-            combine_probe, dummies + dummies, arity
-        )
+        # reduce keeps records: the key leaf is rebuilt from the cell
+        # index when the combiner passes it through verbatim
         self.key_leaf: Optional[int] = None
-        if self.key_pos in self.live_idx and passthrough[self.key_pos]:
-            self.key_leaf = self.key_pos
+        if self.apply_kind == "reduce":
+            passthrough = liveness.passthrough_outputs(
+                combine_probe, dummies + dummies, arity
+            )
+            if self.key_pos in self.live_idx and passthrough[self.key_pos]:
+                self.key_leaf = self.key_pos
         self.stored_idx = [i for i in self.live_idx if i != self.key_leaf]
         self.stored_kinds = [self.acc_kinds[i] for i in self.stored_idx]
         ops = liveness.leaf_algebraic_ops(combine_probe, dummies, arity)
@@ -369,9 +446,11 @@ class WindowProgram(BaseProgram):
         if isinstance(evicted, torch.Tensor):
             state["evicted_unfired"] += evicted
 
-    def _scatter_words(self, state, keys, mid_cols, live, pane) -> None:
-        """Merge a batch's ``live`` rows into the flat cell planes, in
-        place.
+    def _scatter_words(self, state, keys, lifted, live, pane) -> Optional[torch.Tensor]:
+        """Merge a batch's ``live`` rows (accumulator leaves ``lifted``)
+        into the flat cell planes, in place. Returns, under allowed
+        lateness, bool ``[n_slots]``: the slots that took a record (an
+        already-fired window over them fires again); else None.
 
         Scatter-reduce path (commutative combiner, 32-bit planes): one
         non-unique scatter-add/min/max per plane straight into the
@@ -385,6 +464,11 @@ class WindowProgram(BaseProgram):
         planes, cnt = state["planes"], state["cnt"]
         slot = torch.remainder(pane, n).to(torch.int32)
         cell = slot * kk + keys  # slot-major == plane memory order
+        touched = None
+        if self.allowed_lateness_ms > 0:
+            touched = torch.zeros(n + 1, dtype=torch.bool, device=live.device)
+            touched.index_fill_(0, torch.where(live, slot, n).to(torch.int64), True)
+            touched = touched[:n]
 
         if self.fast_reduce:
             idx = torch.where(live, cell, sink).clamp(0, sink).to(torch.int64)
@@ -392,7 +476,7 @@ class WindowProgram(BaseProgram):
                 zip(planes, self.stored_idx, self.stored_ops)
             ):
                 (val,) = pack_words(
-                    [mid_cols[i]], [self.acc_kinds[i]], [self.compact32[s]]
+                    [lifted[i]], [self.acc_kinds[i]], [self.compact32[s]]
                 )
                 val = val.to(p.dtype)
                 if op == "add":
@@ -400,11 +484,11 @@ class WindowProgram(BaseProgram):
                 else:
                     p.scatter_reduce_(0, idx, val, "a" + op)
             cnt.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-            return
+            return touched
 
         perm, sc, sv, seg_starts = sort_by_key(cell, live, max_key=sink)
         sc = sc.to(torch.int32)
-        live_sorted = tuple(mid_cols[i][perm] for i in self.live_idx)
+        live_sorted = tuple(lifted[i][perm] for i in self.live_idx)
         prefix = segmented_scan(live_sorted, seg_starts, self._combine_live)
         tails = segment_tails(seg_starts) & sv
 
@@ -425,18 +509,25 @@ class WindowProgram(BaseProgram):
         for p, w in zip(planes, new_words):
             p.scatter_(0, flat_idx, w.to(p.dtype))
         cnt.scatter_(0, flat_idx, old_cnt + torch.where(tails, seg_count, 0))
+        return touched
 
     # ------------------------------------------------------------------
     # dense fire path
     # ------------------------------------------------------------------
     def _fire_dense(
-        self, state, hi: int, wm_new: int, ft: int, emission: _Emission,
+        self, state, hi: int, wm_old: int, wm_new: int, ft: int,
+        touched: Optional[torch.Tensor], emission: _Emission,
         budget_on: bool = True,
     ) -> Tuple[int, int]:
         """Fire due window ends from the ring, appending their rows to
         ``emission``. ``budget_on`` False suspends ``max_fires_per_step``
         on a sweep iteration that is not the last: a deferred fire there
         would fall out of ring coverage before a drain step reached it.
+        ``touched`` (allowed lateness only): the slots this merge wrote;
+        an end already fired, still within the allowed lateness of the
+        pre-batch watermark ``wm_old``, whose window holds such a slot
+        fires again (chapter3/README.md:212), exempt from the budget: a
+        deferred refire would be lost with the step's ``touched``.
         Returns ``(fired_through, deferred fires)``."""
         ring = self.ring
         n, f, p_win = ring.n_slots, ring.n_fire_candidates, ring.panes_per_window
@@ -447,12 +538,27 @@ class WindowProgram(BaseProgram):
         budget = (self.cfg.max_fires_per_step or f) if budget_on else f
         fire_now = pending & (np.cumsum(pending) <= budget)
         n_deferred = int(pending.sum() - fire_now.sum())
+        occupied = None
+        if touched is not None:
+            may_refire = (aligned & (ends - 1 <= ft)
+                          & (ends - 1 + self.allowed_lateness_ms > wm_old))
+            if may_refire.any():
+                # one read: slot occupancy and the slots the merge wrote
+                got = self._read(torch.cat([self._occupancy(state),
+                                            touched.to(torch.int64)]))
+                occupied, wrote = got[:n].astype(bool), got[n:].astype(bool)
+                fire_now = fire_now | (
+                    may_refire & _dirty(state["slot_pane"], wrote, cand, p_win))
         if not fire_now.any():
             return ft, n_deferred
-        ft = max(ft, int(ends[fire_now].max()) - 1)
-        # one read: a slot without a record folds nothing (the windows of
-        # a stream's first minutes reach back to panes before its start)
-        occupied = self._read(self._occupancy(state)).astype(bool)
+        fired = fire_now & pending
+        if fired.any():
+            ft = max(ft, int(ends[fired].max()) - 1)
+        if occupied is None:
+            # one read: a slot without a record folds nothing (the windows
+            # of a stream's first minutes reach back to panes before its
+            # start)
+            occupied = self._read(self._occupancy(state)).astype(bool)
         for jj in np.flatnonzero(fire_now):
             self._fire_one(state, int(cand[jj]), int(ends[jj]), p_win,
                            occupied, emission)
@@ -510,6 +616,12 @@ class WindowProgram(BaseProgram):
             if full[i] is None:
                 full[i] = torch.zeros((kk,), dtype=TORCH_DTYPES[kd],
                                       device=self.device)
+        if self.finalize is not None:
+            full = [
+                torch.broadcast_to(r.to(device=self.device,
+                                        dtype=TORCH_DTYPES[kd]), (kk,))
+                for r, kd in zip(self.finalize(tuple(full)), self.result_kinds)
+            ]
         post_cols, post_mask = self.post_chain.apply(full, has)
 
         cap = self.cfg.alert_capacity
@@ -547,12 +659,14 @@ class WindowProgram(BaseProgram):
         kk = self.key_capacity(state)
         mid_cols, key_col = self._split_key_col(mid_cols)
         keys = key_col.to(torch.int32)
+        lifted = self.lift(mid_cols)
 
         wm_old = state["wm"]
-        late = pane_ops.late_mask(ts, wm_old, 0, ring) & mask
+        late = pane_ops.late_mask(ts, wm_old, self.allowed_lateness_ms, ring) & mask
         live = mask & ~late
         pane = pane_ops.pane_of(ts, g)
-        state["late_dropped"] += late.sum(dtype=torch.int64)
+        if self.count_late_as_dropped:
+            state["late_dropped"] += late.sum(dtype=torch.int64)
         # the step's decisions need four scalars of the batch: one copy
         batch_max, batch_hi, min_live_pane, max_key = (
             int(v) for v in self._read(torch.stack([
@@ -585,19 +699,22 @@ class WindowProgram(BaseProgram):
         if not may_evict and min_live_pane > hi - n:
             if hi > state["hi"]:
                 self._retarget(state, hi, ft0)
-            self._scatter_words(state, keys, mid_cols, live, pane)
-            new_ft, pending = self._fire_dense(state, hi, wm_new, ft0, emission)
+            touched = self._scatter_words(state, keys, lifted, live, pane)
+            new_ft, pending = self._fire_dense(
+                state, hi, wm_old, wm_new, ft0, touched, emission)
         else:
             new_ft, pending = self._sweep(
-                state, hi, ft0, wm_new, keys, mid_cols, live, pane, emission
+                state, hi, ft0, wm_old, wm_new, keys, lifted, live, pane,
+                emission,
             )
         # ends whose last pane fell below ring coverage can never fire
         # again: advance fired_through past them
         new_ft = max(new_ft, min(wm_new, (hi - n + 1) * g - 1))
         state.update(hi=hi, wm=wm_new, max_ts=new_max, fired_through=new_ft,
                      pending_fires=pending)
+        late_stream = {"mask": late, "cols": tuple(mid_cols)}
         if emission.cols is None:
-            return state, {"main": {"count": 0}}
+            return state, {"main": {"count": 0}, "late": late_stream}
         cols = emission.cols
         main = {
             "count": emission.count,
@@ -605,10 +722,10 @@ class WindowProgram(BaseProgram):
             "key": cols[-2],
             "window_end": cols[-1],
         }
-        return state, {"main": main}
+        return state, {"main": main, "late": late_stream}
 
-    def _sweep(self, state, hi_target, ft0, wm_new, keys, mid_cols, live,
-               pane, emission) -> Tuple[int, int]:
+    def _sweep(self, state, hi_target, ft0, wm_old, wm_new, keys, lifted,
+               live, pane, emission) -> Tuple[int, int]:
         """Advance the ring from its current head to ``hi_target`` in
         safe chunks when one step spans more panes than the ring covers
         (a batch with a large event-time jump, or a stream gap).
@@ -642,13 +759,14 @@ class WindowProgram(BaseProgram):
             hi_next = max(hi_next, hi_cur)
             if hi_next > hi_cur:
                 self._retarget(state, hi_next, ft)
-            self._scatter_words(
-                state, keys, mid_cols, unscat & (pane <= hi_next), pane
+            touched = self._scatter_words(
+                state, keys, lifted, unscat & (pane <= hi_next), pane
             )
             is_final = hi_next >= hi_target
             wm_eff = wm_new if is_final else min(wm_new, hi_next * g - 1)
             ft, pending = self._fire_dense(
-                state, hi_next, wm_eff, ft, emission, budget_on=is_final
+                state, hi_next, wm_old, wm_eff, ft, touched, emission,
+                budget_on=is_final,
             )
             first, hi_cur, scattered_hi = False, hi_next, hi_next
         return ft, pending
