@@ -17,10 +17,16 @@ event-time jump input, the processing-time goldens) against the same
 job on the CPU. Phases ``ch1``, ``avg`` and ``median`` drive the
 chapter-1 threshold filter and the chapter-2 windowed average and
 median over 1M lines each against host oracles, with the loss counters
-at 0; phase ``small`` holds their goldens, ``max_by`` and the
-allowed-lateness cases (main and side-output rows) on the card against
-the CPU. Each phase prints its wall time. Prints the card's name and
-power limit, one line per
+at 0. Phase ``session`` drives session windows at the JAX bench's
+phase-K configuration (B = K = 131072, gap and delay 1 s) over 1M lines,
+``reduce`` in int32 (the scatter-reduce merge) and an ``aggregate`` mean
+in float64 (the sorted merge); phase ``count`` drives tumbling and
+sliding count-window ``reduce`` over 1M lines and a sliding ``process()``
+over 100k; each against a numpy oracle with the loss counters at 0.
+Phase ``small`` holds the goldens of the new jobs, ``max_by``, the
+allowed-lateness cases (main and side-output rows) and the session and
+count goldens on the card against the CPU. Each phase prints its wall
+time. Prints the card's name and power limit, one line per
 kernel case (with a per-launch device-time split from ``torch.profiler``
 for the main case, a cold-L2 time and ``torch.sort`` as a reference
 point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
@@ -29,9 +35,10 @@ device, when the package is not beside this script, or when any phase
 fails.
 
 Options (the default runs everything): ``--phases
-kernel,job,flagship,ch1,avg,median,small``, ``--reps N`` (timed repeats
-per kernel case), ``--lines N`` (job input), ``--flagship-lines N``
-(flagship input), ``--new-lines N`` (input of ch1, avg and median).
+kernel,job,flagship,ch1,avg,median,session,count,small``, ``--reps N``
+(timed repeats per kernel case), ``--lines N`` (job input),
+``--flagship-lines N`` (flagship input), ``--new-lines N`` (input of
+ch1, avg and median), ``--window-lines N`` (input of session and count).
 """
 
 from __future__ import annotations
@@ -528,12 +535,12 @@ def run_flagship(lines, device, batch=B_MAIN, keys=K_MAIN, processing=False,
     return [repr(t) for t in handle.items], env.metrics, time.perf_counter() - t0
 
 
-def flagship_profile(lines, name: str, config: dict, main_step_s: list,
-                     first: int = 2, n: int = 4) -> None:
-    """The job over all ``lines`` again, ``torch.profiler`` (CPU and CUDA
-    activity) on from data step ``first`` through data step
-    ``first + n - 1`` (0-based, warm), with the drain steps among them
-    and none after. Each program step in that window runs in a labelled
+def profile_steps(label: str, program_cls, run, main_step_s: list,
+                  first: int = 2, n: int = 4) -> None:
+    """``run()`` (the job again; returns its Metrics) with
+    ``torch.profiler`` (CPU and CUDA activity) on from data step
+    ``first`` through data step ``first + n - 1`` of ``program_cls``
+    (0-based, warm), with the drain steps among them and none after. Each program step in that window runs in a labelled
     range, so the device time of an aten op (the kernels it launches
     itself) belongs to the step that issued it. Prints, from the same
     steps of this one run: each data step's wall and device ms, the
@@ -547,12 +554,11 @@ def flagship_profile(lines, name: str, config: dict, main_step_s: list,
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from tpustream_torch.runtime.window_program import WindowProgram
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = []  # (step index, "data" | "drain") of the profiled steps
     seen = {"steps": 0, "data": 0, "on": False, "last_done": False}
-    plain_step = WindowProgram.step
+    plain_step = program_cls.step
 
     def step(self, state, cols, valid, ts, wm_lower):
         i = seen["steps"]
@@ -578,16 +584,16 @@ def flagship_profile(lines, name: str, config: dict, main_step_s: list,
         seen["last_done"] = kind == "data" and d == first + n - 1
         return out
 
-    WindowProgram.step = step
+    program_cls.step = step
     try:
-        _, m, _ = run_flagship(lines, "cuda", **config)
+        m = run()
     finally:
-        WindowProgram.step = plain_step
+        program_cls.step = plain_step
     if seen["on"] or not window:
-        raise AssertionError(f"flagship {name}: the run has under "
+        raise AssertionError(f"{label}: the run has under "
                              f"{first + n} data steps to profile")
     if m.steps != len(main_step_s):
-        raise AssertionError(f"flagship {name}: {m.steps} steps profiled "
+        raise AssertionError(f"{label}: {m.steps} steps profiled "
                              f"run vs {len(main_step_s)} unprofiled")
 
     events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
@@ -612,23 +618,24 @@ def flagship_profile(lines, name: str, config: dict, main_step_s: list,
     wall = {i: m.step_times_s[i] * 1e3 for i, _ in window}
     plain_wall = [main_step_s[i] * 1e3 for i in data]
     dev_data = sum(dev[i] for i in data)
-    print(f"flagship {name} profiled run: data steps {data} (step indices) "
+    print(f"{label} profiled run: data steps {data} (step indices) "
           f"wall_ms={[wall[i] for i in data]} "
           f"device_ms={[dev[i] for i in data]} "
           f"device_busy_share_of_data_step="
           f"{dev_data / sum(wall[i] for i in data)}; unprofiled run, same "
           f"steps (same kernels, no profiler on the host): wall_ms="
           f"{plain_wall} device_busy_share={dev_data / sum(plain_wall)}")
-    print(f"flagship {name} profiled run: {len(drain)} drain steps among "
+    print(f"{label} profiled run: {len(drain)} drain steps among "
           f"them, wall_ms_sum={sum(wall[i] for i in drain)} "
           f"device_ms_sum={sum(dev[i] for i in drain)}")
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
-    print(f"flagship {name} device ms per data step by op: " + ", ".join(
+    print(f"{label} device ms per data step by op: " + ", ".join(
         f"{k}={v / len(data)}" for k, v in top))
 
 
 def flagship_phase(n_lines: int) -> None:
     from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.window_program import WindowProgram
 
     t0 = time.perf_counter()
     lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
@@ -673,7 +680,9 @@ def flagship_phase(n_lines: int) -> None:
               f"emit_s={stages['emit']} other_s={wall - sum(stages.values())} "
               f"step_ms_first={m.step_times_s[0] * 1e3} "
               f"step_ms_median_rest={statistics.median(rest) * 1e3}")
-        flagship_profile(lines, name, config, m.step_times_s)
+        profile_steps(f"flagship {name}", WindowProgram,
+                      lambda: run_flagship(lines, "cuda", **config)[1],
+                      m.step_times_s)
 
     # small runs: the card's rows equal the same job's on the CPU
     small = [("event-time jump, batch 8", JUMP_LINES, dict(batch=8)),
@@ -900,6 +909,353 @@ def median_phase(n_lines: int, n_hosts: int = 1 << 14,
     print(f"median {wall_split(m, wall)}")
 
 
+# -- phases session and count: session windows and count windows ----------
+
+SESSION_B = 131072
+SESSION_K = 131072
+SESSION_GAP_MS = 1_000
+SESSION_RATE = 50  # lines a millisecond of event time: 50,000 a second
+
+
+def session_input(n: int, seed: int = 3):
+    """bench.py phase K's stream (``device_session``): an 8192-key active
+    block that rotates every 2 s of event time over 131072 keys, here at
+    50,000 lines a second of event time, each timestamp up to 499 ms
+    early (under the 1 s delay, so no record is late). ``(ts, key
+    numbers, long values, float values)``."""
+    g = np.arange(n, dtype=np.int64)
+    h = (g * 2654435761) & 0xFFFFFFFF
+    h ^= h >> 15
+    rng = np.random.default_rng(seed)
+    base = 1_600_000_000_000 + g // SESSION_RATE
+    block = (g // SESSION_RATE) // 2000
+    keys = ((h % 8192) + block * 8192) % SESSION_K
+    ts = base - rng.integers(0, 500, n)
+    return ts, keys, rng.integers(0, 1000, n), rng.integers(-10**6, 10**6, n) / 100
+
+
+def session_oracle(ts, keys, vals, ids, batch: int):
+    """The sessions of a stream with no late record: per key, sorted by
+    time, split where consecutive records are >= gap apart. Returns
+    ``(order, first, ends, counts, sums, abs_sums, per_step)`` over the
+    sessions in the job's
+    emission order: by the step whose watermark (the newest timestamp so
+    far less the 1 s delay, a batch at a time; the end of the stream
+    fires the rest) passes ``max + gap - 1``, then the session's last
+    pane, then the key id. ``order`` sorts the lines by (key, time) and
+    ``first`` is each session's first position in it; ``ends`` are
+    ``max + gap``; ``sums`` and ``abs_sums`` are of ``vals`` and
+    ``|vals|`` in that order; ``per_step`` counts the sessions each step
+    fires (the flush last)."""
+    order = np.lexsort((ts, keys))
+    sk, st = keys[order], ts[order]
+    starts = np.r_[True, (sk[1:] != sk[:-1]) | (st[1:] - st[:-1] >= SESSION_GAP_MS)]
+    idx = np.flatnonzero(starts)
+    last = np.maximum.reduceat(st, idx)
+    n = ts.size
+    counts = np.diff(np.r_[idx, n])
+    newest = np.maximum.accumulate(ts)
+    wm = newest[np.minimum(np.arange(batch, n + batch, batch), n) - 1] - 1_000
+    step = np.searchsorted(wm, last + SESSION_GAP_MS - 1)  # first step past it
+    emit = np.lexsort((ids[order][idx], last // SESSION_GAP_MS, step))
+    sums = np.add.reduceat(vals[order], idx)
+    abs_sums = np.add.reduceat(np.abs(vals[order]), idx)
+    ends = last + SESSION_GAP_MS
+    return (order, idx[emit], ends[emit], counts[emit], sums[emit], abs_sums[emit],
+            np.bincount(step))
+
+
+def run_env(build, items, device="cuda", name="job", event_time=False, **cfg):
+    """``build(text)``'s stream through ``execute``: (collected items,
+    metrics, wall seconds)."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    env = StreamExecutionEnvironment(StreamConfig(device=device, **cfg))
+    if event_time:
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    handle = build(env.add_source(ReplaySource(items))).collect()
+    t0 = time.perf_counter()
+    env.execute(name)
+    return handle.items, env.metrics, time.perf_counter() - t0
+
+
+def session_build(kind: str, gap_ms: int = SESSION_GAP_MS, delay_ms: int = 1_000):
+    """bench.py phase K's job (``reduce``: ``Tuple2(a.f0, a.f1 + b.f1)``
+    over ``<ts_ms> <key> <long>`` lines), or (``mean``) an aggregate of
+    (key, count, float sum) into (key, count, mean) over a float
+    column."""
+    from tpustream_torch import (AggregateFunction,
+                                 BoundedOutOfOrdernessTimestampExtractor, Time,
+                                 Tuple2, Tuple3)
+    from tpustream_torch.api.windows import EventTimeSessionWindows
+    from tpustream_torch.javacompat import Long
+
+    class Ts(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.milliseconds(delay_ms))
+
+        def extract_timestamp(self, value):
+            return int(value.split(" ")[0])
+
+    class Mean(AggregateFunction):
+        def create_accumulator(self):
+            return Tuple3("", 0, 0.0)
+
+        def add(self, value, acc):
+            return Tuple3(value.f0, acc.f1 + 1, acc.f2 + value.f1)
+
+        def get_result(self, acc):
+            return Tuple3(acc.f0, acc.f1, acc.f2 / acc.f1)
+
+        def merge(self, a, b):
+            return Tuple3(a.f0, a.f1 + b.f1, a.f2 + b.f2)
+
+    def build(text):
+        stamped = text.assign_timestamps_and_watermarks(Ts())
+        window = EventTimeSessionWindows.with_gap(Time.milliseconds(gap_ms))
+        if kind == "mean":
+            return (stamped.map(lambda l: Tuple2(l.split(" ")[1], float(l.split(" ")[2])))
+                    .key_by(0).window(window).aggregate(Mean()))
+        return (stamped.map(lambda l: Tuple2(l.split(" ")[1],
+                                             Long.parseLong(l.split(" ")[2])))
+                .key_by(0).window(window).reduce(lambda a, b: Tuple2(a.f0, a.f1 + b.f1)))
+
+    return build
+
+
+def state_bytes(program_cls):
+    """Wrap ``program_cls.init_state`` so it records the bytes of the
+    state's device tensors; returns ``(record dict, undo)``."""
+    import torch
+
+    got = {}
+    plain = program_cls.init_state
+
+    def init_state(self, key_capacity=None):
+        state = plain(self, key_capacity)
+        tensors = []
+        for v in state.values():
+            tensors += v if isinstance(v, list) else [v]
+        got["n"] = sum(t.numel() * t.element_size() for t in tensors
+                       if isinstance(t, torch.Tensor))
+        return state
+
+    program_cls.init_state = init_state
+    return got, lambda: setattr(program_cls, "init_state", plain)
+
+
+def session_ends(program_cls):
+    """Wrap ``program_cls._emit_sessions`` so it keeps each step's fired
+    rows' ``window_end`` (device tensors, read after the run, so the
+    steps wait on nothing more); returns ``(read, undo)``, ``read()``
+    the ends of all rows in emission order."""
+    kept = []
+    plain = program_cls._emit_sessions
+
+    def emit(self, *a, **k):
+        main = plain(self, *a, **k)
+        kept.append((main["count"], main["window_end"]))
+        return main
+
+    def read():
+        return np.concatenate([e[:int(c)].cpu().numpy() for c, e in kept]
+                              or [np.zeros(0, np.int64)])
+
+    program_cls._emit_sessions = emit
+    return read, lambda: setattr(program_cls, "_emit_sessions", plain)
+
+
+def run_summary(m, wall: float) -> str:
+    """events/s, the wall split, the step median, waits a step."""
+    return (f"{wall_split(m, wall)} waits_a_step={m.d2h_syncs / max(m.steps, 1)} "
+            f"window_fires={m.window_fires}")
+
+
+def session_phase(n_lines: int) -> None:
+    """Session windows at bench.py phase K's configuration (B = K =
+    131072, gap and delay 1 s, alert and fire capacity 1<<14,
+    ``session_extra_panes`` 16), twice: ``reduce`` of a Long sum under
+    ``acc_dtype="int32"`` (the scatter-reduce merge), then an
+    ``aggregate`` mean over a float column under the exact default (the
+    sorted merge). Every session against the numpy oracle: key, end and
+    count exact, int32 sums exact, means within 2(m-1)*eps*sum|v|. Each
+    run again with ``torch.profiler`` on for data steps 2-5: the card's
+    busy share of a warm step and its device time by op."""
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.session_program import SessionWindowProgram
+
+    t0 = time.perf_counter()
+    ts, keys, longs, floats = session_input(n_lines)
+    names = np.array([f"k{k}" for k in keys.tolist()])
+    ids = interned_ids(names)
+    print(f"session input: {n_lines} lines over "
+          f"{(ts.max() - ts.min()) / 1000:.1f} s of event time, "
+          f"{np.unique(keys).size} keys ({time.perf_counter() - t0:.1f} s to "
+          f"generate); reduced from bench.py's 10M lines/s stream rate to 50,000 "
+          f"lines/s of event time, so sessions close before the flush")
+    cfg = dict(batch_size=SESSION_B, key_capacity=SESSION_K,
+               alert_capacity=1 << 14, fire_capacity=1 << 14,
+               session_extra_panes=16)
+    for kind, acc_dtype, vals in (("reduce", "int32", longs),
+                                  ("mean", "float64", floats)):
+        order, first, ends, counts, sums, abs_sums, per_step = session_oracle(
+            ts, keys, vals, ids, SESSION_B)
+        lines = ([f"{t} k{k} {v}" for t, k, v in zip(ts.tolist(), keys.tolist(),
+                                                      vals.tolist())])
+        got_bytes, undo_bytes = state_bytes(SessionWindowProgram)
+        read_ends, undo_ends = session_ends(SessionWindowProgram)
+        S.seq_rolling_reduce.launches = 0
+        try:
+            items, m, wall = run_env(session_build(kind), lines, event_time=True,
+                                     name=f"session {kind}", acc_dtype=acc_dtype, **cfg)
+        finally:
+            undo_bytes()
+            undo_ends()
+        launches = S.seq_rolling_reduce.launches
+        want_keys = names[order][first]
+        if len(items) != first.size:
+            raise AssertionError(f"session {kind}: {len(items)} rows, the oracle "
+                                 f"{first.size} sessions")
+        got_keys = np.array([t.f0 for t in items])
+        if not np.array_equal(got_keys, want_keys):
+            bad = int(np.flatnonzero(got_keys != want_keys)[0])
+            raise AssertionError(f"session {kind}: row {bad} is key {got_keys[bad]}, "
+                                 f"the oracle's {want_keys[bad]}")
+        if not np.array_equal(read_ends(), ends):
+            raise AssertionError(f"session {kind}: a window end differs from the oracle")
+        if kind == "reduce":
+            got = np.array([t.f1 for t in items], dtype=np.int64)
+            if not np.array_equal(got, sums):
+                raise AssertionError(f"session reduce: a sum differs from the oracle")
+            check = "keys, ends, order and int64 sums exact"
+        else:
+            got_n = np.array([t.f1 for t in items], dtype=np.int64)
+            got_mean = np.array([t.f2 for t in items], dtype=np.float64)
+            if not np.array_equal(got_n, counts):
+                raise AssertionError("session mean: a count differs from the oracle")
+            want = sums / counts
+            err = np.abs(got_mean - want)
+            bound = 2 * (counts - 1) * np.finfo(np.float64).eps * abs_sums
+            if not np.all(err <= bound):
+                bad = int(np.flatnonzero(err > bound)[0])
+                raise AssertionError(f"session mean: row {bad} is {got_mean[bad]!r}, "
+                                     f"the oracle {want[bad]!r} ({counts[bad]} values)")
+            check = (f"keys, ends, order and counts exact, means within "
+                     f"2(m-1)*eps*sum|v| "
+                     f"({int(np.sum(err == 0))} bit-equal, max |diff| {err.max()})")
+        losses = check_losses(f"session {kind}", m, ("late_dropped", "evicted_unfired",
+                                                     "alert_overflow"))
+        print(f"session {kind} ({acc_dtype}): {n_lines} lines at B={SESSION_B}, "
+              f"K={SESSION_K}, {len(items)} sessions equal the oracle ({check}); "
+              f"{losses}; fires a step (oracle) {per_step.tolist()}; cell state "
+              f"{got_bytes['n']} bytes on the card; seq_rolling_reduce "
+              f"launches={launches}")
+        print(f"session {kind} {run_summary(m, wall)}")
+        profile_steps(f"session {kind}", SessionWindowProgram,
+                      lambda: run_env(session_build(kind), lines, event_time=True,
+                                      acc_dtype=acc_dtype, **cfg)[1],
+                      m.step_times_s)
+
+
+def count_build(size: int, slide=None, process: bool = False):
+    """bench.py phase L's job: ``count_window(size[, slide])`` over
+    ``<x> <key> <long>`` lines, ``reduce`` to the Long sum, or a
+    ``process()`` median (the middle value, or the mean of the two
+    middles)."""
+    from tpustream_torch import Tuple2
+    from tpustream_torch.javacompat import Long
+
+    def median(key, ctx, elements, out):
+        vals = sorted(e.f1 for e in elements)
+        mid = len(vals) // 2
+        out.collect(Tuple2(key, float(vals[mid]) if len(vals) % 2
+                           else (vals[mid - 1] + vals[mid]) / 2))
+
+    def build(text):
+        w = (text.map(lambda l: Tuple2(l.split(" ")[1], Long.parseLong(l.split(" ")[2])))
+             .key_by(0).count_window(size, slide))
+        if process:
+            return w.process(median)
+        return w.reduce(lambda a, b: Tuple2(a.f0, a.f1 + b.f1))
+
+    return build
+
+
+def count_oracle(hosts: np.ndarray, vals: np.ndarray, size: int, slide: int):
+    """Flink's ``countWindow(size, slide)`` per key in arrival order: a
+    fire at every ``slide``-th element of a key over its last
+    ``min(size, seen)`` elements. ``(fire rows in arrival order, window
+    [F, size] value matrix with NaN padding)``."""
+    n = hosts.size
+    order = np.argsort(hosts, kind="stable")
+    sh = hosts[order]
+    starts = np.r_[True, sh[1:] != sh[:-1]]
+    first = np.maximum.accumulate(np.where(starts, np.arange(n), 0))
+    rank = np.arange(n) - first
+    fire = (rank + 1) % slide == 0
+    pos = np.flatnonzero(fire)
+    j = np.arange(size)[None, :] - (size - 1)
+    take = pos[:, None] + j
+    ok = take >= first[pos][:, None]
+    window = np.where(ok, vals[order][np.clip(take, 0, n - 1)], np.nan)
+    arrival = order[pos]
+    by_arrival = np.argsort(arrival, kind="stable")
+    return arrival[by_arrival], window[by_arrival]
+
+
+def count_phase(n_lines: int, n_hosts: int = 1 << 14, process_lines: int = 100_000,
+                process_hosts: int = 1024) -> None:
+    """Count windows at bench.py phase L's configuration (B = K = 131072,
+    ``acc_dtype="int32"``): ``count_window(50).reduce`` of a Long sum, then
+    ``count_window(50, 10).reduce`` and ``count_window(50, 10).process``
+    (a median) on the same kind of lines. Every row against the numpy
+    oracle, exactly, with the loss counters at 0."""
+    from tpustream_torch.ops import seq_rolling as S
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    hosts = rng.integers(0, n_hosts, n_lines)
+    vals = rng.integers(0, 10**6, n_lines)
+    lines = [f"{i} h{h} {v}" for i, (h, v) in enumerate(zip(hosts.tolist(), vals.tolist()))]
+    p_hosts = rng.integers(0, process_hosts, process_lines)
+    p_vals = rng.integers(0, 10**6, process_lines)
+    p_lines = [f"{i} h{h} {v}" for i, (h, v) in
+               enumerate(zip(p_hosts.tolist(), p_vals.tolist()))]
+    print(f"count input: {n_lines} lines from {n_hosts} hosts (reduced from bench.py's "
+          f"131072 keys, where 1M lines close no 50-element window), and "
+          f"{process_lines} lines from {process_hosts} hosts for process() "
+          f"({time.perf_counter() - t0:.1f} s to generate)")
+    cfg = dict(batch_size=B_MAIN, key_capacity=131072, alert_capacity=1 << 16,
+               acc_dtype="int32")
+    runs = (("tumbling reduce", 50, None, False, hosts, vals, lines),
+            ("sliding reduce", 50, 10, False, hosts, vals, lines),
+            ("sliding process", 50, 10, True, p_hosts, p_vals, p_lines))
+    for label, size, slide, process, h, v, ls in runs:
+        arrival, window = count_oracle(h, v, size, slide or size)
+        names = np.array([f"h{x}" for x in h[arrival].tolist()])
+        if process:
+            want = np.nanmedian(window, axis=1)
+        else:
+            want = np.nansum(window, axis=1).astype(np.int64)
+        S.seq_rolling_reduce.launches = 0
+        items, m, wall = run_env(count_build(size, slide, process), ls,
+                                 name=f"count {label}", **cfg)
+        launches = S.seq_rolling_reduce.launches
+        got_keys = np.array([t.f0 for t in items])
+        got = np.array([t.f1 for t in items], dtype=want.dtype)
+        if got.shape != want.shape or not np.array_equal(got_keys, names) \
+                or not np.array_equal(got, want):
+            raise AssertionError(f"count {label}: {got.size} rows vs {want.size} from "
+                                 f"the oracle, or a row differs")
+        losses = check_losses(f"count {label}", m, ("alert_overflow",))
+        print(f"count {label} (size {size}, slide {slide or size}): {len(ls)} lines at "
+              f"B={B_MAIN}, {got.size} rows equal the oracle (bitwise); {losses}; "
+              f"seq_rolling_reduce launches={launches}")
+        print(f"count {label} {run_summary(m, wall)}")
+
+
 # -- phase small: the new jobs on the card equal the same jobs on the CPU ---
 
 AVG_LINES = [
@@ -1029,15 +1385,115 @@ def small_phase() -> None:
               f"late_dropped {card[2]}; card equals CPU")
 
 
+def small_windows() -> None:
+    """Session and count goldens of the JAX package's suites, a session
+    with allowed lateness and the late side output, and a session
+    ``process()``, each on the card equal to the same run on the CPU and
+    to the golden rows."""
+    from tpustream_torch import (BoundedOutOfOrdernessTimestampExtractor,
+                                 OutputTag, Time, Tuple2)
+    from tpustream_torch.api.windows import EventTimeSessionWindows
+
+    class Ts(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.milliseconds(2_000))
+
+        def extract_timestamp(self, value):
+            return int(value.split(" ")[0])
+
+    def median(key, ctx, elements, out):
+        vals = sorted(e.f1 for e in elements)
+        mid = len(vals) // 2
+        out.collect(Tuple2(key, float(vals[mid]) if len(vals) % 2
+                           else (vals[mid - 1] + vals[mid]) / 2))
+
+    def sessions(lateness_ms=0, tag=None, process=False):
+        def build(text):
+            w = (text.assign_timestamps_and_watermarks(Ts())
+                 .map(lambda l: Tuple2(l.split(" ")[1], int(l.split(" ")[2])))
+                 .key_by(0).window(EventTimeSessionWindows.with_gap(
+                     Time.milliseconds(10_000))))
+            if lateness_ms:
+                w = w.allowed_lateness(Time.milliseconds(lateness_ms))
+            if process:
+                return w.process(median)
+            if tag is not None:
+                w = w.side_output_late_data(tag)
+                reduced = w.reduce(lambda a, b: Tuple2(a.f0, a.f1 + b.f1))
+                late_rows.append(reduced.get_side_output(tag).collect())
+                return reduced
+            return w.reduce(lambda a, b: Tuple2(a.f0, a.f1 + b.f1))
+        return build
+
+    def counts(size, slide=None):
+        def build(text):
+            return (text.map(lambda l: Tuple2(l.split(" ")[0], float(l.split(" ")[1])))
+                    .key_by(0).count_window(size, slide)
+                    .reduce(lambda a, b: Tuple2(a.f0, a.f1 + b.f1)))
+        return build
+
+    def lines(recs):
+        return [f"{t} {k} {v}" for t, k, v in recs]
+
+    count_lines = ["a 1", "a 2", "b 10", "a 4", "b 20", "a 8", "b 30", "a 16",
+                   "a 32", "a 64", "b 40"]
+    cases = [
+        ("session golden", sessions(), lines([(1_000, "a", 1), (4_000, "a", 2),
+                                              (9_000, "a", 4), (25_000, "a", 8)]),
+         1, ["(a,7)", "(a,8)"]),
+        ("session out-of-order merge", sessions(),
+         lines([(0, "a", 1), (2_000, "a", 2), (13_000, "a", 4), (7_000, "a", 8),
+                (60_000, "a", 16)]), 1, ["(a,15)", "(a,16)"]),
+        ("session intra-batch rescue", sessions(),
+         lines([(0, "a", 1), (50_000, "a", 2), (40_000, "a", 4), (35_000, "a", 8),
+                (120_000, "a", 16)]), 2, ["(a,1)", "(a,2)", "(a,12)", "(a,16)"]),
+        ("session refire within the lateness", sessions(lateness_ms=30_000),
+         lines([(0, "a", 1), (5_000, "a", 2), (30_000, "a", 4), (8_000, "a", 8),
+                (90_000, "a", 16)]), 1, ["(a,3)", "(a,11)", "(a,4)", "(a,16)"]),
+        ("session process adjacent panes", sessions(process=True),
+         ["1000000 a 1", "1019999 a 2", "1100000 b 3"], 8,
+         ["(a,1.0)", "(a,2.0)", "(b,3.0)"]),
+        ("count tumbling golden", counts(3), count_lines, 4,
+         ["(a,7.0)", "(b,60.0)", "(a,56.0)"]),
+        ("count sliding golden", counts(3, 2), count_lines, 4,
+         ["(a,3.0)", "(b,30.0)", "(a,14.0)", "(a,56.0)", "(b,90.0)"]),
+    ]
+    for label, build, items, batch, golden in cases:
+        late_rows = []
+        got = [
+            [repr(t) for t in run_env(build, items, dev, event_time=True,
+                                      batch_size=batch, key_capacity=16)[0]]
+            for dev in ("cuda", "cpu")
+        ]
+        if got[0] != got[1] or sorted(got[0]) != sorted(golden):
+            raise AssertionError(f"small run {label}: card {got[0]}, CPU {got[1]}, "
+                                 f"golden {golden}")
+        print(f"small run {label}: {len(got[0])} rows, card equals CPU and the golden")
+    recs = lines([(0, "a", 1), (40_000, "a", 2), (3_000, "a", 4), (90_000, "a", 8)])
+    out = []
+    for dev in ("cuda", "cpu"):
+        late_rows = []
+        items, m, _ = run_env(sessions(lateness_ms=5_000, tag=OutputTag("late")),
+                              recs, dev, event_time=True, batch_size=1, key_capacity=16)
+        out.append(([repr(t) for t in items], [repr(t) for t in late_rows[0].items],
+                    m.late_dropped))
+    if out[0] != out[1] or out[0][1] != ["(a,4)"] or out[0][2]:
+        raise AssertionError(f"small run session side output: card {out[0]}, CPU {out[1]}")
+    print(f"small run session side output past the lateness: main {out[0][0]}, side "
+          f"{out[0][1]}, late_dropped {out[0][2]}; card equals CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernel,job,flagship,ch1,avg,median,small")
+                    default="kernel,job,flagship,ch1,avg,median,session,count,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000)
     ap.add_argument("--new-lines", type=int, default=1_000_000,
                     help="input of the ch1, avg and median phases")
+    ap.add_argument("--window-lines", type=int, default=1_000_000,
+                    help="input of the session and count phases")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1071,8 +1527,13 @@ def main() -> int:
         timed("avg", avg_phase, args.new_lines)
     if "median" in phases:
         timed("median", median_phase, args.new_lines)
+    if "session" in phases:
+        timed("session", session_phase, args.window_lines)
+    if "count" in phases:
+        timed("count", count_phase, args.window_lines)
     if "small" in phases:
         timed("small", small_phase)
+        small_windows()
     print(f"phases: {time.perf_counter() - t_all:.1f} s")
     main_case = cases.get(("float64", "max", "uniform"))
     if main_case is not None:

@@ -330,19 +330,29 @@ def test_unported_window_features_raise():
     with pytest.raises(NotImplementedError, match="float32"):
         env.execute("x")
 
-    # session and count windows wait for roadmap queue items 6-7
+    # float32 session windows refuse by name too; parallelism > 1 waits
+    # for roadmap queue item 12, chained stages for item 8
     from tpustream_torch.api.windows import EventTimeSessionWindows
 
-    env, text = job()
-    (text.assign_timestamps_and_watermarks(torch_et.IsoTimestampExtractor(T.Time.minutes(1)))
-     .map(torch_et.parse).key_by(1)
-     .window(EventTimeSessionWindows.with_gap(T.Time.minutes(5)))
-     .reduce(lambda a, b: T.Tuple3(a.f0, a.f1, a.f2 + b.f2)).collect())
-    with pytest.raises(NotImplementedError, match="session"):
+    def sessions(text):
+        return (text.assign_timestamps_and_watermarks(
+                    torch_et.IsoTimestampExtractor(T.Time.minutes(1)))
+                .map(torch_et.parse).key_by(1)
+                .window(EventTimeSessionWindows.with_gap(T.Time.minutes(5)))
+                .reduce(lambda a, b: T.Tuple3(a.f0, a.f1, a.f2 + b.f2)))
+
+    env, text = job(acc_dtype="float32")
+    sessions(text).collect()
+    with pytest.raises(NotImplementedError, match="float32"):
+        env.execute("x")
+
+    env, text = job(parallelism=2)
+    sessions(text).collect()
+    with pytest.raises(NotImplementedError, match="parallelism"):
         env.execute("x")
 
     env, text = job()
-    (text.map(torch_et.parse).key_by(1).count_window(3)
+    (sessions(text).key_by(1).count_window(3)
      .reduce(lambda a, b: T.Tuple3(a.f0, a.f1, a.f2 + b.f2)).collect())
-    with pytest.raises(NotImplementedError, match="count"):
+    with pytest.raises(NotImplementedError, match="chained"):
         env.execute("x")

@@ -27,6 +27,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.jobs.chapter3_bandwidth_eventtime\n"
         "import tpustream_torch.runtime.executor, tpustream_torch.kernels\n"
         "import tpustream_torch.runtime.window_program\n"
+        "import tpustream_torch.runtime.session_program\n"
+        "import tpustream_torch.runtime.count_program\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -10,8 +10,11 @@ and the record-at-a-time keyed rolling reduce runs as a hand-written
 CUDA kernel (``kernels/seq_rolling.cu``). Jobs run on
 ``StreamConfig.device`` ("cuda" by default; "cpu" only when asked for).
 
-Ported so far: the keyed rolling max/min/sum job (reference chapter 2,
-``jobs/chapter2_max.py``) on one device.
+Ported so far, on one device: the tutorial's jobs (chapters 1-3: the
+stateless filter, rolling aggregates, tumbling and sliding windows with
+``reduce``/``aggregate``/``process()``, allowed lateness and the late
+side output), session windows and count windows. ``ROADMAP.md`` lists
+what is still to come.
 """
 
 from .api.tuples import Tuple2, Tuple3, Tuple4  # noqa: E402

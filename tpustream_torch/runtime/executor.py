@@ -302,7 +302,7 @@ class Runner:
     def _drain(self, wm_lower: int) -> None:
         """Empty steps until no window end stays deferred by
         ``max_fires_per_step`` (each still fires at most the budget)."""
-        if self.cfg.max_fires_per_step is None:
+        if self.cfg.max_fires_per_step is None or not self.program.fires_on_clock:
             return
         for _ in range(self.program.ring.n_fire_candidates + 2):
             if not self.state.get("pending_fires"):
@@ -547,7 +547,7 @@ def execute_job(env, sink_nodes) -> JobResult:
         if len(plans) > 1:
             raise NotImplementedError(
                 "chained stages (key_by after a keyed operator) are not "
-                "ported to the PyTorch runtime yet"
+                "ported to the PyTorch runtime yet (roadmap queue item 8)"
             )
         plan = plans[0]
         host = HostStage(plan, cfg)

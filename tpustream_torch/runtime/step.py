@@ -6,11 +6,14 @@ stateless map/filter chain (``StatelessProgram``), the keyed rolling
 aggregates (``RollingProgram``: max/min/sum through the hand-written
 kernel, max_by/min_by/a user reduce through the general path), the
 tumbling/sliding window ``reduce`` and ``aggregate``
-(``window_program.WindowProgram``) and the full-window ``process``
-(``process_program.ProcessWindowProgram``). Session and count windows,
-CEP, and ``parallelism > 1`` raise ``NotImplementedError`` from
-:func:`build_program`. A step takes ``(state, cols, valid, ts,
-wm_lower)``, as in the reference.
+(``window_program.WindowProgram``), the full-window ``process``
+(``process_program.ProcessWindowProgram``), session windows
+(``session_program.SessionWindowProgram``, ``SessionProcessProgram``)
+and count windows (``count_program.CountWindowProgram``,
+``SlidingCountWindowProgram``, ``CountProcessProgram``). CEP and
+``parallelism > 1`` raise ``NotImplementedError`` from
+:func:`build_program`, and so do ``acc_dtype="float32"`` windows. A step
+takes ``(state, cols, valid, ts, wm_lower)``, as in the reference.
 """
 
 from __future__ import annotations
@@ -233,13 +236,32 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
     if cfg.parallelism > 1:
         raise NotImplementedError(
             f"parallelism={cfg.parallelism} is not ported to the PyTorch "
-            f"runtime yet: it runs on one device"
+            f"runtime yet (roadmap queue item 12): it runs on one device"
         )
     if plan.stateful is None:
         return StatelessProgram(plan, cfg)
     if plan.stateful.kind in ("rolling", "rolling_reduce"):
         return RollingProgram(plan, cfg)
     if plan.stateful.kind == "window":
+        spec = plan.stateful.window
+        if spec is not None and spec.kind == "count":
+            from .count_program import (
+                CountProcessProgram,
+                CountWindowProgram,
+                SlidingCountWindowProgram,
+            )
+
+            if plan.stateful.apply_kind == "process":
+                return CountProcessProgram(plan, cfg)
+            if spec.count_slide and spec.count_slide != spec.count:
+                return SlidingCountWindowProgram(plan, cfg)
+            return CountWindowProgram(plan, cfg)
+        if spec is not None and spec.kind == "session":
+            from .session_program import SessionProcessProgram, SessionWindowProgram
+
+            if plan.stateful.apply_kind == "process":
+                return SessionProcessProgram(plan, cfg)
+            return SessionWindowProgram(plan, cfg)
         if plan.stateful.apply_kind == "process":
             from .process_program import ProcessWindowProgram
 
@@ -249,5 +271,5 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
         return WindowProgram(plan, cfg)
     raise NotImplementedError(
         f"{plan.stateful.kind} programs are not ported to the PyTorch "
-        f"runtime yet"
+        f"runtime yet (CEP: roadmap queue item 11)"
     )

@@ -40,10 +40,13 @@ job. Each flat plane carries one trailing sink cell that masked rows of
 a scatter write to.
 
 ``process()`` windows keep raw elements instead
-(``process_program.ProcessWindowProgram``, a subclass). Not ported
-(``NotImplementedError``): session and count windows (roadmap items
-6-7), and ``acc_dtype="float32"``: a float scatter-add through atomics
-has no fixed order on the card.
+(``process_program.ProcessWindowProgram``, a subclass). Session windows
+(``session_program``) keep typed key-major cells and reuse the lift,
+combine and finalize here and the typed cell merge
+:meth:`WindowProgram._scatter_cells`; count windows (``count_program``)
+reuse the lift, combine and finalize only. Not ported
+(``NotImplementedError``): ``acc_dtype="float32"``, as a float
+scatter-add through atomics has no fixed order on the card.
 """
 
 from __future__ import annotations
@@ -124,8 +127,8 @@ class WindowProgram(BaseProgram):
         spec = st.window
         if spec.kind not in self.accepted_kinds:
             raise NotImplementedError(
-                f"{spec.kind} windows are not ported to the PyTorch runtime "
-                f"yet (roadmap queue items 6-7)"
+                f"{type(self).__name__} takes {' or '.join(self.accepted_kinds)} "
+                f"windows, not {spec.kind} windows"
             )
         self.apply_kind = st.apply_kind
         if self.apply_kind != "process" and str(cfg.acc_dtype) not in ("float64", "int32"):
@@ -157,10 +160,7 @@ class WindowProgram(BaseProgram):
         self.delay_ms = (
             plan.ts_delay_ms if self.domain == TimeCharacteristic.EventTime else 1
         )
-        self.ring = pane_ops.make_ring_spec(
-            spec.size_ms, spec.slide_ms, self.delay_ms,
-            self.allowed_lateness_ms, cfg.pane_ring_slack,
-        )
+        self.ring = self._make_ring(spec, cfg)
         self._build_agg()
         if self.apply_kind == "process":
             # the user function and the post ops run on the host
@@ -178,6 +178,13 @@ class WindowProgram(BaseProgram):
         # device reads of this program (the executor counts its own)
         self.host_reads = 0
         self._key_ids = {}
+
+    def _make_ring(self, spec, cfg) -> pane_ops.RingSpec:
+        """The pane ring of ``spec`` (the session programs override it)."""
+        return pane_ops.make_ring_spec(
+            spec.size_ms, spec.slide_ms, self.delay_ms,
+            self.allowed_lateness_ms, cfg.pane_ring_slack,
+        )
 
     # ------------------------------------------------------------------
     # aggregation plumbing: lift / combine / finalize on leaf tuples
@@ -510,6 +517,32 @@ class WindowProgram(BaseProgram):
             p.scatter_(0, flat_idx, w.to(p.dtype))
         cnt.scatter_(0, flat_idx, old_cnt + torch.where(tails, seg_count, 0))
         return touched
+
+    def _scatter_cells(self, leaves, cnt, kk: int, keys, batch_leaves, live,
+                       pane, combine) -> None:
+        """Merge a batch into typed key-major cell state IN PLACE: flat
+        ``[key * n_slots + slot]`` leaves and counts, each with a trailing
+        sink cell. A stable sort by cell, a segmented scan of the batch
+        leaves with ``combine`` (arrival order preserved), the merge of
+        each segment with its cell's old value, and a set-scatter at
+        segment tails (the session programs' generic path)."""
+        n = self.ring.n_slots
+        sink = kk * n
+        slot = torch.remainder(pane, n)
+        cell = keys.to(torch.int64) * n + slot
+        perm, sc, sv, seg_starts = sort_by_key(cell, live, max_key=sink)
+        prefix = segmented_scan(tuple(l[perm] for l in batch_leaves),
+                                seg_starts, combine)
+        tails = segment_tails(seg_starts) & sv
+        seg_count = segment_ranks(seg_starts) + 1
+        sc_c = sc.clamp(0, sink - 1)
+        old_cnt = cnt[sc_c]
+        merged = combine(tuple(a[sc_c] for a in leaves), prefix)
+        has_old = (old_cnt > 0) & sv
+        flat_idx = torch.where(tails, sc, sink)
+        for a, m, p in zip(leaves, merged, prefix):
+            a.scatter_(0, flat_idx, torch.where(has_old, m, p).to(a.dtype))
+        cnt.scatter_(0, flat_idx, old_cnt + torch.where(tails, seg_count, 0))
 
     # ------------------------------------------------------------------
     # dense fire path
