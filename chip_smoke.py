@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from this checkout, holds each
-against its plain PyTorch version on the card, drives the chapter-2
+against its plain PyTorch version on the card (float32, float64 and
+int64, the int64 sums bitwise, a wrapping one among them), drives the chapter-2
 rolling-max job through ``StreamExecutionEnvironment.execute`` at
 1M keys, and checks every emitted row against a host oracle (phases
 ``kernel`` and ``job``). Phase ``flagship`` drives the chapter-3
@@ -14,7 +15,13 @@ counters against 0, prints its throughput, wall split and, from a
 second run, a ``torch.profiler`` split of four warm data steps beside
 those steps' wall times, and holds small runs (the
 event-time jump input, the processing-time goldens) against the same
-job on the CPU. Phases ``ch1``, ``avg`` and ``median`` drive the
+job on the CPU; the flagship's lines also go through the host stage
+with the native parser and with the numpy path, and the phase fails
+unless the job's runs parsed natively. Phase ``chain`` drives a
+two-stage rollup over the flagship's input: 1-minute event-time window
+sums per channel, then a computed key (1,049 channel groups) and an
+int64 rolling max on the kernel, every row against a numpy oracle in
+emission order. Phases ``ch1``, ``avg`` and ``median`` drive the
 chapter-1 threshold filter and the chapter-2 windowed average and
 median over 1M lines each against host oracles, with the loss counters
 at 0. Phase ``session`` drives session windows at the JAX bench's
@@ -23,9 +30,11 @@ phase-K configuration (B = K = 131072, gap and delay 1 s) over 1M lines,
 in float64 (the sorted merge); phase ``count`` drives tumbling and
 sliding count-window ``reduce`` over 1M lines and a sliding ``process()``
 over 100k; each against a numpy oracle with the loss counters at 0.
-Phase ``small`` holds the goldens of the new jobs, ``max_by``, the
-allowed-lateness cases (main and side-output rows) and the session and
-count goldens on the card against the CPU. Each phase prints its wall
+The session runs too must parse natively. Phase ``small`` holds the
+goldens of the new jobs, ``max_by``, the allowed-lateness cases (main
+and side-output rows), the session and count goldens, integer rolling
+goldens, the chained-stage goldens and a punctuated-watermark job on
+the card against the CPU. Each phase prints its wall
 time. Prints the card's name and power limit, one line per
 kernel case (with a per-launch device-time split from ``torch.profiler``
 for the main case, a cold-L2 time and ``torch.sort`` as a reference
@@ -35,9 +44,9 @@ device, when the package is not beside this script, or when any phase
 fails.
 
 Options (the default runs everything): ``--phases
-kernel,job,flagship,ch1,avg,median,session,count,small``, ``--reps N``
+kernel,job,flagship,chain,ch1,avg,median,session,count,small``, ``--reps N``
 (timed repeats per kernel case), ``--lines N`` (job input),
-``--flagship-lines N`` (flagship input), ``--new-lines N`` (input of
+``--flagship-lines N`` (flagship and chain input), ``--new-lines N`` (input of
 ch1, avg and median), ``--window-lines N`` (input of session and count).
 """
 
@@ -187,7 +196,7 @@ def kernel_phase(reps: int) -> dict:
         # half the keys hold stored values, half start at the identity
         stored = torch.from_numpy(rng.random(K_MAIN) * 100).to(dev, dt)
         plane0 = torch.where(torch.arange(K_MAIN, device=dev) % 2 == 0,
-                             stored, torch.full_like(stored, S.IDENTITY[op]))
+                             stored, torch.full_like(stored, S.IDENTITY[dt][op]))
         pk, pr = plane0.clone(), plane0.clone()
         bad = torch.zeros(1, dtype=torch.int32, device=dev)
         ek = S.seq_rolling_reduce(pk, keys, vals, op, bad_keys=bad)
@@ -242,6 +251,8 @@ def kernel_phase(reps: int) -> dict:
                 main_reference_points(S, pk, keys, vals, op, emis, bad, ms,
                                       reps)
 
+    results.update(kernel_int64_cases(S, rng, inputs, reps))
+
     # the sum's tree order against the sequential fold, on arbitrary values
     keys_np = rng.integers(0, 64, 4096).astype(np.int32)
     vals_np = rng.standard_normal(4096).astype(np.float32)
@@ -268,6 +279,70 @@ def kernel_phase(reps: int) -> dict:
     print("kernel seq_rolling_reduce float32 sum 64 keys B=4096: within "
           f"2*(m-1)*eps*sum|v| of the sequential numpy fold (max |diff| "
           f"{diff.max()}, {int(np.sum(diff == 0))}/4096 rows bit-equal)")
+    return results
+
+
+I64_MAX = 2**63 - 1
+
+
+def kernel_int64_cases(S, rng, inputs, reps) -> dict:
+    """The int64 instantiation at the main path's shape: max, min and sum
+    on uniform, skewed and one-key keys, and a one-key sum of values near
+    INT64_MAX that wraps many times; each bitwise equal to the plain
+    version, each sum launched twice with equal bits."""
+    import torch
+
+    dev = torch.device("cuda")
+    cases = [(op, dist, "small") for op in S.OPS
+             for dist in ("uniform", "skewed", "one_key")]
+    cases.append(("sum", "one_key", "near_max"))
+    results = {}
+    for op, dist, scale in cases:
+        keys_np = inputs[dist].astype(np.int32)
+        keys = torch.from_numpy(keys_np).to(dev)
+        if scale == "small":
+            v = rng.integers(-10**9, 10**9, B_MAIN)
+        else:
+            v = rng.integers(I64_MAX - 2**40, I64_MAX, B_MAIN, dtype=np.int64)
+        vals = torch.from_numpy(v).to(dev)
+        stored = torch.from_numpy(rng.integers(-10**9, 10**9, K_MAIN)).to(dev)
+        plane0 = torch.where(
+            torch.arange(K_MAIN, device=dev) % 2 == 0, stored,
+            torch.full_like(stored, S.IDENTITY[torch.int64][op]))
+        pk, pr = plane0.clone(), plane0.clone()
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        ek = S.seq_rolling_reduce(pk, keys, vals, op, bad_keys=bad)
+        er = S.seq_rolling_reduce_ref(pr, keys, vals, op, bad_keys=bad)
+        torch.cuda.synchronize()
+        ok = torch.equal(ek, er) and torch.equal(pk, pr) and int(bad[0]) == 0
+        err = max(float((ek - er).abs().max()), float((pk - pr).abs().max()))
+        tol = "bitwise"
+        if op == "sum":
+            p2 = plane0.clone()
+            e2 = S.seq_rolling_reduce(p2, keys, vals, op, bad_keys=bad)
+            torch.cuda.synchronize()
+            ok = ok and torch.equal(e2, ek) and torch.equal(p2, pk)
+            tol += "; two launches bitwise equal"
+        if scale == "near_max":
+            wraps = int((er < 0).sum())
+            ok = ok and wraps > 0
+            tol += f"; {wraps} running sums wrapped past INT64_MAX"
+        label = f"int64 {op} {dist}" + (" near INT64_MAX" if scale == "near_max" else "")
+        if not ok:
+            raise AssertionError(f"kernel != plain for {label}: max |diff| {err}, "
+                                 f"out-of-range count {int(bad[0])}")
+        emis = torch.empty_like(vals)
+        ms = time_ms(lambda: S.launch(pk, keys, vals, op, emis, bad), reps)
+        plain_ms = time_ms(
+            lambda: S.seq_rolling_reduce_ref(pr, keys, vals, op, bad), reps)
+        touched = int(np.unique(keys_np).size)
+        nbytes = B_MAIN * (4 + 2 * 8) + 2 * touched * 8
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results[("int64", op, dist if scale == "small" else f"{dist}_near_max")] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"kernel seq_rolling_reduce {label} B={B_MAIN} K={K_MAIN}: ok ({tol}) "
+              f"max_abs_err={err} ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} "
+              f"bytes={nbytes} keys={touched}")
     return results
 
 
@@ -355,7 +430,7 @@ def job_phase(n_lines: int) -> dict:
     env = StreamExecutionEnvironment(
         StreamConfig(batch_size=B_MAIN, key_capacity=K_MAIN))
     handle = build(env, env.add_source(ReplaySource(lines))).collect()
-    S.seq_rolling_reduce.launches = 0
+    S.reset_launches()
     t0 = time.perf_counter()
     env.execute("ComputeCpuMax")
     wall = time.perf_counter() - t0
@@ -633,6 +708,73 @@ def profile_steps(label: str, program_cls, run, main_step_s: list,
         f"{k}={v / len(data)}" for k, v in top))
 
 
+def check_native(label: str, m) -> str:
+    """Which parser a run's host stage used; fails unless every parse
+    plan evaluation was the native parser's."""
+    if m.native_parses == 0 or m.numpy_parses:
+        raise AssertionError(
+            f"{label}: parsed natively {m.native_parses} times and with numpy "
+            f"{m.numpy_parses} times; the native parser must take every batch")
+    return f"parser=native ({m.native_parses} native parse passes, 0 numpy)"
+
+
+def parse_compare(lines, batch: int = B_MAIN) -> None:
+    """The flagship's lines through the port's HostStage three ways, in
+    batches of ``batch``: the native parser on lines (the ReplaySource
+    path: a timestamp pass and a column pass), the native parser on raw
+    byte buffers (one pass), and the numpy path; equal columns, and each
+    one's host seconds."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch import native
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.executor import HostStage
+    from tpustream_torch.runtime.plan import build_plan_chain
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    def host_stage():
+        env = StreamExecutionEnvironment(StreamConfig(device="cpu"))
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        chapter3_bandwidth_eventtime.build(
+            env, env.add_source(ReplaySource(lines[:1]))).collect()
+        plan = build_plan_chain(env, env._sinks)[0]
+        return HostStage(plan, env.config)
+
+    chunks = [lines[i:i + batch] for i in range(0, len(lines), batch)]
+    raw = [("\n".join(c) + "\n").encode() for c in chunks]
+    proc = [np.zeros(len(c), np.int64) for c in chunks]
+    out, times = {}, {}
+    plain_available = native.available
+    for how in ("native lines", "native raw", "numpy lines"):
+        if how.startswith("numpy"):
+            native.available = lambda: False
+        try:
+            host = host_stage()
+            t0 = time.perf_counter()
+            if how == "native raw":
+                got = [host.process_raw(r, len(c), p)[0]
+                       for r, c, p in zip(raw, chunks, proc)]
+            else:
+                got = [host.process(c, p)[0] for c, p in zip(chunks, proc)]
+            times[how] = time.perf_counter() - t0
+        finally:
+            native.available = plain_available
+        counts = host.parse_counts()
+        want_native = 0 if how.startswith("numpy") else 1
+        if (counts["native"] > 0) != bool(want_native) or any(b is None for b in got):
+            raise AssertionError(f"parse {how}: parse counts {counts}")
+        out[how] = [np.concatenate([b.ts for b in got])] + [
+            np.concatenate([b.columns[i].data for b in got])
+            for i in range(len(got[0].columns))]
+    for how in ("native raw", "numpy lines"):
+        if not all(np.array_equal(a, b) for a, b in zip(out[how], out["native lines"])):
+            raise AssertionError(f"parse {how}: columns differ from the native parser's")
+    print(f"parse flagship {len(lines)} lines through HostStage in batches of "
+          f"{batch}, equal columns: " + " ".join(
+              f"{how.replace(' ', '_')}_s={t}" for how, t in times.items())
+          + f" numpy_over_native_lines={times['numpy lines'] / times['native lines']}")
+
+
 def flagship_phase(n_lines: int) -> None:
     from tpustream_torch.ops import seq_rolling as S
     from tpustream_torch.runtime.window_program import WindowProgram
@@ -648,10 +790,10 @@ def flagship_phase(n_lines: int) -> None:
         print(f"flagship {name}: {len(want)} oracle rows "
               f"({time.perf_counter() - t0:.1f} s)")
         # the flagship runs no hand-written kernel: the count shows it
-        S.seq_rolling_reduce.launches = 0
+        S.reset_launches()
         rows, m, wall = run_flagship(lines, "cuda", **config)
         print(f"flagship {name}: seq_rolling_reduce launches="
-              f"{S.seq_rolling_reduce.launches}")
+              f"{S.seq_rolling_reduce.launches}; {check_native(f'flagship {name}', m)}")
         want_repr = [f"({c},{v!r})" for c, v in want]
         if rows != want_repr:
             bad = next((i for i, (a, b) in enumerate(zip(rows, want_repr))
@@ -684,6 +826,8 @@ def flagship_phase(n_lines: int) -> None:
                       lambda: run_flagship(lines, "cuda", **config)[1],
                       m.step_times_s)
 
+    parse_compare(lines)
+
     # small runs: the card's rows equal the same job's on the CPU
     small = [("event-time jump, batch 8", JUMP_LINES, dict(batch=8)),
              ("event-time jump, batch 1", JUMP_LINES, dict(batch=1)),
@@ -699,6 +843,120 @@ def flagship_phase(n_lines: int) -> None:
                     f"{label} {name}: card rows {card} != CPU rows {cpu}")
             print(f"flagship small run {label} {name}: {len(card)} rows, "
                   f"card equals CPU")
+
+
+# -- phase chain: a two-stage rollup at the flagship's width ----------------
+
+def chain_build(text):
+    """Stage 1, the flagship's extractor and parse, then a 1-minute
+    event-time window per channel summing the Long flow; stage 2 keyed
+    by a computed selector, the channel name's first four digits (1,049
+    groups over 1<<20 channels), a rolling max of the window sums."""
+    from tpustream_torch import Time, Tuple3
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime as ch3
+
+    return (text.assign_timestamps_and_watermarks(
+                ch3.IsoTimestampExtractor(Time.minutes(1)))
+            .map(ch3.parse).key_by(1).time_window(Time.minutes(1))
+            .reduce(lambda a, b: Tuple3(a.f0, a.f1, a.f2 + b.f2))
+            .key_by(lambda t: t.f1[:8]).max(2))
+
+
+def chain_oracle(ts, ch, flow):
+    """Stage 1 fires each (minute, channel) cell in order of window end,
+    then of the channel's first arrival (its key id), keeping the cell's
+    first record's timestamp and channel and summing its flows (nothing
+    is late; the end of the stream fires the rest). Stage 2 folds those
+    rows in that order per group ``channel // 1000``: the group's first
+    row's timestamp and channel, and the running max of the sums."""
+    rank = interned_ids(ch)
+    cell = (ts // 60) * (1 << 21) + rank
+    order = np.argsort(cell, kind="stable")  # arrival order within a cell
+    sc = cell[order]
+    first = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
+    sums = np.add.reduceat(flow[order], first)
+    first_ts = ts[order][first]
+    chan = ch[order][first]
+    rows, seen = [], {}
+    for t, c, v in zip(first_ts.tolist(), chan.tolist(), sums.tolist()):
+        g = c // 1000
+        if g in seen:
+            t0, c0, best = seen[g]
+            seen[g] = (t0, c0, max(best, v))
+        else:
+            seen[g] = (t, c, v)
+        t0, c0, best = seen[g]
+        rows.append((t0, f"www.{c0:07d}.com", best))
+    return rows, len(seen)
+
+
+def stage_times(classes):
+    """Wrap each program class's ``step`` to record its host time (the
+    step and a synchronise, which the Runner makes right after anyway);
+    returns ``({class name: [seconds]}, undo)``."""
+    import torch
+
+    got = {c.__name__: [] for c in classes}
+    plain = {c: c.step for c in classes}
+
+    def wrap(cls):
+        def step(self, *a, **k):
+            t0 = time.perf_counter()
+            out = plain[cls](self, *a, **k)
+            torch.cuda.synchronize()
+            got[cls.__name__].append(time.perf_counter() - t0)
+            return out
+        return step
+
+    for c in classes:
+        c.step = wrap(c)
+    return got, lambda: [setattr(c, "step", f) for c, f in plain.items()]
+
+
+def chain_phase(n_lines: int) -> dict:
+    """The two-stage rollup over the flagship's generated input at B =
+    131072 and ``key_capacity`` 1<<20: every stage-2 row against the
+    numpy oracle in emission order, the loss counters 0, the int64
+    rolling max on the kernel. Returns the kernel's launches by dtype."""
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.step import RollingProgram
+    from tpustream_torch.runtime.window_program import WindowProgram
+
+    t0 = time.perf_counter()
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want, n_groups = chain_oracle(ts, ch, flow)
+    print(f"chain input: {n_lines} flagship lines, {np.unique(ch).size} channels, "
+          f"{len(want)} stage-1 results into {n_groups} groups "
+          f"({time.perf_counter() - t0:.1f} s to generate and fold)")
+    steps, undo = stage_times([WindowProgram, RollingProgram])
+    S.reset_launches()
+    try:
+        items, m, wall = run_env(chain_build, lines, event_time=True, name="chain",
+                                 batch_size=B_MAIN, key_capacity=K_MAIN,
+                                 alert_capacity=1 << 18)
+    finally:
+        undo()
+    launches = dict(S.seq_rolling_reduce.launches_by_dtype)
+    got = [tuple(t) for t in items]
+    if got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise AssertionError(f"chain: {len(got)} rows vs {len(want)} from the "
+                             f"oracle, first difference at row {bad}")
+    losses = check_losses("chain", m, ("late_dropped", "alert_overflow",
+                                       "evicted_unfired"))
+    if launches.get("int64", 0) < 1:
+        raise AssertionError(f"chain: the int64 kernel never launched ({launches})")
+    w, r = steps["WindowProgram"], steps["RollingProgram"]
+    print(f"chain: {len(got)} rows equal the oracle in emission order; {losses}; "
+          f"hand-off rows={len(got)}; seq_rolling_reduce launches by dtype "
+          f"{launches}; {check_native('chain', m)}")
+    print(f"chain stage 1 (window): steps={len(w)} step_ms_first={w[0] * 1e3} "
+          f"step_ms_median_rest={statistics.median(w[1:] or w) * 1e3}; stage 2 "
+          f"(int64 rolling max, computed key): steps={len(r)} step_ms_first="
+          f"{r[0] * 1e3} step_ms_median_rest={statistics.median(r[1:] or r) * 1e3}")
+    print(f"chain {run_summary(m, wall)}")
+    return launches
 
 
 # -- phases ch1, avg, median: the rest of the tutorial's jobs ---------------
@@ -757,7 +1015,7 @@ def ch1_phase(n_lines: int, batch: int = 65536) -> None:
              for hh, c, a in zip(hosts, cpus, alert)]
     want = [(f"h{hh:06d}", f"cpu{c}", 91.5)
             for hh, c, a in zip(hosts, cpus, alert) if a]
-    S.seq_rolling_reduce.launches = 0
+    S.reset_launches()
     items, m, wall = run_job(chapter1_threshold, lines, batch_size=batch,
                              name="Window WordCount")
     launches = S.seq_rolling_reduce.launches
@@ -819,7 +1077,7 @@ def avg_phase(n_lines: int, per_minute: int = 100_000) -> None:
     print(f"avg input: {n_lines} lines, {np.unique(hosts).size} hosts, "
           f"{want.size} (window, host) cells "
           f"({time.perf_counter() - t0:.1f} s to generate)")
-    S.seq_rolling_reduce.launches = 0
+    S.reset_launches()
     items, m, wall = run_job(chapter2_avg, with_minutes(lines, per_minute),
                              batch_size=B_MAIN, key_capacity=K_MAIN,
                              alert_capacity=1 << 18, name="ComputeCpuAvg")
@@ -985,19 +1243,22 @@ def session_build(kind: str, gap_ms: int = SESSION_GAP_MS, delay_ms: int = 1_000
     """bench.py phase K's job (``reduce``: ``Tuple2(a.f0, a.f1 + b.f1)``
     over ``<ts_ms> <key> <long>`` lines), or (``mean``) an aggregate of
     (key, count, float sum) into (key, count, mean) over a float
-    column."""
+    column. Fields parse with ``Long.parseLong`` and
+    ``Double.parseDouble``, as the Java jobs do, which the planner traces
+    into the native parser (Python's ``int()``/``float()`` would take
+    the per-record fallback)."""
     from tpustream_torch import (AggregateFunction,
                                  BoundedOutOfOrdernessTimestampExtractor, Time,
                                  Tuple2, Tuple3)
     from tpustream_torch.api.windows import EventTimeSessionWindows
-    from tpustream_torch.javacompat import Long
+    from tpustream_torch.javacompat import Double, Long
 
     class Ts(BoundedOutOfOrdernessTimestampExtractor):
         def __init__(self):
             super().__init__(Time.milliseconds(delay_ms))
 
         def extract_timestamp(self, value):
-            return int(value.split(" ")[0])
+            return Long.parseLong(value.split(" ")[0])
 
     class Mean(AggregateFunction):
         def create_accumulator(self):
@@ -1016,7 +1277,8 @@ def session_build(kind: str, gap_ms: int = SESSION_GAP_MS, delay_ms: int = 1_000
         stamped = text.assign_timestamps_and_watermarks(Ts())
         window = EventTimeSessionWindows.with_gap(Time.milliseconds(gap_ms))
         if kind == "mean":
-            return (stamped.map(lambda l: Tuple2(l.split(" ")[1], float(l.split(" ")[2])))
+            return (stamped.map(lambda l: Tuple2(l.split(" ")[1],
+                                                 Double.parseDouble(l.split(" ")[2])))
                     .key_by(0).window(window).aggregate(Mean()))
         return (stamped.map(lambda l: Tuple2(l.split(" ")[1],
                                              Long.parseLong(l.split(" ")[2])))
@@ -1106,7 +1368,7 @@ def session_phase(n_lines: int) -> None:
                                                       vals.tolist())])
         got_bytes, undo_bytes = state_bytes(SessionWindowProgram)
         read_ends, undo_ends = session_ends(SessionWindowProgram)
-        S.seq_rolling_reduce.launches = 0
+        S.reset_launches()
         try:
             items, m, wall = run_env(session_build(kind), lines, event_time=True,
                                      name=f"session {kind}", acc_dtype=acc_dtype, **cfg)
@@ -1151,7 +1413,7 @@ def session_phase(n_lines: int) -> None:
               f"K={SESSION_K}, {len(items)} sessions equal the oracle ({check}); "
               f"{losses}; fires a step (oracle) {per_step.tolist()}; cell state "
               f"{got_bytes['n']} bytes on the card; seq_rolling_reduce "
-              f"launches={launches}")
+              f"launches={launches}; {check_native(f'session {kind}', m)}")
         print(f"session {kind} {run_summary(m, wall)}")
         profile_steps(f"session {kind}", SessionWindowProgram,
                       lambda: run_env(session_build(kind), lines, event_time=True,
@@ -1239,7 +1501,7 @@ def count_phase(n_lines: int, n_hosts: int = 1 << 14, process_lines: int = 100_0
             want = np.nanmedian(window, axis=1)
         else:
             want = np.nansum(window, axis=1).astype(np.int64)
-        S.seq_rolling_reduce.launches = 0
+        S.reset_launches()
         items, m, wall = run_env(count_build(size, slide, process), ls,
                                  name=f"count {label}", **cfg)
         launches = S.seq_rolling_reduce.launches
@@ -1483,13 +1745,138 @@ def small_windows() -> None:
           f"{out[0][1]}, late_dropped {out[0][2]}; card equals CPU")
 
 
+def small_chains() -> None:
+    """Integer rolling goldens at batch sizes 1, 3 and 64, the
+    single-device cases of the JAX package's chained-stage suite
+    (tests/test_chained_stages.py) and a punctuated-watermark job, each
+    on the card equal to the same run on the CPU and to the golden
+    rows."""
+    from tpustream_torch import (BoundedOutOfOrdernessTimestampExtractor, Time,
+                                 Tuple2, Tuple3, Watermark)
+    from tpustream_torch.api.watermarks import AssignerWithPunctuatedWatermarks
+    from tpustream_torch.api.windows import (EventTimeSessionWindows,
+                                             TumblingProcessingTimeWindows)
+
+    roll_lines = [f"1 k{i % 5} {(i * 7) % 97}" for i in range(40)]
+
+    def rolling(kind):
+        def build(text):
+            return getattr(text.map(lambda l: Tuple2(l.split(" ")[1], int(l.split(" ")[2])))
+                           .key_by(0), kind)(1)
+        return build
+
+    def rolling_golden(kind):
+        acc, out = {}, []
+        for line in roll_lines:
+            k, v = line.split(" ")[1], int(line.split(" ")[2])
+            acc[k] = v if k not in acc else {"sum": acc[k] + v, "max": max(acc[k], v),
+                                             "min": min(acc[k], v)}[kind]
+            out.append(f"({k},{acc[k]})")
+        return out
+
+    class Ts(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.milliseconds(1000))
+
+        def extract_timestamp(self, value):
+            return int(value.split(" ")[0])
+
+    def parse3(line):
+        items = line.split(" ")
+        return Tuple3(items[1], items[2], int(items[3]))
+
+    add3 = lambda p, q: Tuple3(p.f0, p.f1, p.f2 + q.f2)  # noqa: E731
+    add2 = lambda p, q: Tuple2(p.f0, p.f1 + q.f1)  # noqa: E731
+
+    def stage1(text, slide=None):
+        w = text.assign_timestamps_and_watermarks(Ts()).map(parse3).key_by(0)
+        w = (w.time_window(Time.seconds(10)) if slide is None
+             else w.time_window(Time.seconds(10), Time.seconds(slide)))
+        return w.reduce(add3)
+
+    def median(key, ctx, elements, out):
+        vals = sorted(e.f2 for e in elements)
+        mid = len(vals) // 2
+        out.collect(Tuple2(key, float(vals[mid]) if len(vals) % 2
+                           else (vals[mid - 1] + vals[mid]) / 2))
+
+    class Punct(AssignerWithPunctuatedWatermarks):
+        def extract_timestamp(self, value):
+            return int(value.split(" ")[0])
+
+        def check_and_get_next_watermark(self, element, extracted_timestamp):
+            if element.split(" ")[3] == "wm":
+                return Watermark(extracted_timestamp + 9_000)
+            return None
+
+    chain_lines = ["1000 a x 5", "2000 b y 7", "5000 a x 3", "12000 a y 4", "25000 b x 9"]
+    session_lines = ["1000 a 1", "2000 b 2", "3000 a 4", "9000 b 8", "20000 a 16",
+                     "22000 b 32", "23000 a 64", "40000 c 100", "55000 c 200"]
+    punct_lines = ["1000 a 1 -", "2000 b 2 -", "3000 a 4 wm", "4000 a 8 -",
+                   "2500 b 16 -", "15000 a 32 -", "11000 b 64 wm", "9000 a 128 -",
+                   "12000 b 256 -", "31000 a 512 -", "20000 b 1024 -"]
+    cases = [(f"int rolling {kind} golden, batch {b}", rolling(kind), roll_lines,
+              False, b, rolling_golden(kind))
+             for kind in ("sum", "max", "min") for b in (1, 3, 64)]
+    cases += [
+        ("chain window then int rolling max", lambda t: stage1(t).key_by(1).max(2),
+         chain_lines, True, 2, ["(a,x,8)", "(b,y,7)", "(b,y,7)", "(a,x,9)"]),
+        ("chain window then processing-time window", lambda t: (
+            stage1(t).key_by(1).window(TumblingProcessingTimeWindows.of(Time.minutes(5)))
+            .reduce(add3)), chain_lines, True, 2, ["(a,x,17)", "(b,y,11)"]),
+        ("chain event-time windows", lambda t: (
+            stage1(t).key_by(1).time_window(Time.seconds(30)).reduce(add3)),
+         chain_lines, True, 1, ["(a,x,17)", "(b,y,11)"]),
+        ("chain after process()", lambda t: (
+            t.assign_timestamps_and_watermarks(Ts()).map(parse3).key_by(0)
+            .time_window(Time.seconds(10)).process(median)
+            .key_by(0).time_window(Time.seconds(30)).reduce(add2)),
+         chain_lines, True, 2, ["(a,8.0)", "(b,16.0)"]),
+        ("chain sliding-window fed", lambda t: (
+            stage1(t, slide=5).key_by(1).time_window(Time.seconds(30)).reduce(add3)),
+         chain_lines, True, 2, ["(a,x,29)", "(b,x,9)", "(b,y,18)"]),
+        ("chain session fed", lambda t: (
+            t.assign_timestamps_and_watermarks(Ts())
+            .map(lambda l: Tuple2(l.split(" ")[1], int(l.split(" ")[2])))
+            .key_by(0).window(EventTimeSessionWindows.with_gap(Time.seconds(4)))
+            .reduce(add2).key_by(0).time_window(Time.seconds(30)).reduce(add2)),
+         session_lines, True, 4, ["(a,85)", "(b,42)", "(c,300)"]),
+        ("chain computed key on the chain stage", lambda t: (
+            t.map(lambda l: Tuple2(l.split(" ")[0], float(l.split(" ")[1])))
+            .key_by(0).reduce(add2).key_by(lambda r: len(r.f0)).reduce(add2)),
+         ["a 1", "bb 10", "c 2", "dd 20", "e 4", "ff 40", "a 8"], False, 2,
+         ["(a,1.0)", "(bb,10.0)", "(a,3.0)", "(bb,30.0)", "(a,7.0)", "(bb,70.0)",
+          "(a,16.0)"]),
+        ("punctuated watermarks", lambda t: (
+            t.assign_timestamps_and_watermarks(Punct())
+            .map(lambda l: Tuple2(l.split(" ")[1], int(l.split(" ")[2])))
+            .key_by(0).time_window(Time.seconds(10)).reduce(add2)),
+         punct_lines, True, 1, None),
+    ]
+    for label, build, items, event_time, batch, golden in cases:
+        runs = [run_env(build, items, dev, event_time=event_time, batch_size=batch,
+                        key_capacity=16) for dev in ("cuda", "cpu")]
+        card, cpu = ([repr(t) for t in r[0]] for r in runs)
+        late = [r[1].late_dropped for r in runs]
+        ok = card == cpu and late[0] == late[1] and card
+        if golden is not None:
+            ok = ok and sorted(card) == sorted(golden)
+        if not ok:
+            raise AssertionError(f"small run {label}: card {card}, CPU {cpu}, golden "
+                                 f"{golden}, late_dropped {late}")
+        print(f"small run {label}: {len(card)} rows, late_dropped {late[0]}, card "
+              f"equals CPU" + ("" if golden is None else " and the golden"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernel,job,flagship,ch1,avg,median,session,count,small")
+                    default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
+                            "small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
-    ap.add_argument("--flagship-lines", type=int, default=1_000_000)
+    ap.add_argument("--flagship-lines", type=int, default=1_000_000,
+                    help="input of the flagship and chain phases")
     ap.add_argument("--new-lines", type=int, default=1_000_000,
                     help="input of the ch1, avg and median phases")
     ap.add_argument("--window-lines", type=int, default=1_000_000,
@@ -1521,6 +1908,8 @@ def main() -> int:
     launches = timed("job", job_phase, args.lines) if "job" in phases else {}
     if "flagship" in phases:
         timed("flagship", flagship_phase, args.flagship_lines)
+    chain_launches = (timed("chain", chain_phase, args.flagship_lines)
+                      if "chain" in phases else {})
     if "ch1" in phases:
         timed("ch1", ch1_phase, args.new_lines)
     if "avg" in phases:
@@ -1534,23 +1923,34 @@ def main() -> int:
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
+        small_chains()
     print(f"phases: {time.perf_counter() - t_all:.1f} s")
-    main_case = cases.get(("float64", "max", "uniform"))
-    if main_case is not None:
-        print(json.dumps({"kernels": [{
+    # one entry a dtype instantiation on a main path: float64 on the
+    # chapter-2 job's, int64 on the chain's (its rolling max)
+    entries = []
+    for dtype, op, path_launches in (
+            ("float64", "max", launches.get("seq_rolling_reduce")),
+            ("int64", "max", chain_launches.get("int64"))):
+        case = cases.get((dtype, op, "uniform"))
+        if case is None:
+            continue
+        entries.append({
             "name": "seq_rolling_reduce",
+            "dtype": dtype,
             "route": "cuda",
             "source": "tpustream_torch/kernels/seq_rolling.cu",
             "replaces": "tpustream/ops/pallas_rolling.py:103",
-            "launches": launches.get("seq_rolling_reduce"),
-            "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
+            "launches": path_launches,
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-            "device_launches_per_call": main_case["device_launches_per_call"],
-        }]}))
+            "device_launches_per_call": case.get("device_launches_per_call"),
+        })
+    if entries:
+        print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -331,7 +331,7 @@ def test_unported_window_features_raise():
         env.execute("x")
 
     # float32 session windows refuse by name too; parallelism > 1 waits
-    # for roadmap queue item 12, chained stages for item 8
+    # for roadmap queue item 12
     from tpustream_torch.api.windows import EventTimeSessionWindows
 
     def sessions(text):
@@ -351,8 +351,26 @@ def test_unported_window_features_raise():
     with pytest.raises(NotImplementedError, match="parallelism"):
         env.execute("x")
 
-    env, text = job()
-    (sessions(text).key_by(1).count_window(3)
-     .reduce(lambda a, b: T.Tuple3(a.f0, a.f1, a.f2 + b.f2)).collect())
-    with pytest.raises(NotImplementedError, match="chained"):
+    # chained stages run since the chain glue is ported: the same
+    # two-stage job gives the JAX package's rows
+    import tpustream.api.windows as jax_windows
+    import tpustream_torch.api.windows as torch_windows
+
+    def chained(pkg, et, windows, env, sources):
+        text = env.add_source(sources.ReplaySource(ET_LINES))
+        h = (text.assign_timestamps_and_watermarks(
+                 et.IsoTimestampExtractor(pkg.Time.minutes(1)))
+             .map(et.parse).key_by(1)
+             .window(windows.EventTimeSessionWindows.with_gap(pkg.Time.minutes(5)))
+             .reduce(lambda a, b: pkg.Tuple3(a.f0, a.f1, a.f2 + b.f2))
+             .key_by(1).count_window(1)
+             .reduce(lambda a, b: pkg.Tuple3(a.f0, a.f1, a.f2 + b.f2)).collect())
         env.execute("x")
+        return [repr(t) for t in h.items]
+
+    jenv = tpustream.StreamExecutionEnvironment(tpustream.StreamConfig())
+    jenv.set_stream_time_characteristic(tpustream.TimeCharacteristic.EventTime)
+    want = chained(tpustream, jax_et, jax_windows, jenv, jax_sources)
+    env = _env(T.TimeCharacteristic.EventTime)
+    got = chained(T, torch_et, torch_windows, env, torch_sources)
+    assert want and got == want

@@ -313,7 +313,7 @@ def _torch_rows(tprog, state, em, process):
     if process:
         rows = []
         tprog.evaluate_fires(state, em["process_fire"],
-                             lambda item, subtask: rows.append(repr(item)),
+                             lambda item, subtask, *_: rows.append(repr(item)),
                              lambda ts: [t.numpy() for t in ts])
         return rows
     m = em["main"]["mask"].numpy()

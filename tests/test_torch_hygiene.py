@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: it imports neither JAX nor the
-``tpustream`` package, and it never moves to the CPU unless asked."""
+``tpustream`` package, names no path under ``tpustream/`` and loads no
+file from there (its native parser is its own build under ``build/``),
+and it never moves to the CPU unless asked."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -93,3 +96,64 @@ def test_flagship_on_cuda_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         env.execute("BandwidthMonitorWithEventTime")
     assert handle.items == []
+
+
+CITATION = re.compile(r"^tpustream/[\w/]+\.py:\d+(-\d+)?$")
+
+
+def _string_constants(path: Path):
+    """The string literals of a module that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_path_under_the_reference_package(path):
+    # a "file:line" citation of a reference kernel is not a path the
+    # code opens; any other string naming tpustream/ (or the bare
+    # component) could be one
+    bad = [s for s in _string_constants(path)
+           if s == "tpustream" or ("tpustream/" in s and not CITATION.match(s))]
+    assert bad == []
+
+
+def test_native_parser_loads_nothing_from_the_reference_package():
+    # the port's parser library is its own build under build/, never the
+    # reference's tpustream/native/_fastparse.so
+    code = (
+        "import tpustream_torch.native as n\n"
+        "from tpustream_torch.hostparse import PlanEvaluator, trace_host_map\n"
+        "from tpustream_torch.jobs.chapter1_threshold import parse\n"
+        "from tpustream_torch.records import StringTable\n"
+        "assert n.available(), n.build_error()\n"
+        "p = trace_host_map(parse)\n"
+        "ev = PlanEvaluator(p.outputs, [StringTable(), StringTable(), None])\n"
+        "ev(['1 h cpu0 1.5'])\n"
+        "assert ev.native_calls == 1\n"
+        "print(open('/proc/self/maps').read())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    maps = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout
+    mapped = {line.split()[-1] for line in maps.splitlines()
+              if len(line.split()) >= 6}
+    assert not [m for m in mapped if m.startswith(str(ROOT / "tpustream") + "/")]
+    lib = [m for m in mapped if "libfastparse-" in m]
+    assert lib and all(
+        Path(m).parent == ROOT / "build" / "torch_native" for m in lib)

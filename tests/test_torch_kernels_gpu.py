@@ -72,7 +72,7 @@ def test_seq_rolling_kernel_matches_plain(dev, op, dtype):
     keys = torch.from_numpy(rng.integers(-1, K, B).astype(np.int32)).to(dev)
     vals = torch.from_numpy(rng.integers(-400, 400, B) / 4).to(dev, dtype)
     plane = torch.from_numpy(rng.integers(-400, 400, K) / 4).to(dev, dtype)
-    plane[::3] = S.IDENTITY[op]
+    plane[::3] = S.IDENTITY[dtype][op]
     (ek, pk, _), (er, pr, _) = _kernel_and_plain(dev, plane, keys, vals, op)
     assert _same_bits(ek, er) and _same_bits(pk, pr)
 
@@ -101,7 +101,7 @@ def test_seq_rolling_kernel_edges(dev, edge, op):
     keys = torch.from_numpy(make(rng, B, K).astype(np.int32)).to(dev)
     vals = torch.from_numpy(rng.integers(-400, 400, B) / 4).to(dev)
     plane = torch.from_numpy(rng.integers(-400, 400, K) / 4).to(dev)
-    plane[::2] = S.IDENTITY[op]
+    plane[::2] = S.IDENTITY[plane.dtype][op]
     (ek, pk, _), (er, pr, _) = _kernel_and_plain(dev, plane, keys, vals, op)
     assert _same_bits(ek, er) and _same_bits(pk, pr)
 
@@ -113,7 +113,7 @@ def test_seq_rolling_kernel_one_key_whole_batch(dev, dtype):
     B, K = 131072, 1 << 20
     keys = torch.full((B,), 12345, dtype=torch.int32, device=dev)
     vals = torch.from_numpy(rng.integers(-400, 400, B) / 4).to(dev, dtype)
-    plane = torch.full((K,), S.IDENTITY["max"], dtype=dtype, device=dev)
+    plane = torch.full((K,), S.IDENTITY[dtype]["max"], dtype=dtype, device=dev)
     (ek, pk, _), (er, pr, _) = _kernel_and_plain(dev, plane, keys, vals, "max")
     assert _same_bits(ek, er) and _same_bits(pk, pr)
     assert _same_bits(ek, torch.cummax(vals, 0).values)

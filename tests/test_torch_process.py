@@ -239,5 +239,5 @@ def test_process_state_carried_across_from_the_jax_package():
                                torch.from_numpy(ts), wm_lower)
         if "process_fire" in em:
             tprog.evaluate_fires(state, em["process_fire"],
-                                 lambda item, subtask: got.append(repr(item)), fetch)
+                                 lambda item, subtask, *_: got.append(repr(item)), fetch)
     assert len(want) > 20 and got == want

@@ -82,7 +82,7 @@ def _check_state(tstate, jstate, kind):
     for i, (tp, jp) in enumerate(zip(tplanes, jplanes)):
         if i == POS:
             # the reference leaves unseen rows at 0, the port at identity
-            assert np.all(tp[~seen] == TR.IDENTITY[kind])
+            assert np.all(tp[~seen] == TR.IDENTITY[torch.float64][kind])
             tp, jp = tp[seen], jp[seen]
             if kind == "sum":
                 np.testing.assert_allclose(tp, jp, rtol=1e-12, atol=0)

@@ -67,7 +67,7 @@ def test_plain_matches_sequential_oracle(op, dtype):
     # the plain version's tree-ordered sum equals the sequential fold
     vals = (rng.integers(-400, 400, B) / 4).astype(dtype)
     plane = (rng.integers(-100, 100, K) / 4).astype(dtype)
-    plane[rng.random(K) < 0.5] = S.IDENTITY[op]
+    plane[rng.random(K) < 0.5] = S.IDENTITY[torch.float64][op]
     want_plane, want_emis = P.oracle(plane, keys, vals, op)
     got_plane, got_emis = _port(plane, keys, vals, op)
     assert _same_bits(got_plane, want_plane)
@@ -124,7 +124,7 @@ def test_nan_and_signed_zero_follow_jnp(op):
     B, K = 48, 6
     keys = rng.integers(0, K, B).astype(np.int32)
     vals = pool[rng.integers(0, pool.size, B)].astype(np.float64)
-    plane = np.full(K, S.IDENTITY[op], np.float64)
+    plane = np.full(K, S.IDENTITY[torch.float64][op], np.float64)
     p = plane.copy()
     want = np.empty(B)
     for i, (k, v) in enumerate(zip(keys, vals)):
@@ -141,7 +141,7 @@ def test_sum_keeps_negative_zero():
     # -0.0, as the reference's prefix sum does (0.0 + -0.0 would be 0.0)
     keys = np.array([3, 3, 1, 3], np.int32)
     vals = np.array([-0.0, -0.0, 0.0, 2.0])
-    plane = np.full(4, S.IDENTITY["sum"])
+    plane = np.full(4, S.IDENTITY[torch.float64]["sum"])
     got_plane, got_emis = _port(plane, keys, vals, "sum")
     assert _same_bits(got_emis, np.array([-0.0, -0.0, 0.0, 2.0]))
     assert _same_bits(got_plane, np.array([-0.0, 0.0, -0.0, 2.0]))

@@ -597,7 +597,7 @@ def _torch_rows(tprog, state, em, process):
         rows = []
         if "process_fire" in em:
             tprog.evaluate_fires(state, em["process_fire"],
-                                 lambda item, subtask: rows.append(repr(item)),
+                                 lambda item, subtask, *_: rows.append(repr(item)),
                                  lambda ts: [t.numpy() for t in ts])
         return rows
     n = int(em["main"]["count"])

@@ -230,12 +230,55 @@ def _collect_fields(e: PExpr, acc: set) -> None:
         acc.add(("\0raw", 0))
 
 
+def _decompose_bases(e: PExpr, sep_holder: list, bases: dict, table):
+    """Rewrite ``e`` into a tree over native base columns.
+
+    Returns a tree of ('base', i) / ('const', v) / ('bin', op, a, b), or
+    None when the expression defeats the native parser.
+    """
+    from . import native as native_mod
+
+    def base_key(field_expr, kind, tz):
+        sep, idx = field_expr.args
+        if sep_holder and sep_holder[0] != sep:
+            return None
+        if not sep_holder:
+            sep_holder.append(sep)
+        key = (idx, kind, tz, id(table) if kind == native_mod.KIND_STR else 0)
+        if key not in bases:
+            bases[key] = (len(bases), table if kind == native_mod.KIND_STR else None)
+        return ("base", bases[key][0])
+
+    if e.op == "field":
+        if table is None:
+            return None  # a bare string field needs an intern table
+        return base_key(e, native_mod.KIND_STR, 0)
+    if e.op == "parse_f64" and e.args[0].op == "field":
+        return base_key(e.args[0], native_mod.KIND_F64, 0)
+    if e.op == "parse_i64" and e.args[0].op == "field":
+        return base_key(e.args[0], native_mod.KIND_I64, 0)
+    if e.op == "parse_iso" and e.args[0].op == "field":
+        return base_key(e.args[0], native_mod.KIND_ISO, e.args[1])
+    if e.op == "const":
+        return ("const", e.args[0])
+    if e.op == "bin":
+        op, a, b = e.args
+        ra = _decompose_bases(a, sep_holder, bases, None)
+        rb = _decompose_bases(b, sep_holder, bases, None)
+        if ra is None or rb is None:
+            return None
+        return ("bin", op, ra, rb)
+    return None
+
+
 class PlanEvaluator:
     """Evaluates a set of parse expressions over a batch of raw lines.
 
-    The only per-record Python work is the split; everything downstream
-    is numpy-vectorized. (The reference package also has a native C++
-    parser for this plan; it is not ported.)
+    Splitting/parsing runs in the native C++ parser (``native/``) when
+    the plan maps to single-separator base columns (the common case);
+    otherwise the only per-record Python work is the split. Everything
+    downstream is numpy-vectorized. ``native_calls`` and ``numpy_calls``
+    count the batches each path parsed.
     """
 
     def __init__(self, exprs: Sequence[PExpr], tables: Sequence[Optional[StringTable]]):
@@ -245,6 +288,74 @@ class PlanEvaluator:
         for e in self.exprs:
             _collect_fields(e, needed)
         self.fields = sorted(needed)  # list of (sep, idx) and maybe ('\0raw',0)
+        self.native_calls = 0
+        self.numpy_calls = 0
+        self._native = None
+        self._native_trees = None
+        self._try_native()
+
+    def _try_native(self) -> None:
+        from . import native as native_mod
+
+        if not native_mod.available():
+            return
+        sep_holder: list = []
+        bases: dict = {}
+        trees = []
+        for e, t in zip(self.exprs, self.tables):
+            tree = _decompose_bases(e, sep_holder, bases, t)
+            if tree is None:
+                return
+            trees.append(tree)
+        if not bases or not sep_holder:
+            return
+        specs = [None] * len(bases)
+        py_tables = [None] * len(bases)
+        for (idx, kind, tz, _tid), (slot, table) in bases.items():
+            specs[slot] = (idx, kind, tz)
+            py_tables[slot] = table
+        try:
+            self._native = native_mod.NativeParser(sep_holder[0], specs, py_tables)
+            self._native_trees = trees
+        except Exception:
+            self._native = None
+
+    def _eval_tree(self, tree, base_vals, n):
+        tag = tree[0]
+        if tag == "base":
+            return base_vals[tree[1]]
+        if tag == "const":
+            v = tree[1]
+            dt = np.float64 if isinstance(v, float) else np.int64
+            return np.full(n, v, dtype=dt)
+        _, op, a, b = tree
+        va, vb = self._eval_tree(a, base_vals, n), self._eval_tree(b, base_vals, n)
+        if op == "add":
+            return va + vb
+        if op == "sub":
+            return va - vb
+        if op == "mul":
+            return va * vb
+        if op == "truediv":
+            return np.asarray(va, np.float64) / np.asarray(vb, np.float64)
+        return va // vb
+
+    def parse_bytes(self, data: bytes, n_lines: int) -> Optional[List[np.ndarray]]:
+        """Native path over a raw newline-separated buffer; None if the
+        native parser is unavailable for this plan, or if any line of
+        the batch is malformed (the native parser zero-fills a bad field
+        rather than raise, so such a batch takes the strict numpy path,
+        which raises)."""
+        if self._native is None:
+            return None
+        base_vals, bad = self._native.parse(data, n_lines)
+        if bad or len(base_vals[0]) != n_lines:
+            return None
+        self.native_calls += 1
+        return [
+            np.asarray(self._eval_tree(t, base_vals, n_lines))
+            for t in self._native_trees
+        ]
 
     def _extract(self, lines: Sequence[str]) -> dict:
         cols: dict = {f: [None] * len(lines) for f in self.fields}
@@ -295,6 +406,11 @@ class PlanEvaluator:
 
     def __call__(self, lines: Sequence[str]) -> List[np.ndarray]:
         n = len(lines)
+        if self._native is not None and n:
+            out = self.parse_bytes("\n".join(lines).encode("utf-8"), n)
+            if out is not None:
+                return out
+        self.numpy_calls += 1
         fields = self._extract(lines)
         out = []
         for e, table in zip(self.exprs, self.tables):

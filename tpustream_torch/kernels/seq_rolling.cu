@@ -46,11 +46,13 @@
 //     shared memory, writes emis[row], and at each segment's last row
 //     writes plane[key].
 //
-// Numbers. max/min give the sequential fold's bits in any order. sum
-// adds in a fixed tree order (in row order within a thread's kItems
-// rows, then Kogge-Stone across lanes, warps and tiles), not in arrival
-// order: the same bits on every launch, within (m-1)*eps*sum|v| of the
-// sequential fold for a key with m terms.
+// Numbers. max/min give the sequential fold's bits in any order, and
+// so does an int64 sum, which wraps in two's complement as the
+// reference's does. A float sum adds in a fixed tree order (in row
+// order within a thread's kItems rows, then Kogge-Stone across lanes,
+// warps and tiles), not in arrival order: the same bits on every
+// launch, within (m-1)*eps*sum|v| of the sequential fold for a key with
+// m terms.
 //
 // max/min follow jnp.maximum / jnp.minimum (the reference's rolling
 // step): a NaN operand gives NaN, and +0.0 is greater than -0.0. CUDA's
@@ -60,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -81,22 +85,38 @@ enum Op { kMax = 0, kMin = 1, kSum = 2 };
 
 template <typename T, int OP>
 __device__ __forceinline__ T combine(T a, T b) {
-  if (OP == kSum) return a + b;
-  if (a != a || b != b) return a + b;  // NaN in, NaN out
-  if (OP == kMax) {
-    if (a > b) return a;
-    if (b > a) return b;
-    return signbit(a) ? b : a;  // equal: +0.0 wins
+  if constexpr (std::is_integral<T>::value) {
+    // signed overflow is undefined in C++; the reference's int64 sum
+    // (and Java's long) wraps in two's complement, so add as unsigned
+    if (OP == kSum) {
+      return static_cast<T>(static_cast<uint64_t>(a) +
+                            static_cast<uint64_t>(b));
+    }
+    if (OP == kMax) return a < b ? b : a;
+    return b < a ? b : a;
+  } else {
+    if (OP == kSum) return a + b;
+    if (a != a || b != b) return a + b;  // NaN in, NaN out
+    if (OP == kMax) {
+      if (a > b) return a;
+      if (b > a) return b;
+      return signbit(a) ? b : a;  // equal: +0.0 wins
+    }
+    if (a < b) return a;
+    if (b < a) return b;
+    return signbit(a) ? a : b;  // equal: -0.0 wins
   }
-  if (a < b) return a;
-  if (b < a) return b;
-  return signbit(a) ? a : b;  // equal: -0.0 wins
 }
 
 // op(identity, v) == v bit for bit
 template <typename T, int OP>
 __device__ __forceinline__ T identity() {
-  return OP == kMax ? T(-INFINITY) : OP == kMin ? T(INFINITY) : T(-0.0);
+  if constexpr (std::is_integral<T>::value) {
+    static_assert(sizeof(T) == 8, "the integer instantiation is int64");
+    return OP == kMax ? T(INT64_MIN) : OP == kMin ? T(INT64_MAX) : T(0);
+  } else {
+    return OP == kMax ? T(-INFINITY) : OP == kMin ? T(INFINITY) : T(-0.0);
+  }
 }
 
 // A span of sorted rows: the fold of its rows since the last segment
@@ -532,7 +552,7 @@ extern "C" int seq_rolling_tile_rows() { return kTile; }
 extern "C" int seq_rolling_digit_bits() { return kDigitBits; }
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32,
-// 1 = float64; op: 0 = max, 1 = min, 2 = sum. bad_keys (one int32, or
+// 1 = float64, 2 = int64; op: 0 = max, 1 = min, 2 = sum. bad_keys (one int32, or
 // null) gains the number of rows whose key is >= K. passes: radix
 // passes, enough that K < 2^(8 * passes). Scratch, from the caller:
 // pairs_a and pairs_b hold B uint64 each, counts passes * n_tiles * 256
@@ -562,6 +582,12 @@ extern "C" int seq_rolling_reduce_launch(
         op, make_args<double>(keys, vals, plane, emis, bad_keys, B, K,
                               passes, pairs_a, pairs_b, counts, xs, agg_v,
                               agg_f),
+        s);
+  } else if (dtype == 2) {
+    err = launch_typed<int64_t>(
+        op, make_args<int64_t>(keys, vals, plane, emis, bad_keys, B, K,
+                               passes, pairs_a, pairs_b, counts, xs, agg_v,
+                               agg_f),
         s);
   } else {
     err = cudaErrorInvalidValue;

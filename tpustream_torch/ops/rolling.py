@@ -11,15 +11,17 @@ ties), and a user ``reduce`` folds whole records.
 Counterpart of tpustream/ops/rolling.py, in two paths:
 
 * :func:`rolling_step`, the commutative field aggregates (the
-  reference's ``_rolling_step_commutative``). The aggregated column
-  goes through one call of the keyed-reduce kernel
+  reference's ``_rolling_step_commutative``) of a float64 or int64
+  field. The aggregated column goes through one call of the keyed-reduce
+  kernel
   (``ops/seq_rolling.py``), which does the reference's sort, segmented
   scan, stored-value gather and tail scatter and yields the emissions in
   arrival order. The keep-first leaves, the key column and the occupancy
   test stay plain tensor ops, as they are plain XLA ops in the
   reference.
 * :func:`rolling_step_general`, every other combiner (the reference's
-  general path, ``rolling_step`` lines 159-191): a stable sort by key, a
+  general path, ``rolling_step`` lines 159-191), and max/min/sum of an
+  interned-string or boolean field: a stable sort by key, a
   segmented scan with the combiner, a gather of the stored leaves, a
   ``where`` on seen keys and a set-scatter at segment tails, all torch
   ops. The reference leaves its emissions in key-sorted order for the
@@ -29,8 +31,11 @@ Counterpart of tpustream/ops/rolling.py, in two paths:
 State is dense per-key planes (ops/wordplanes.py) plus a ``seen``
 bitmap. Unlike the reference, a commutative aggregate's plane starts at
 the op's identity (``seq_rolling.IDENTITY``) rather than 0, so the
-kernel's fold needs no occupancy test; :func:`state_from_jax_numpy`
-converts. The general path's state is the reference's layout as it is.
+kernel's fold needs no occupancy test, and an int64 aggregated field
+keeps ONE native int64 plane where the reference keeps two int32 words,
+so the kernel folds it in place (:func:`plane_layout`);
+:func:`state_from_jax_numpy` converts. The general path's state is the
+reference's layout as it is.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..records import F64, STR
+from ..records import F64, I64, STR
 from .segments import inverse_permutation, segment_tails, segmented_scan, sort_by_key
 from .seq_rolling import IDENTITY, seq_rolling_reduce
 from .wordplanes import (
@@ -52,14 +57,42 @@ from .wordplanes import (
 )
 
 COMMUTATIVE = ("max", "min", "sum")
+# the field kinds the kernel aggregates; max/min/sum of any other kind
+# take rolling_step_general with make_combiner
+KERNEL_KINDS = (F64, I64)
+
+
+def kernel_path(kinds: Sequence[str], kind: str, pos: Optional[int]) -> bool:
+    """Whether rolling ``kind`` of leaf ``pos`` runs through the kernel
+    (:func:`rolling_step`) rather than :func:`rolling_step_general`."""
+    return kind in COMMUTATIVE and kinds[pos] in KERNEL_KINDS
 
 
 def _check_kind(kinds: Sequence[str], kind: str, pos: int) -> None:
-    if kind in COMMUTATIVE and kinds[pos] != F64:
-        raise NotImplementedError(
-            f"rolling {kind} over a {kinds[pos]!r} field is not ported yet: "
-            f"the kernel aggregates float64 fields only"
+    if kind in COMMUTATIVE and kinds[pos] not in KERNEL_KINDS:
+        raise ValueError(
+            f"rolling_step aggregates float64 and int64 fields; {kind} over "
+            f"a {kinds[pos]!r} field takes rolling_step_general"
         )
+
+
+def plane_layout(kinds: Sequence[str], kind: str, pos: Optional[int]):
+    """``(plane dtypes, per-leaf plane slices)`` of a rolling state: the
+    reference's word planes (ops/wordplanes.py), except that the kernel
+    path's int64 aggregated leaf keeps one native int64 plane in place
+    of its two int32 words."""
+    dtypes, slices = plane_dtypes(kinds), leaf_plane_slices(kinds)
+    if not (kind in COMMUTATIVE and kinds[pos] == I64):
+        return dtypes, slices
+    agg = slices[pos]
+    dtypes = dtypes[:agg.start] + [torch.int64] + dtypes[agg.stop:]
+    slices = [
+        sl if i < pos
+        else slice(sl.start, sl.start + 1) if i == pos
+        else slice(sl.start - 1, sl.stop - 1)
+        for i, sl in enumerate(slices)
+    ]
+    return dtypes, slices
 
 
 def _combine_field_agg(pos: int, reducer: Callable):
@@ -107,23 +140,24 @@ def init_rolling_state(
     sentinel_leaf: Optional[int] = None,
     device: torch.device = torch.device("cpu"),
 ) -> dict:
-    """Fresh state for ``key_capacity`` keys. A commutative ``kind``
-    starts the aggregated leaf's plane at its identity and a
-    ``sentinel_leaf`` (a keep-first STR leaf whose plane doubles as the
-    occupancy test; interned ids are >= 0) at -1; every other plane, and
-    every plane of the general path, starts at 0."""
-    _check_kind(kinds, kind, pos)
+    """Fresh state for ``key_capacity`` keys. A commutative ``kind`` of
+    a float64 or int64 leaf (the kernel path) starts the aggregated
+    leaf's plane at its identity and a ``sentinel_leaf`` (a keep-first
+    STR leaf whose plane doubles as the occupancy test; interned ids are
+    >= 0) at -1; every other plane, and every plane of the general path,
+    starts at 0."""
+    dtypes, slices = plane_layout(kinds, kind, pos)
     planes = [
         torch.zeros((key_capacity,), dtype=dt, device=device)
-        for dt in plane_dtypes(kinds)
+        for dt in dtypes
     ]
-    if kind not in COMMUTATIVE:
+    if not kernel_path(kinds, kind, pos):
         return {
             "seen": torch.zeros((key_capacity,), dtype=torch.bool, device=device),
             "planes": planes,
         }
-    slices = leaf_plane_slices(kinds)
-    planes[slices[pos].start].fill_(IDENTITY[kind])
+    agg = planes[slices[pos].start]
+    agg.fill_(IDENTITY[agg.dtype][kind])
     if sentinel_leaf is not None:
         if kinds[sentinel_leaf] != STR:
             raise ValueError(
@@ -170,27 +204,34 @@ def state_from_jax_numpy(
     init_rolling_state) into this module's state for a rolling ``kind``
     over leaf ``rolling_pos``.
 
-    The general path (``max_by``, ``min_by``, a user reduce) keeps the
-    reference's layout, so its planes and ``seen`` are copied as they
-    are. For a commutative ``kind`` the reference leaves the aggregated
-    plane at 0 for a never-seen key and tests occupancy instead; here
-    such rows take the identity. With a ``sentinel_leaf`` the reference
-    never updates ``seen`` (the sentinel plane is the occupancy test), so
+    The general path (``max_by``, ``min_by``, a user reduce, and
+    max/min/sum of a string or boolean leaf) keeps the reference's
+    layout, so its planes and ``seen`` are copied as they are. On the
+    kernel path the reference leaves the aggregated plane at 0 for a
+    never-seen key and tests occupancy instead; here such rows take the
+    identity, and an int64 aggregated leaf's two int32 words (low, high)
+    become one int64 plane. With a ``sentinel_leaf`` the reference never
+    updates ``seen`` (the sentinel plane is the occupancy test), so
     occupancy is read from that plane (``>= 0``) and ``seen`` is rebuilt
     from it.
     """
-    _check_kind(kinds, kind, rolling_pos)
     slices = leaf_plane_slices(kinds)
     planes = [np.array(p) for p in state_np["planes"]]
-    if kind not in COMMUTATIVE:
+    if not kernel_path(kinds, kind, rolling_pos):
         seen = np.array(state_np["seen"], dtype=bool)
     elif sentinel_leaf is not None:
         seen = planes[slices[sentinel_leaf].start] >= 0
     else:
         seen = np.array(state_np["seen"], dtype=bool)
-    if kind in COMMUTATIVE:
-        agg = planes[slices[rolling_pos].start]
-        agg[~seen] = IDENTITY[kind]
+    if kernel_path(kinds, kind, rolling_pos):
+        words = slices[rolling_pos]
+        if kinds[rolling_pos] == I64:
+            lo, hi = planes[words.start], planes[words.start + 1]
+            agg = (lo.astype(np.int64) & 0xFFFFFFFF) | (hi.astype(np.int64) << 32)
+            planes[words] = [agg]
+        else:
+            agg = planes[words.start]
+        agg[~seen] = IDENTITY[torch.from_numpy(agg[:0]).dtype][kind]
     return {
         "seen": torch.from_numpy(seen).to(device),
         "planes": [torch.from_numpy(p).to(device) for p in planes],
@@ -230,7 +271,7 @@ def rolling_step(
     kind, pos = rolling_kind, rolling_pos
     _check_kind(kinds, kind, pos)
     planes = state["planes"]
-    slices = leaf_plane_slices(kinds)
+    slices = plane_layout(kinds, kind, pos)[1]
     if key_col is not None and (key_emit is None or key_col == pos):
         key_col = None  # aggregating the keyed column: not key-invariant
     if sentinel_leaf is not None and (

@@ -6,10 +6,12 @@ a ``[K]`` plane and ``[B]`` keys and values, in arrival order::
 
     plane[key[i]] = op(plane[key[i]], val[i]);  emis[i] = plane[key[i]]
 
-``op`` is ``max``, ``min`` or ``sum``. Rows with a negative key (padding)
-fold nothing and emit their own value. A plane that starts at the op's
-identity (:data:`IDENTITY`) makes every emission the running aggregate
-of its key: Flink's rolling-aggregate contract.
+``op`` is ``max``, ``min`` or ``sum``, over float32, float64 or int64.
+Rows with a negative key (padding) fold nothing and emit their own
+value. A plane that starts at the op's identity (:data:`IDENTITY`)
+makes every emission the running aggregate of its key: Flink's
+rolling-aggregate contract. An int64 ``sum`` wraps in two's complement,
+as the reference's int64 sum and Java's ``long`` do.
 
 :func:`seq_rolling_reduce` launches the kernel in
 ``kernels/seq_rolling.cu`` for CUDA tensors and takes
@@ -26,11 +28,17 @@ import torch
 
 OPS = ("max", "min", "sum")
 
-# the plane value a never-seen key starts from: op(IDENTITY, v) == v
-# bit for bit (-0.0 + v keeps the sign of a -0.0 v; 0.0 + -0.0 would not)
-IDENTITY = {"max": float("-inf"), "min": float("inf"), "sum": -0.0}
+# the plane value a never-seen key starts from, per plane dtype:
+# op(IDENTITY[dtype][op], v) == v bit for bit (-0.0 + v keeps the sign
+# of a -0.0 v; 0.0 + -0.0 would not)
+_FLOAT_IDENTITY = {"max": float("-inf"), "min": float("inf"), "sum": -0.0}
+IDENTITY = {
+    torch.float32: _FLOAT_IDENTITY,
+    torch.float64: _FLOAT_IDENTITY,
+    torch.int64: {"max": -(2**63), "min": 2**63 - 1, "sum": 0},
+}
 
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
 _OP_CODES = {"max": 0, "min": 1, "sum": 2}
 
 
@@ -49,6 +57,8 @@ def _min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 REDUCERS = {"max": _max, "min": _min, "sum": torch.add}
+# integers have no NaN and no signed zero; torch's int64 add wraps
+INT_REDUCERS = {"max": torch.maximum, "min": torch.minimum, "sum": torch.add}
 
 
 # The kernel's layout (kTile and kDigitBits in kernels/seq_rolling.cu),
@@ -91,7 +101,8 @@ def _check(plane, keys, vals, op, bad_keys):
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     if plane.dtype not in _DTYPE_CODES:
-        raise TypeError(f"plane must be float32 or float64, got {plane.dtype}")
+        raise TypeError(
+            f"plane must be float32, float64 or int64, got {plane.dtype}")
     if vals.dtype != plane.dtype:
         raise TypeError(
             f"vals ({vals.dtype}) must have the plane's dtype ({plane.dtype})"
@@ -125,7 +136,7 @@ def seq_rolling_reduce(
     """Fold ``vals`` into ``plane`` by ``keys`` in arrival order and
     return the per-row emissions (shaped like ``vals``).
 
-    ``plane`` (float32 or float64, any shape, read as flat ``[K]``) is
+    ``plane`` (float32, float64 or int64, any shape, read as flat ``[K]``) is
     updated IN PLACE, as the TPU kernel aliases its plane input to its
     output. ``keys`` are int32, ``vals`` have the plane's dtype; all
     three are contiguous and on one device.
@@ -154,12 +165,22 @@ def seq_rolling_reduce(
     emis = torch.empty_like(vals)
     launch(plane, keys, vals, op, emis, bad_keys)
     seq_rolling_reduce.launches += 1
+    by_dtype = seq_rolling_reduce.launches_by_dtype
+    name = str(plane.dtype).rsplit(".", 1)[-1]
+    by_dtype[name] = by_dtype.get(name, 0) + 1
     return emis
 
 
-# kernel launches since the count was last set to 0 (plain version
-# calls are not counted)
-seq_rolling_reduce.launches = 0
+def reset_launches() -> None:
+    """Set the kernel's launch counts to 0: ``seq_rolling_reduce.launches``
+    (all launches since) and ``seq_rolling_reduce.launches_by_dtype``
+    (the same, by the plane's dtype name). Plain version calls are not
+    counted."""
+    seq_rolling_reduce.launches = 0
+    seq_rolling_reduce.launches_by_dtype = {}
+
+
+reset_launches()
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,13 +243,14 @@ def seq_rolling_reduce_ref(
     A stable sort by key, a log-step segmented inclusive scan of each
     key's values, a combine with the stored plane row, the emissions put
     back in arrival order, and the plane written at each segment's tail.
-    Updates ``plane`` in place. max/min give the sequential fold's bits;
-    sum adds in the scan's tree order, not in arrival order, so it agrees
-    with the kernel and the sequential fold only to rounding. Keys
+    Updates ``plane`` in place. max/min and an int64 sum (which wraps)
+    give the sequential fold's bits; a float sum adds in the scan's tree
+    order, not in arrival order, so it agrees with the kernel and the
+    sequential fold only to rounding. Keys
     ``>= K`` are counted into ``bad_keys`` and treated as padding, or
     raise ``IndexError`` when there is no ``bad_keys``.
     """
-    reducer = REDUCERS[op]
+    reducer = (REDUCERS if plane.dtype.is_floating_point else INT_REDUCERS)[op]
     flat = plane.view(-1)
     k = keys.reshape(-1).to(torch.int64)
     v = vals.reshape(-1)

@@ -374,6 +374,8 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
     size) that ride the emission; the host reads their count once and
     copies only that prefix."""
 
+    host_evaluated = True
+
     def _build_agg(self) -> None:
         # no incremental aggregation: the "accumulator" is the raw record
         self.acc_kinds = list(self.mid_kinds)
@@ -457,7 +459,9 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
         """Host callback: the fired windows' elements arrived IN the
         emission (the state is not read). Emits in the arrival order of
         each window's closing record, Flink's per-record trigger order,
-        with the GlobalWindow context. Returns the windows fired."""
+        with the GlobalWindow context: a result carries no timestamp, and
+        its order is (the closing record's arrival index, item ordinal).
+        Returns the windows fired."""
         count, bad = (int(x) for x in fetch([torch.cat([
             fire_info["count"].reshape(1).to(torch.int64),
             fire_info["bad_keys"].to(torch.int64)])])[0])
@@ -488,6 +492,6 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
             out = Collector()
             # count windows live in Flink's GlobalWindow: no time bounds
             self.process_fn(key_val, WindowContext(0, 2**62, -(2**62)), elements, out)
-            for item in out.items:
-                emit(item, key_id % n_shards)
+            for ii, item in enumerate(out.items):
+                emit(item, key_id % n_shards, None, (int(arr[r]), ii))
         return count

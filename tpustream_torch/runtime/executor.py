@@ -21,16 +21,32 @@ state the step left (before the next step), then the ``main`` stream's
 rows go to every branch, then the rows late past the allowed lateness
 go to each late-data side output.
 
+Chained keyed stages (a ``key_by`` after a keyed operator) run as one
+``Runner`` a stage, each feeding the next through the host as columns
+(:meth:`Runner.pump_chain`, after every source batch): window and
+session results in fire order, with Flink's result timestamp ``end - 1``
+when an event-time stage is downstream; rolling results in arrival
+order, with the record's timestamp; a ``process()`` stage's collected
+rows, whose schema the next stage infers from them. A computed key on a
+chain stage is derived from each hand-off batch.
+
+Parse: a raw-bytes source batch goes through the native parser in one
+pass (:meth:`HostStage.process_raw`) where the job's host stage allows
+it, and through the line path otherwise. A punctuated watermark
+assigner's per-batch maximum watermark raises the step's watermark
+floor.
+
 Not ported here, and refused by :func:`execute_job` rather than ignored:
 checkpoints and restore, supervised restarts, the observability layer,
-ingest lanes, dead-letter quarantine and chained stages. The reference's
-pipelining knobs (``async_depth``, ``h2d_depth``, ``fetch_group``, wire
-compression) change no output and are not read.
+ingest lanes and dead-letter quarantine. The reference's pipelining knobs
+(``async_depth``, ``h2d_depth``, ``fetch_group``, wire compression)
+change no output and are not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,7 +58,17 @@ from ..api.watermarks import LONG_MIN, MAX_WATERMARK, AssignerWithPunctuatedWate
 from ..config import StreamConfig
 from ..hostparse import PlanEvaluator, run_fallback_map
 from ..ops.panes import compact_positions
-from ..records import NUMPY_DTYPES, STR, Batch, Column, DerivedKeyTable, StringTable
+from ..records import (
+    BOOL,
+    F64,
+    I64,
+    NUMPY_DTYPES,
+    STR,
+    Batch,
+    Column,
+    DerivedKeyTable,
+    StringTable,
+)
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
 from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink
@@ -57,8 +83,74 @@ class HostStage:
         self.cfg = cfg
         self._ts_eval: Optional[PlanEvaluator] = None
         self._map_evals: Dict[int, PlanEvaluator] = {}
+        self._raw_eval: Optional[PlanEvaluator] = None  # [ts?] + outputs
+        self._raw_eval_built = False
+        self._raw_has_ts = False
         if plan.ts_expr is not None:
             self._ts_eval = PlanEvaluator([plan.ts_expr], [None])
+
+    def parse_counts(self) -> Dict[str, int]:
+        """Parse-plan evaluations so far, by path: ``native`` (the C++
+        parser) and ``numpy``."""
+        evs = list(self._map_evals.values())
+        evs += [e for e in (self._ts_eval, self._raw_eval) if e is not None]
+        return {"native": sum(e.native_calls for e in evs),
+                "numpy": sum(e.numpy_calls for e in evs)}
+
+    def _build_raw_eval(self) -> Optional[PlanEvaluator]:
+        """One native parse pass computing the event-time column (when
+        assigned) AND the parse map's output columns straight from a raw
+        byte buffer, with no per-line Python object. None when the job's
+        host stage can't take it (a computed key, a fallback map, a
+        raw-stage filter or flat_map, an untraceable timestamp extractor,
+        punctuated watermarks) or the native parser is unavailable."""
+        plan = self.plan
+        if plan.synthetic_key or len(plan.host_ops) != 1:
+            return None
+        hop = plan.host_ops[0]
+        if hop.op != "map" or hop.plan is None or hop.plan.fallback_fn is not None:
+            return None
+        if plan.ts_assigner is not None and plan.ts_expr is None:
+            return None
+        if isinstance(plan.ts_assigner, AssignerWithPunctuatedWatermarks):
+            return None
+        exprs, tbls = [], []
+        self._raw_has_ts = plan.ts_expr is not None
+        if self._raw_has_ts:
+            exprs.append(plan.ts_expr)
+            tbls.append(None)
+        exprs.extend(hop.plan.outputs)
+        tbls.extend(
+            t if k == STR else None
+            for k, t in zip(plan.record_kinds, plan.tables)
+        )
+        ev = PlanEvaluator(exprs, tbls)
+        return ev if ev._native is not None else None
+
+    def process_raw(self, raw: bytes, n: int, proc_ts: np.ndarray):
+        """Raw-buffer twin of :meth:`process`: ``(Batch, wm_hint)``, or
+        ``(None, None)`` when the native lane can't parse this batch (the
+        caller then decodes it and takes the line path)."""
+        if not n:
+            return None, None
+        if not self._raw_eval_built:
+            self._raw_eval = self._build_raw_eval()
+            self._raw_eval_built = True
+        if self._raw_eval is None:
+            return None, None
+        cols = self._raw_eval.parse_bytes(raw, n)
+        if cols is None:
+            return None, None
+        ts = None
+        if self._raw_has_ts:
+            ts = np.asarray(cols[0], dtype=np.int64)
+            cols = cols[1:]
+        plan = self.plan
+        columns = [
+            Column(k, c, t)
+            for k, c, t in zip(plan.record_kinds, cols, plan.tables)
+        ]
+        return Batch(n, columns, ts=ts, proc_ts=proc_ts), None
 
     @staticmethod
     def _append_synthetic_schema(plan) -> None:
@@ -78,18 +170,28 @@ class HostStage:
         extract = plan.ts_assigner.extract_timestamp
         return np.asarray([extract(l) for l in lines], dtype=np.int64)
 
-    def process(self, lines: List[str], proc_ts: np.ndarray) -> Optional[Batch]:
-        """The parsed Batch, or None for empty input."""
+    def _punctuated_wm(self, lines: List[str], ts: np.ndarray) -> Optional[int]:
+        """The largest watermark a punctuated assigner returns for this
+        batch's lines (None when it returns none, or the assigner is not
+        punctuated)."""
+        a = self.plan.ts_assigner
+        if not isinstance(a, AssignerWithPunctuatedWatermarks):
+            return None
+        wm = None
+        for line, t in zip(lines, ts):
+            w = a.check_and_get_next_watermark(line, int(t))
+            if w is not None:
+                wm = w.timestamp if wm is None else max(wm, w.timestamp)
+        return wm
+
+    def process(self, lines: List[str], proc_ts: np.ndarray):
+        """``(Batch, wm_hint)``: the parsed Batch (None for empty input)
+        and the batch's punctuated watermark, if any."""
         plan = self.plan
         if not lines:
-            return None
+            return None, None
         ts = self._timestamps(lines)
-        if ts is not None and isinstance(
-            plan.ts_assigner, AssignerWithPunctuatedWatermarks
-        ):
-            raise NotImplementedError(
-                "punctuated watermarks are not ported to the PyTorch runtime yet"
-            )
+        wm_hint = self._punctuated_wm(lines, ts) if ts is not None else None
         cols: Optional[List[np.ndarray]] = None
         for i, hop in enumerate(plan.host_ops):
             if hop.op == "filter":
@@ -101,7 +203,7 @@ class HostStage:
                 if ts is not None:
                     ts = ts[sel]
                 if not lines:
-                    return None
+                    return None, wm_hint
                 continue
             if hop.op == "flat_map":
                 fn = as_callable(hop.fn, "flat_map")
@@ -116,7 +218,7 @@ class HostStage:
                 proc_ts = np.asarray(new_proc, dtype=np.int64)
                 ts = np.asarray(new_ts, dtype=np.int64) if ts is not None else None
                 if not lines:
-                    return None
+                    return None, wm_hint
                 continue
             # map: symbolic fast path or per-record fallback
             if hop.plan is not None and hop.plan.fallback_fn is None:
@@ -152,15 +254,17 @@ class HostStage:
             Column(k, c, t)
             for k, c, t in zip(plan.record_kinds, cols, plan.tables)
         ]
-        return Batch(len(lines), columns, ts=ts, proc_ts=proc_ts)
+        return Batch(len(lines), columns, ts=ts, proc_ts=proc_ts), wm_hint
 
 
 def derive_key_column(plan, cols, n: int) -> np.ndarray:
     """Computed-KeySelector fallback: reconstruct each visible record
     from its columns, run the user selector, intern the result into the
-    plan's trailing DerivedKeyTable (per-record Python). Rows that a
-    filter between the parse map and the key_by drops get the table's
-    reserved PLACEHOLDER_ID, so a partial selector never sees them."""
+    plan's trailing DerivedKeyTable (per-record Python). Used by the host
+    parse stage and by the chain glue when a CHAIN stage keys by a
+    computed selector. Rows that a filter between the parse map (or the
+    re-key hand-off) and the key_by drops get the table's reserved
+    PLACEHOLDER_ID, so a partial selector never sees them."""
     from ..api.tuples import make_tuple
 
     kinds = plan.record_kinds[:-1]
@@ -188,6 +292,39 @@ def derive_key_column(plan, cols, n: int) -> np.ndarray:
         if all(f(rec) for f in filters):
             vals[j] = plan.tables[-1].intern_value(fn(rec))
     return vals
+
+
+def _row_fields(row) -> list:
+    """Positional fields of a user-collected row (Tuple / tuple / scalar)."""
+    from ..api.tuples import TupleBase
+
+    return list(row) if isinstance(row, (TupleBase, tuple)) else [row]
+
+
+def _infer_row_kinds(rows) -> List[str]:
+    """Column kinds for user-collected rows, WIDENED across every row
+    (any str -> STR; else all bool -> BOOL; else any float -> F64; else
+    I64)."""
+    fields = [_row_fields(r) for r in rows]
+    arity = len(fields[0])
+    for f in fields:
+        if len(f) != arity:
+            raise ValueError(
+                f"chained process() stage collected rows of mixed arity "
+                f"({arity} vs {len(f)}); emit one consistent shape"
+            )
+    kinds = []
+    for i in range(arity):
+        vs = [f[i] for f in fields]
+        if any(isinstance(v, str) for v in vs):
+            kinds.append(STR)
+        elif all(isinstance(v, bool) for v in vs):
+            kinds.append(BOOL)
+        elif any(isinstance(v, float) for v in vs):
+            kinds.append(F64)
+        else:
+            kinds.append(I64)
+    return kinds
 
 
 def _bind_ops(ops):
@@ -239,7 +376,8 @@ def _make_sinks(plan: JobPlan, cfg: StreamConfig):
 
 class Runner:
     """Feeds batches through the program on its device and fans the
-    emissions out to the sinks."""
+    emissions out to the sinks, or, for a stage with a ``downstream``
+    stage, buffers them for :meth:`pump_chain`."""
 
     _COUNTER_NAMES = (
         "window_fires", "late_dropped", "alert_overflow", "buffer_overflow",
@@ -264,6 +402,160 @@ class Runner:
         )
         self.event_time = plan.time_characteristic == TimeCharacteristic.EventTime
         self._empty: Optional[Batch] = None
+        # chained stages: emissions feed the downstream runner as
+        # columnar batches instead of the sinks. _chain_buf holds
+        # (cols, ts or None) a step; _chain_rows (item, ts, order) from
+        # process() fires; _lazy_plans the stages after a process()
+        # stage, built once its collected rows give their schema
+        self.downstream: Optional["Runner"] = None
+        self._chain_buf: List[tuple] = []
+        self._chain_rows: List[tuple] = []
+        self._lazy_plans: List[JobPlan] = []
+        self._chain_ts = False  # an event-time stage is downstream
+        self._last_tick: Optional[int] = None
+        self.count_input = True  # False for a stage fed by another
+
+    # -- chained stages ---------------------------------------------------
+
+    def chain_to(self, downstream: "Runner") -> None:
+        self.downstream = downstream
+        downstream.count_input = False
+
+    def chain(self) -> List["Runner"]:
+        out, r = [], self
+        while r is not None:
+            out.append(r)
+            r = r.downstream
+        return out
+
+    @property
+    def _chained(self) -> bool:
+        return self.downstream is not None or bool(self._lazy_plans)
+
+    @staticmethod
+    def _downstream_is_event_time(d: "Runner") -> bool:
+        return getattr(d.program, "domain", None) == TimeCharacteristic.EventTime
+
+    def _build_lazy_downstream(self) -> "Runner":
+        """A process()-fed chain resolves the downstream record schema
+        from the buffered collected rows (the user function may emit any
+        shape), then builds the remaining runner chain. Kinds WIDEN
+        across all buffered rows: a median emits ints on odd counts and
+        floats on even ones, and first-row inference would silently
+        truncate the floats."""
+        kinds = _infer_row_kinds([item for item, _, _ in self._chain_rows])
+        p2 = self._lazy_plans[0]
+        p2.record_kinds.extend(kinds)
+        p2.tables.extend(StringTable() if k == STR else None for k in kinds)
+        if p2.synthetic_key:
+            p2.record_kinds.append(STR)
+            p2.tables.append(DerivedKeyTable())
+        d = _make_runner_chain(self._lazy_plans, self.cfg, self.metrics)
+        self._lazy_plans = []
+        self.chain_to(d)
+        _wire_chain_ts(self, d)
+        return d
+
+    def _rows_to_cols(self):
+        """Convert buffered process() rows to the downstream's columnar
+        schema (established at the lazy build; values coerce to the
+        widened plan kinds). A later emission of another type fails."""
+        rows = [item for item, _, _ in self._chain_rows]
+        ts = (
+            np.asarray([t for _, t, _ in self._chain_rows], dtype=np.int64)
+            if self._chain_ts
+            else None
+        )
+        d = self.downstream
+        kinds, tables = d.plan.record_kinds, d.plan.tables
+        if d.plan.synthetic_key:
+            # visible columns only; pump_chain appends the derived key
+            kinds, tables = kinds[:-1], tables[:-1]
+        fields = [_row_fields(r) for r in rows]
+
+        def _bad(i, what, kind, hint=""):
+            # the schema froze at the first pump; a later emission of a
+            # different type would otherwise coerce silently (int ->
+            # True, float -> truncated int) or die in an opaque numpy
+            # TypeError (str under np.floor)
+            raise ValueError(
+                f"chained process() stage emitted a {what} value in "
+                f"field {i} after its schema was inferred as {kind} "
+                f"from earlier rows; emit one consistent type{hint}"
+            )
+
+        cols = []
+        for i, (k, table) in enumerate(zip(kinds, tables)):
+            vs = [f[i] for f in fields]
+            if k == STR:
+                cols.append(table.intern_many([str(v) for v in vs]))
+                continue
+            if k == BOOL:
+                if not all(isinstance(v, (bool, np.bool_)) for v in vs):
+                    _bad(i, "non-bool", "bool")
+                cols.append(np.asarray(vs, dtype=np.bool_))
+                continue
+            if any(isinstance(v, (bool, np.bool_)) for v in vs):
+                # np.asarray would fold True into 1/1.0 with no error
+                _bad(i, "bool", "int" if k == I64 else "float")
+            arr = np.asarray(vs)
+            if arr.dtype.kind not in "iuf":
+                _bad(i, "non-numeric", "int" if k == I64 else "float")
+            if k == I64:
+                if arr.dtype.kind == "f" and not np.all(arr == np.floor(arr)):
+                    _bad(i, "fractional", "int", " (e.g. always float)")
+                cols.append(arr.astype(np.int64))
+            else:
+                cols.append(arr.astype(np.float64))
+        self._chain_rows = []
+        return cols, ts, kinds, tables
+
+    def pump_chain(self, proc_now: int) -> None:
+        """Move buffered emissions to the downstream runner (or tick its
+        processing-time clock when there are none), then cascade."""
+        d = self.downstream
+        if d is None and self._chain_rows and self._lazy_plans:
+            d = self._build_lazy_downstream()
+        if d is None:
+            return
+        cols: List[np.ndarray] = []
+        if self._chain_rows:
+            cols, ts, kinds, tables = self._rows_to_cols()
+        elif self._chain_buf:
+            bufs, self._chain_buf = self._chain_buf, []
+            cols = [np.concatenate([b[0][i] for b in bufs])
+                    for i in range(len(bufs[0][0]))]
+            ts = np.concatenate([b[1] for b in bufs]) if self._chain_ts else None
+            kinds, tables = self.program.out_kinds, self.program.out_tables
+        fed = False
+        if cols and len(cols[0]):
+            n = len(cols[0])
+            if d.plan.synthetic_key:
+                # computed KeySelector on the downstream stage: derive
+                # the key from this hand-off batch
+                cols = list(cols) + [derive_key_column(d.plan, cols, n)]
+                kinds = list(kinds) + [STR]
+                tables = list(tables) + [d.plan.tables[-1]]
+            columns = [Column(k, c, t) for k, c, t in zip(kinds, cols, tables)]
+            batch = Batch(n, columns, ts=ts,
+                          proc_ts=np.full(n, proc_now, dtype=np.int64))
+            # event-time stages let the data drive the watermark; the
+            # processing clock floor belongs to processing-time stages
+            wl = (LONG_MIN + 1 if self._downstream_is_event_time(d)
+                  else proc_now - 1)
+            d.feed(batch, wl)
+            d._last_tick = proc_now
+            fed = True
+        if (not fed and d._last_tick != proc_now
+                and not self._downstream_is_event_time(d)):
+            # a clock tick, at most once a distinct proc_now (event-time
+            # stages fire from data and the end of the stream, never
+            # the clock)
+            d.flush(proc_now - 1)
+            d._last_tick = proc_now
+        d.pump_chain(proc_now)
+
+    # -- steps --------------------------------------------------------------
 
     def _check_capacity(self) -> None:
         """Keyed state grows without bound, Flink's contract
@@ -280,26 +572,35 @@ class Runner:
         self.state = self.program.grow_state(self.state, cap)
         self.cfg = dataclasses.replace(self.cfg, key_capacity=cap)
 
-    def feed(self, batch: Batch, wm_lower: int = LONG_MIN + 1) -> None:
+    def feed(self, batch: Batch, wm_lower: int = LONG_MIN + 1,
+             t_batch: Optional[float] = None) -> None:
+        """Run ``batch`` in steps of at most ``batch_size`` rows;
+        ``t_batch`` (the batch's arrival on the host clock) dates its
+        emissions' latency."""
+        if t_batch is None:
+            t_batch = time.perf_counter()
         self._check_capacity()
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
-            self._run_step(batch.slice_rows(start, stop), wm_lower)
-            self.metrics.records_in += stop - start
+            self._run_step(batch.slice_rows(start, stop), wm_lower, t_batch)
+            if self.count_input:
+                self.metrics.records_in += stop - start
             # deferred window ends fire before the next batch can move
             # the ring past them
-            self._drain(wm_lower)
+            self._drain(wm_lower, t_batch)
 
-    def flush(self, wm_lower: int) -> None:
+    def flush(self, wm_lower: int, t_batch: Optional[float] = None) -> None:
         """Advance time with an empty batch (processing-time tick / end
         of stream), then drain any fires deferred by the budget."""
         if not self.program.fires_on_clock:
             return
-        self._run_step(self._empty_batch(), wm_lower)
-        self._drain(wm_lower)
+        if t_batch is None:
+            t_batch = time.perf_counter()
+        self._run_step(self._empty_batch(), wm_lower, t_batch)
+        self._drain(wm_lower, t_batch)
 
-    def _drain(self, wm_lower: int) -> None:
+    def _drain(self, wm_lower: int, t_batch: float) -> None:
         """Empty steps until no window end stays deferred by
         ``max_fires_per_step`` (each still fires at most the budget)."""
         if self.cfg.max_fires_per_step is None or not self.program.fires_on_clock:
@@ -307,7 +608,7 @@ class Runner:
         for _ in range(self.program.ring.n_fire_candidates + 2):
             if not self.state.get("pending_fires"):
                 return
-            self._run_step(self._empty_batch(), wm_lower)
+            self._run_step(self._empty_batch(), wm_lower, t_batch)
 
     def _empty_batch(self) -> Batch:
         """One invalid row of the input layout."""
@@ -331,7 +632,7 @@ class Runner:
             return t.to(self.device, non_blocking=pin)
 
         cols = [put(c.data) for c in batch.columns]
-        if not self.program.fires_on_clock:
+        if not (self.program.fires_on_clock or self.program.emit_ts):
             return cols, put(batch.valid), None
         if self.event_time and batch.ts is not None:
             ts = batch.ts
@@ -358,8 +659,9 @@ class Runner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_step(self, batch: Batch, wm_lower: int) -> None:
+    def _run_step(self, batch: Batch, wm_lower: int, t_batch: float) -> None:
         m = self.metrics
+        emitted_before = m.records_emitted
         with Stopwatch() as sw:
             cols, valid, ts = self._upload(batch)
             self._sync()
@@ -377,35 +679,49 @@ class Runner:
             self._evaluate_fires(fire_info)
         main = emissions.get("main")
         if main is not None:
+            # a stage that feeds an event-time stage hands over each
+            # row's timestamp: a window's end - 1, or the record's own
+            want = ("window_end", "ts") if self._chain_ts else ()
             with Stopwatch() as sw:
-                out, subtask = self._fetch(main)
+                out, subtask, extra = self._fetch(main, want)
             m.fetch_times_s.append(sw.elapsed)
             with Stopwatch() as sw:
-                for j, row in enumerate(self.formatter.rows(out)):
-                    self._emit_row(row, None if subtask is None else int(subtask[j]))
-                m.records_emitted += len(out[0]) if out else 0
+                if self.downstream is not None:
+                    if out and len(out[0]):
+                        ts_rows = None
+                        if self._chain_ts:
+                            wend = extra.get("window_end")
+                            ts_rows = wend - 1 if wend is not None else extra["ts"]
+                        self._chain_buf.append((out, ts_rows))
+                else:
+                    for j, row in enumerate(self.formatter.rows(out)):
+                        self._emit_row(
+                            row, None if subtask is None else int(subtask[j]))
+                    m.records_emitted += len(out[0]) if out else 0
             m.emit_times_s.append(sw.elapsed)
         late = emissions.get("late")
         if late is not None and self.side_sinks:
             with Stopwatch() as sw:
                 self._dispatch_late(late)
             m.emit_times_s.append(sw.elapsed)
+        if m.records_emitted > emitted_before:
+            m.emit_latencies_s.append(time.perf_counter() - t_batch)
 
     def _evaluate_fires(self, fire_info) -> None:
         """A full-window program's fires: the program gathers each fired
         window's elements from the live state and calls the user
         function on the host; each result takes the window's post ops,
-        then goes to every branch. Its copies count as fetch time, the
-        rest as emit time."""
+        then goes to every branch (or to the chain buffer). Its copies
+        count as fetch time, the rest as emit time."""
         m = self.metrics
         fetch_s = 0.0
         emitted = 0
 
-        def emit(item, subtask):
+        def emit(item, subtask, ts=None, order=None):
             nonlocal emitted
             item, keep = _apply_ops(self.post_ops, item)
             if keep:
-                self._emit_row(item, subtask)
+                self._emit_row(item, subtask, ts, order)
                 emitted += 1
 
         def fetch(tensors):
@@ -420,7 +736,8 @@ class Runner:
                 self.state, fire_info, emit, fetch)
         m.fetch_times_s.append(fetch_s)
         m.emit_times_s.append(sw.elapsed - fetch_s)
-        m.records_emitted += emitted
+        if not self._chained:
+            m.records_emitted += emitted
         m.window_fires += fired
 
     def _dispatch_late(self, late) -> None:
@@ -443,10 +760,13 @@ class Runner:
                 if keep:
                     sink.emit(item)
 
-    def _fetch(self, main):
-        """The step's emitted rows on the host: (columns, subtasks);
-        subtasks are None for a stream without a key."""
+    def _fetch(self, main, want=()):
+        """The step's emitted rows on the host: ``(columns, subtasks,
+        extra)``; subtasks are None for a stream without a key, and
+        ``extra`` holds the rows of each stream leaf named in ``want``
+        that the stream has (``window_end``, ``ts``)."""
         n_shards = max(1, self.cfg.parallelism)
+        names = [w for w in want if w in main]
         if self.program.main_emission_prefix:
             # read the count, then copy only that many rows
             count = main["count"]
@@ -455,15 +775,19 @@ class Runner:
             n = int(count)
             key = main.get("key")
             if n == 0:
-                return [], None
+                return [], None, {}
             extra = [] if key is None else [key[:n]]
-            got = self._to_host([c[:n] for c in main["cols"]] + extra)
+            n_cols = len(main["cols"])
+            got = self._to_host([c[:n] for c in main["cols"]] + extra
+                                + [main[w][:n] for w in names])
+            got_extra = dict(zip(names, got[len(got) - len(names):]))
             if key is None:
-                return got, None
-            return got[:-1], got[-1].astype(np.int64) % n_shards
+                return got[:n_cols], None, got_extra
+            return (got[:n_cols], got[n_cols].astype(np.int64) % n_shards,
+                    got_extra)
         # checked before any row of the step reaches a sink
         bad = main.get("bad_keys")
-        extra = [] if bad is None else [bad]
+        extra = [main[w] for w in names] + ([] if bad is None else [bad])
         got = self._to_host(
             [main["mask"], main["subtask"]] + list(main["cols"]) + extra)
         if bad is not None and int(got[-1][0]):
@@ -472,24 +796,32 @@ class Runner:
                 f"state's capacity of {self.cfg.key_capacity}"
             )
         sel = np.nonzero(got[0])[0]
-        cols = got[2:len(got) - len(extra)]
-        return [c[sel] for c in cols], got[1][sel]
+        n_cols = len(main["cols"])
+        cols = got[2:2 + n_cols]
+        got_extra = {w: a[sel] for w, a in zip(names, got[2 + n_cols:])}
+        return [c[sel] for c in cols], got[1][sel], got_extra
 
-    def _emit_row(self, row, subtask: Optional[int]) -> None:
+    def _emit_row(self, row, subtask: Optional[int], ts=None, order=None) -> None:
         """Fan one emitted record out to every branch: the branch's
-        host-side map/filter tail, then its sink."""
+        host-side map/filter tail, then its sink. A chained process()
+        stage buffers the row, with its window timestamp and its place
+        in the evaluation order, for the downstream runner."""
+        if self._chained:
+            self._chain_rows.append((row, ts, order))
+            return
         for ops, sink in self.sinks:
             item, keep = _apply_ops(ops, row)
             if keep:
                 sink.emit(item, subtask=subtask)
 
     def finalize_metrics(self) -> None:
-        """Fold the device-side counters into Metrics (one read a job)."""
+        """Fold the device-side counters into Metrics (one read a job;
+        the stages of a chain add theirs to the same Metrics)."""
         names = [n for n in self._COUNTER_NAMES if n in self.state]
         if names:
             vals = self._to_host([self.state[n] for n in names])
             for n, v in zip(names, vals):
-                setattr(self.metrics, n, int(v))
+                setattr(self.metrics, n, getattr(self.metrics, n) + int(v))
 
     def check_strict(self) -> None:
         """strict_overflow: fail loudly if any loss counter is nonzero
@@ -504,6 +836,81 @@ class Runner:
                 + " — raise the relevant capacity (alert_capacity / "
                 "process_buffer_capacity / pane_ring_slack)"
             )
+
+
+def _reject_count_ts(st) -> None:
+    """Count-window results carry no event timestamps (Flink's
+    GlobalWindow has none), so they cannot feed event-time stages."""
+    if st is not None and st.window is not None and st.window.kind == "count":
+        raise NotImplementedError(
+            "count-window results carry no event timestamps (Flink's "
+            "GlobalWindow); window the chained stage in processing time, "
+            "or use a time window upstream"
+        )
+
+
+def _chain_needs_event_ts(plans) -> bool:
+    """True when any stage in ``plans`` windows in event time (its input
+    records then need timestamps from the upstream stage)."""
+    for p in plans:
+        st = p.stateful
+        if (
+            st is not None
+            and st.window is not None
+            and st.window.time_domain == TimeCharacteristic.EventTime
+            and (st.window.is_time_window() or st.window.kind == "session")
+        ):
+            return True
+    return False
+
+
+def _wire_chain_ts(up: Runner, down: Runner) -> None:
+    """Mark ``up`` to hand per-row event timestamps down its chain when
+    any downstream stage windows in event time, and check that its
+    program can provide them."""
+    if not _chain_needs_event_ts([r.plan for r in down.chain()]):
+        return
+    up._chain_ts = True
+    st = up.plan.stateful
+    _reject_count_ts(st)
+    if st is not None and st.kind in ("rolling", "rolling_reduce"):
+        up.program.emit_ts = True
+
+
+def _make_runner_chain(plans, cfg, metrics) -> Runner:
+    """Build the runner for plans[0] plus downstream runners for any
+    chained stages, wiring record schemas from each upstream program.
+
+    A stage fed by a full-window process() stage resolves its schema
+    from the user function's collected rows (the function may emit any
+    shape), so its runner is built lazily, on the first pump that has
+    rows."""
+    runner = Runner(plans[0], cfg, metrics)
+    up = runner
+    for i, p2 in enumerate(plans[1:], start=1):
+        if up.program.host_evaluated:
+            up._lazy_plans = list(plans[i:])
+            up._chain_ts = _chain_needs_event_ts(up._lazy_plans)
+            if up._chain_ts:
+                _reject_count_ts(up.plan.stateful)
+            break
+        p2.record_kinds.extend(up.program.out_kinds)
+        p2.tables.extend(up.program.out_tables)
+        if p2.synthetic_key:
+            # computed KeySelector on this chain stage: the glue derives
+            # the key from each hand-off batch into a trailing column
+            p2.record_kinds.append(STR)
+            p2.tables.append(DerivedKeyTable())
+        r2 = Runner(p2, cfg, metrics)
+        up.chain_to(r2)
+        up = r2
+    # wire timestamps only once the FULL chain exists: whether stage i
+    # must hand them over depends on every stage after it
+    r = runner
+    while r is not None and r.downstream is not None:
+        _wire_chain_ts(r, r.downstream)
+        r = r.downstream
+    return runner
 
 
 def _check_supported(env, cfg: StreamConfig) -> None:
@@ -522,9 +929,7 @@ def _check_supported(env, cfg: StreamConfig) -> None:
         )
 
 
-def _lines(sb) -> List[str]:
-    if sb.raw is None:
-        return sb.lines
+def _raw_lines(sb) -> List[str]:
     lines = sb.raw.decode("utf-8", "replace").split("\n")
     if len(lines) == sb.n_raw + 1 and lines[-1] == "":
         lines.pop()  # trailing newline
@@ -536,6 +941,18 @@ def _lines(sb) -> List[str]:
     return lines
 
 
+def _parse(host: HostStage, sb):
+    """``(Batch or None, wm_hint)`` of one source batch: a raw buffer
+    through the native lane when it can take it, else the line path."""
+    if sb.raw is not None:
+        batch, wm_hint = host.process_raw(sb.raw, sb.n_raw, sb.proc_ts)
+        if batch is None and sb.n_raw:
+            # native lane unavailable: decode and take the line path
+            batch, wm_hint = host.process(_raw_lines(sb), sb.proc_ts)
+        return batch, wm_hint
+    return host.process(sb.lines, sb.proc_ts)
+
+
 def execute_job(env, sink_nodes) -> JobResult:
     """Plan the job and run it to source exhaustion on
     ``env.config.device``."""
@@ -544,11 +961,6 @@ def execute_job(env, sink_nodes) -> JobResult:
     resolve_device(cfg.device)  # refuse a missing card before any work
     with Stopwatch() as setup:
         plans = build_plan_chain(env, sink_nodes)
-        if len(plans) > 1:
-            raise NotImplementedError(
-                "chained stages (key_by after a keyed operator) are not "
-                "ported to the PyTorch runtime yet (roadmap queue item 8)"
-            )
         plan = plans[0]
         host = HostStage(plan, cfg)
     metrics = Metrics(build_time_s=setup.elapsed)
@@ -558,7 +970,7 @@ def execute_job(env, sink_nodes) -> JobResult:
     proc_now = 0
     for sb in plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms):
         with Stopwatch() as hw:
-            batch = host.process(_lines(sb), sb.proc_ts)
+            batch, wm_hint = _parse(host, sb)
         metrics.host_times_s.append(hw.elapsed)
         metrics.batches += 1
         if sb.proc_ts.size:
@@ -570,17 +982,37 @@ def execute_job(env, sink_nodes) -> JobResult:
                 # built on the first batch: an adaptive parse schema is
                 # known only then
                 with Stopwatch() as bw:
-                    runner = Runner(plan, cfg, metrics)
+                    runner = _make_runner_chain(plans, cfg, metrics)
                 metrics.build_time_s += bw.elapsed
-            runner.feed(batch, proc_now - 1 if processing_time else LONG_MIN + 1)
+            if processing_time:
+                wm_lower = proc_now - 1
+            else:
+                wm_lower = wm_hint if wm_hint is not None else LONG_MIN + 1
+            runner.feed(batch, wm_lower, t_batch=hw.t0)
         elif sb.advance_proc_to is not None and runner is not None and processing_time:
             runner.flush(proc_now - 1)  # the processing-time clock ticked
+        if runner is not None:
+            runner.pump_chain(proc_now)
         if sb.final:
             break
+    counts = host.parse_counts()
+    metrics.native_parses, metrics.numpy_parses = counts["native"], counts["numpy"]
     if runner is not None:
         # Flink's end of input: a MAX watermark fires every remaining
         # event-time window; processing time fires up to the clock
         runner.flush(proc_now - 1 if processing_time else MAX_WATERMARK)
-        runner.finalize_metrics()
-        runner.check_strict()
+        # chained stages: push the final emissions down the chain, then
+        # fire everything still windowed downstream; a pump may BUILD a
+        # process()-fed stage here, so downstream is read after it
+        r = runner
+        while True:
+            r.pump_chain(proc_now)
+            d = r.downstream
+            if d is None:
+                break
+            d.flush(MAX_WATERMARK)
+            r = d
+        for r in runner.chain():
+            r.finalize_metrics()
+            r.check_strict()
     return JobResult(metrics)

@@ -57,6 +57,8 @@ class ProcessWindowProgram(WindowProgram):
     elements from the state the step left, so the executor calls it
     before the next step."""
 
+    host_evaluated = True
+
     def _build_agg(self) -> None:
         # no incremental aggregation: the accumulators ARE the buffers
         self.acc_kinds = list(self.mid_kinds)
@@ -289,7 +291,10 @@ class ProcessWindowProgram(WindowProgram):
                        fetch: Callable) -> int:
         """Host callback: gather each fired window's elements, run the
         user ProcessWindowFunction and hand each result it collects to
-        ``emit(item, subtask)`` (which runs the window's post ops).
+        ``emit(item, subtask, ts, order)`` (which runs the window's post
+        ops): ``ts`` is Flink's window result timestamp ``end - 1``, which
+        a chained stage consumes, and ``order`` the result's place in
+        this evaluation loop (fire candidate, key, item ordinal).
         ``fetch(tensors)`` copies device tensors to the host with one
         wait.
 
@@ -326,6 +331,6 @@ class ProcessWindowProgram(WindowProgram):
                 fired += 1
                 out = Collector()
                 self.process_fn(key_val, ctx, elements, out)
-                for item in out.items:
-                    emit(item, key_id % n_shards)
+                for ii, item in enumerate(out.items):
+                    emit(item, key_id % n_shards, end - 1, (int(j), key_id, ii))
         return fired

@@ -757,7 +757,10 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
         sit in ADJACENT panes when their records are gap..2*gap-1 apart.
         Runs the user ProcessWindowFunction over each session's elements
         in pane, then arrival order; Flink's session TimeWindow is
-        ``[min_ts, max_ts + gap)``. Returns the sessions fired."""
+        ``[min_ts, max_ts + gap)``, and each result reaches ``emit`` with
+        the session's result timestamp ``max_ts + gap - 1`` and its place
+        in this loop (key, session ordinal, item ordinal). Returns the
+        sessions fired."""
         gap, n = self.gap_ms, self.ring.n_slots
         kinds, tables = self.mid_kinds, self.mid_tables
         key_table = self.key_table()
@@ -792,7 +795,8 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
             out = Collector()
             self.process_fn(key_val, WindowContext(start_ts, end_ts + gap, wm),
                             elements, out)
-            for item in out.items:
-                emit(item, key_id % n_shards)
+            for ii, item in enumerate(out.items):
+                emit(item, key_id % n_shards, end_ts + gap - 1,
+                     (key_id, fired - 1, ii))
             c = e
         return fired

@@ -3,8 +3,8 @@ job, run eagerly with PyTorch on ``StreamConfig.device``.
 
 Counterpart of tpustream/runtime/step.py for one device. Ported: the
 stateless map/filter chain (``StatelessProgram``), the keyed rolling
-aggregates (``RollingProgram``: max/min/sum through the hand-written
-kernel, max_by/min_by/a user reduce through the general path), the
+aggregates (``RollingProgram``: max/min/sum of float64 and int64 fields
+through the hand-written kernel, the rest through the general path), the
 tumbling/sliding window ``reduce`` and ``aggregate``
 (``window_program.WindowProgram``), the full-window ``process``
 (``process_program.ProcessWindowProgram``), session windows
@@ -52,6 +52,14 @@ class BaseProgram:
     # True when the "main" emission's rows are a compacted prefix of its
     # buffers (``count`` rows), False when a ``mask`` selects them
     main_emission_prefix = False
+    # set by _make_runner_chain when an event-time stage is downstream of
+    # a rolling stage: the step's "main" stream then carries each row's
+    # input timestamp as ``ts`` (window stages hand over their ends)
+    emit_ts = False
+    # True for programs whose fired windows the host evaluates (a user
+    # process() function): a stage chained after one infers its record
+    # schema from the rows the function collects
+    host_evaluated = False
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         self.plan = plan
@@ -134,8 +142,13 @@ class StatelessProgram(BaseProgram):
 class RollingProgram(BaseProgram):
     """keyBy + rolling aggregate, emitting per record
     (reference chapter2/.../ComputeCpuMax.java:26). max/min/sum of a
-    float64 field take the kernel's path; max_by, min_by and a user
-    reduce take the general path (:func:`rolling_ops.rolling_step_general`)."""
+    float64 or int64 field take the kernel's path; max_by, min_by, a user
+    reduce and max/min/sum of a string or boolean field take the general
+    path (:func:`rolling_ops.rolling_step_general`).
+
+    ``emit_ts`` (set by ``_make_runner_chain`` when an event-time stage is
+    downstream): the step's ``main`` stream also carries ``ts``, each
+    row's input timestamp, which the rolling aggregate forwards."""
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         super().__init__(plan, cfg)
@@ -151,11 +164,16 @@ class RollingProgram(BaseProgram):
         else:
             self.kind, self.pos = "reduce", None
         self.key_pos = plan.key_pos
+        self.kernel_path = self.kind != "reduce" and rolling_ops.kernel_path(
+            self.mid_kinds, self.kind, self.pos)
+        # the state layout's kind: the general path's for every combiner
+        # the kernel does not fold
+        self.layout_kind = self.kind if self.kernel_path else "general"
         if self.kind == "reduce":
             self.combine = record_combiner(
                 as_callable(st.rolling_fn, "reduce"), self.mid_kinds,
                 self.mid_tables)
-        elif self.kind not in rolling_ops.COMMUTATIVE:
+        elif not self.kernel_path:
             self.combine = rolling_ops.make_combiner(self.kind, self.pos)
         self.post_chain = DeviceChain(
             plan.device_post, self.mid_kinds, self.mid_tables
@@ -171,7 +189,7 @@ class RollingProgram(BaseProgram):
     def sentinel_leaf(self):
         """Keep-first STR leaf whose plane doubles as occupancy (interned
         ids >= 0; -1 marks unseen); the kernel's path only."""
-        if self.kind not in rolling_ops.COMMUTATIVE:
+        if not self.kernel_path:
             return None
         for i, kd in enumerate(self.mid_kinds):
             if kd == STR and i != self.pos and i != self.key_pos:
@@ -180,33 +198,35 @@ class RollingProgram(BaseProgram):
 
     def init_state(self, key_capacity: int = None) -> dict:
         return rolling_ops.init_rolling_state(
-            key_capacity or self.cfg.key_capacity, self.mid_kinds, self.kind,
-            self.pos, sentinel_leaf=self.sentinel_leaf, device=self.device,
+            key_capacity or self.cfg.key_capacity, self.mid_kinds,
+            self.layout_kind, self.pos, sentinel_leaf=self.sentinel_leaf,
+            device=self.device,
         )
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
         return rolling_ops.grow_rolling_state(
-            state, key_capacity, self.mid_kinds, self.kind, self.pos,
+            state, key_capacity, self.mid_kinds, self.layout_kind, self.pos,
             sentinel_leaf=self.sentinel_leaf,
         )
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` are the record's ``[B]`` tensors, ``valid``
-        bool[B]; a rolling aggregate has no clock, so ``ts`` and
-        ``wm_lower`` are ignored. Returns ``(state, {"main": stream})``; the stream's rows
-        are in arrival order: ``mask`` (rows that emit), ``cols`` and
-        ``subtask`` (the key's owning subtask, for the print prefix);
-        ``bad_keys`` counts rows whose key id was past the capacity, which
-        makes the step's output void."""
+        bool[B]; a rolling aggregate has no clock, so ``wm_lower`` is
+        ignored, and so is ``ts`` unless ``emit_ts`` is set. Returns
+        ``(state, {"main": stream})``; the stream's rows are in arrival
+        order: ``mask`` (rows that emit), ``cols`` and ``subtask`` (the
+        key's owning subtask, for the print prefix), and with ``emit_ts``
+        ``ts``; ``bad_keys`` counts rows whose key id was past the
+        capacity, which makes the step's output void."""
         mid_cols, mask = self._apply_pre(cols, valid)
         mid_cols, gkeys = self._split_key_col(mid_cols)
         keys = gkeys.to(torch.int32)
-        if self.kind not in rolling_ops.COMMUTATIVE:
+        if not self.kernel_path:
             state, emitted = rolling_ops.rolling_step_general(
                 state, keys, tuple(mid_cols), mask, self.combine,
                 self.mid_kinds, bad_keys=self.bad_keys,
             )
-            return state, {"main": self._main(emitted, mask, keys)}
+            return state, {"main": self._main(emitted, mask, keys, ts)}
         kwargs: Dict = {"sentinel_leaf": self.sentinel_leaf,
                         "bad_keys": self.bad_keys}
         key_kind = None if self.plan.synthetic_key else self.mid_kinds[self.key_pos]
@@ -220,16 +240,20 @@ class RollingProgram(BaseProgram):
             state, keys, tuple(mid_cols), mask, self.mid_kinds,
             self.kind, self.pos, **kwargs,
         )
-        return state, {"main": self._main(emitted, mask, keys)}
+        return state, {"main": self._main(emitted, mask, keys, ts)}
 
-    def _main(self, emitted, mask, keys) -> dict:
+    def _main(self, emitted, mask, keys, ts) -> dict:
         """The step's output stream: the post chain over the arrival-order
-        emissions, and each row's owning subtask."""
+        emissions, each row's owning subtask and, with ``emit_ts``, its
+        input timestamp."""
         out_cols, out_mask = self.post_chain.apply(list(emitted), mask)
         n_shards = max(1, self.cfg.parallelism)
         subtask = torch.where(mask, keys, 0) % n_shards
-        return {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
+        main = {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
                 "bad_keys": self.bad_keys}
+        if self.emit_ts:
+            main["ts"] = ts
+        return main
 
 
 def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
