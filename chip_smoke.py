@@ -30,11 +30,21 @@ phase-K configuration (B = K = 131072, gap and delay 1 s) over 1M lines,
 in float64 (the sorted merge); phase ``count`` drives tumbling and
 sliding count-window ``reduce`` over 1M lines and a sliding ``process()``
 over 100k; each against a numpy oracle with the loss counters at 0.
-The session runs too must parse natively. Phase ``small`` holds the
+The session runs too must parse natively. Phase ``cep`` drives the
+chapter-4 CEP job over the flagship's lines at B = 131072 and 1M
+channels (every alert and timeout row against the host NFA oracle over
+the same batches, the loss counters at 0, the rounds a step, a profiled
+second run for the busy share) and one run of the JAX bench's phase-P
+pattern (L = 5, 131072 uniform keys) against the oracle. Phase
+``rules`` drives the chapter-5 job with three threshold updates over
+1M chapter-1 lines and a rolling max whose filter reads the rule (on
+the kernel, which must launch), each against a host oracle and each
+program built once across the updates. Phase ``small`` holds the
 goldens of the new jobs, ``max_by``, the allowed-lateness cases (main
 and side-output rows), the session and count goldens, integer rolling
-goldens, the chained-stage goldens and a punctuated-watermark job on
-the card against the CPU. Each phase prints its wall
+goldens, the chained-stage goldens, a punctuated-watermark job and the
+chapter-4 and chapter-5 goldens on the card against the CPU. Each phase
+prints its wall
 time. Prints the card's name and power limit, one line per
 kernel case (with a per-launch device-time split from ``torch.profiler``
 for the main case, a cold-L2 time and ``torch.sort`` as a reference
@@ -44,10 +54,11 @@ device, when the package is not beside this script, or when any phase
 fails.
 
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,small``, ``--reps N``
-(timed repeats per kernel case), ``--lines N`` (job input),
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,small``,
+``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
 ``--flagship-lines N`` (flagship and chain input), ``--new-lines N`` (input of
-ch1, avg and median), ``--window-lines N`` (input of session and count).
+ch1, avg and median), ``--window-lines N`` (input of session and count),
+``--cep-lines N`` (input of cep and rules).
 """
 
 from __future__ import annotations
@@ -1518,6 +1529,385 @@ def count_phase(n_lines: int, n_hosts: int = 1 << 14, process_lines: int = 100_0
         print(f"count {label} {run_summary(m, wall)}")
 
 
+# -- phases cep and rules: chapter 4 (CEP) and chapter 5 (dynamic rules) ---
+
+CEP_P_KEYS = 131072  # bench.py phase P: uniform keys
+CEP_P_RATE = 10_000  # lines a millisecond of event time (bench.py SIM_RATE)
+CEP_P_WITHIN_MS = 1_000
+
+
+def capture_programs(program_cls):
+    """Wrap ``program_cls.__init__`` so every instance built is kept;
+    returns ``(instances, undo)``."""
+    got = []
+    plain = program_cls.__init__
+
+    def init(self, *a, **k):
+        plain(self, *a, **k)
+        got.append(self)
+
+    program_cls.__init__ = init
+    return got, lambda: setattr(program_cls, "__init__", plain)
+
+
+def count_builds():
+    """Count the executor's program builds by plan; returns ``(counts,
+    undo)``: a rule update must rebuild nothing."""
+    from tpustream_torch.runtime import executor
+
+    counts = {}
+    plain = executor.build_program
+
+    def counted(plan, cfg):
+        counts[id(plan)] = counts.get(id(plan), 0) + 1
+        return plain(plan, cfg)
+
+    executor.build_program = counted
+    return counts, lambda: setattr(executor, "build_program", plain)
+
+
+def capacity_for(per_batch) -> int:
+    """The smallest power of two holding the largest per-batch count."""
+    return 1 << max(1, int(max(per_batch, default=1)) - 1).bit_length()
+
+
+def cep_oracle(recs, batch: int, pattern, delay_ms: int, key_of=None):
+    """The port's host NFA (``tpustream_torch/cep/oracle.py``) over
+    ``recs`` (``(record, ts_ms)`` in arrival order, each record ending in
+    its arrival index) in batches of ``batch``: ``(matches, timeouts,
+    matches a batch, timeouts a batch)``. A timeout falls in the first
+    batch whose watermark reaches its start + within (else the
+    end-of-stream flush)."""
+    from tpustream_torch.cep import compile_pattern, run_oracle
+
+    batches = [recs[i:i + batch] for i in range(0, len(recs), batch)]
+    m, t, late = run_oracle(pattern, batches, delay_ms=delay_ms, key_of=key_of)
+    if late:
+        raise AssertionError(f"cep oracle: {len(late)} late records; none expected")
+    n_b = len(batches)
+    m_per = np.bincount([ev[-1][-1] // batch for ev in m], minlength=n_b + 1)
+    ts = np.array([r[1] for r in recs], np.int64)
+    wm = np.maximum.accumulate(np.maximum.reduceat(ts, np.arange(0, ts.size, batch))) \
+        - delay_ms
+    within = compile_pattern(pattern).within_ms
+    t_batch = np.searchsorted(wm, np.array([s for _, s, _ in t], np.int64) + within)
+    t_per = np.bincount(t_batch, minlength=n_b + 1)
+    return m, t, m_per, t_per
+
+
+def drop_index(ev):
+    """An oracle event without its trailing arrival index."""
+    return ev[:-1]
+
+
+def cep_timeout_rows(timeouts, R: int, pad):
+    """Oracle timeouts as the job's timeout records: (n, start, the R
+    capture slots' fields), slots past n padded with ``pad``."""
+    rows = []
+    for n, start, evs in timeouts:
+        row = [n, start]
+        for e in range(R):
+            row.extend(drop_index(evs[e]) if e < len(evs) else pad)
+        rows.append(tuple(row))
+    return rows
+
+
+def rounds_line(programs) -> str:
+    rounds = [r for p in programs for r in p.rounds]
+    return (f"rounds_a_step={rounds} rounds_median="
+            f"{statistics.median(rounds) if rounds else 0}")
+
+
+def cep_job_oracle(n_lines: int, n_channels: int, batch: int):
+    """The chapter-4 job's expected output over the flagship's generated
+    lines (run in a worker process): ``(alert reprs, timeout rows, alerts
+    a batch, timeouts a batch)``. The oracle's records are ``((sec,
+    channel, flow, arrival index), ts_ms)``."""
+    from tpustream_torch.jobs import chapter4_cep_alert as ch4
+
+    _, ts, ch, flow = make_flagship_input(n_lines, n_channels, seed=3)
+    names = [f"www.{c:07d}.com" for c in ch.tolist()]
+    recs = [((t, nm, f, i), t * 1000) for i, (t, nm, f) in
+            enumerate(zip(ts.tolist(), names, flow.tolist()))]
+    m, t, m_per, t_per = cep_oracle(recs, batch, ch4.make_pattern(), 60_000)
+    want = [f"({b0[1]},{b0[2] + b1[2] + b2[2]},{b0[0]},{b2[0]})" for b0, b1, b2 in m]
+    return (want, cep_timeout_rows(t, 2, (0, None, 0)), m_per.tolist(),
+            t_per.tolist())
+
+
+def cep_p_input(n: int):
+    """bench.py phase P's stream (``device_cep``): ``(ts_ms, key, value)``
+    arrays; the key is the record hash's low bits, the value 1000 (a
+    breach) where hash bits 7-8 are 0, else 10."""
+    g = np.arange(n, dtype=np.int64)
+    h = g * 2654435761
+    h = h ^ (h >> 29)
+    return (1_566_957_600_000 + g // CEP_P_RATE, h % CEP_P_KEYS,
+            np.where((h >> 7) % 4 == 0, 1000, 10))
+
+
+def cep_p_pattern():
+    from tpustream_torch import Pattern, Time
+
+    return (Pattern.begin("b").where(lambda r: r.f1 > 500).times(5)
+            .consecutive().within(Time.milliseconds(CEP_P_WITHIN_MS)))
+
+
+def cep_p_oracle(n: int, batch: int):
+    """Phase P's expected output (run in a worker process): ``(match
+    reprs, timeouts, matches a batch, timeouts a batch)``."""
+    ts, key, val = cep_p_input(n)
+    recs = [((f"{k:06d}", v, i), a) for i, (a, k, v) in
+            enumerate(zip(ts.tolist(), key.tolist(), val.tolist()))]
+    m, t, m_per, t_per = cep_oracle(recs, batch, cep_p_pattern(), 1_000,
+                                    key_of=lambda r: r[0])
+    return ([f"({e[0][0]},{e[-1][1]})" for e in m], len(t), m_per.tolist(),
+            t_per.tolist())
+
+
+def cep_phase(n_lines: int, p_lines: int) -> None:
+    """Chapter 4 at the flagship's width: ``jobs/chapter4_cep_alert.py``
+    (three consecutive breaches of 5000 within a minute, a timeout side
+    output) over the flagship's generated lines at B = 131072,
+    ``key_capacity`` 1<<20 and a 1-minute delay (no line late); every
+    alert and every timeout row equal to the host oracle over the same
+    batch boundaries, in order; the loss counters 0; the run again under
+    ``torch.profiler`` for the busy share of warm steps. Then one run of
+    bench.py phase P's shape (L = 5, ``times(5).consecutive()
+    .within(1 s)``, 131072 uniform keys, a quarter of events breaching)
+    as lines through the executor, held against the oracle too. The two
+    oracles run first, side by side in two worker processes, and are
+    done before any run on the card is timed."""
+    import multiprocessing
+
+    from tpustream_torch import (CEP, BoundedOutOfOrdernessTimestampExtractor,
+                                 OutputTag, Time, Tuple2)
+    from tpustream_torch.javacompat import Long
+    from tpustream_torch.jobs import chapter4_cep_alert as ch4
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.cep_program import CepProgram
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        job_oracle = pool.submit(cep_job_oracle, n_lines, K_MAIN, B_MAIN)
+        p_oracle = pool.submit(cep_p_oracle, p_lines, B_MAIN)
+        lines, _, ch, _ = make_flagship_input(n_lines, K_MAIN, seed=3)
+        n_channels = np.unique(ch).size
+        p_ts, p_key, p_val = cep_p_input(p_lines)
+        p_lines_ = [f"{a} {k:06d} {v}" for a, k, v in
+                    zip(p_ts.tolist(), p_key.tolist(), p_val.tolist())]
+        want, want_t, m_per, t_per = job_oracle.result()
+        p_want, p_tmo, pm_per, pt_per = p_oracle.result()
+    cap = capacity_for(m_per + t_per)
+    p_cap = capacity_for(pm_per + pt_per)
+    print(f"cep input: {n_lines} flagship lines, {n_channels} channels; oracle "
+          f"{len(want)} alerts, {len(want_t)} timeouts; alerts a batch {m_per}, "
+          f"timeouts a batch (last: the end-of-stream flush) {t_per}; "
+          f"alert_capacity {cap}. Phase P: {p_lines} lines, {CEP_P_KEYS} keys, "
+          f"{int(np.sum(p_val > 500))} breaching; oracle {len(p_want)} matches, "
+          f"{p_tmo} timeouts; alert_capacity {p_cap} ({time.perf_counter() - t0:.1f} s "
+          f"to generate and run both oracles in two worker processes)")
+
+    def build(text):
+        tag = OutputTag("breach-timeout")
+        alerts = ch4.build(None, text, delay=Time.minutes(1), timeout_tag=tag)
+        timeouts.append(alerts.get_side_output(tag).collect())
+        return alerts
+
+    cfg = dict(batch_size=B_MAIN, key_capacity=K_MAIN, alert_capacity=cap)
+    timeouts = []
+    programs, undo_p = capture_programs(CepProgram)
+    builds, undo_b = count_builds()
+    S.reset_launches()
+    try:
+        items, mt, wall = run_env(build, lines, event_time=True, name="cep", **cfg)
+    finally:
+        undo_p()
+        undo_b()
+    got, got_t = [repr(x) for x in items], [tuple(x) for x in timeouts[0].items]
+    for label, a, b in (("alert", got, want), ("timeout", got_t, want_t)):
+        if a != b:
+            bad = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+            raise AssertionError(f"cep: {len(a)} {label} rows vs {len(b)} from the "
+                                 f"oracle, first difference at row {bad}")
+    losses = check_losses("cep", mt, ("late_dropped", "alert_overflow",
+                                      "exchange_overflow"))
+    if (mt.cep_matches, mt.cep_timeouts) != (len(want), len(want_t)):
+        raise AssertionError(f"cep: counters {mt.cep_matches} matches, "
+                             f"{mt.cep_timeouts} timeouts")
+    if list(builds.values()) != [1]:
+        raise AssertionError(f"cep: program builds {builds}")
+    print(f"cep chapter4_cep_alert: {len(got)} alerts and {len(got_t)} timeouts "
+          f"equal the oracle in order; {losses}; cep_matches={mt.cep_matches} "
+          f"cep_timeouts={mt.cep_timeouts}; seq_rolling_reduce launches="
+          f"{S.seq_rolling_reduce.launches}; {check_native('cep', mt)}")
+    print(f"cep {run_summary(mt, wall)} {rounds_line(programs)}")
+    profile_steps("cep", CepProgram,
+                  lambda: run_env(build, lines, event_time=True, **cfg)[1],
+                  mt.step_times_s)
+
+    class Ts(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.seconds(1))
+
+        def extract_timestamp(self, value):
+            return Long.parseLong(value.split(" ")[0])
+
+    def p_build(text):
+        keyed = (text.assign_timestamps_and_watermarks(Ts())
+                 .map(lambda l: Tuple2(l.split(" ")[1], Long.parseLong(l.split(" ")[2])))
+                 .key_by(0))
+        return CEP.pattern(keyed, cep_p_pattern()).select(
+            lambda mm: Tuple2(mm["b"][0].f0, mm["b"][-1].f1))
+
+    programs, undo_p = capture_programs(CepProgram)
+    try:
+        items, mp, wall = run_env(p_build, p_lines_, event_time=True, name="cep P",
+                                  batch_size=B_MAIN, key_capacity=CEP_P_KEYS,
+                                  alert_capacity=p_cap)
+    finally:
+        undo_p()
+    got = [repr(x) for x in items]
+    if got != p_want or (mp.cep_matches, mp.cep_timeouts) != (len(p_want), p_tmo):
+        raise AssertionError(f"cep phase P: {len(got)} rows vs {len(p_want)} from the "
+                             f"oracle; counters {mp.cep_matches}, {mp.cep_timeouts}")
+    losses = check_losses("cep phase P", mp, ("late_dropped", "alert_overflow",
+                                              "exchange_overflow"))
+    print(f"cep phase P (L=5, within 1 s): {len(got)} matches equal the oracle in "
+          f"order, cep_timeouts={mp.cep_timeouts} (oracle {p_tmo}); {losses}; "
+          f"{check_native('cep phase P', mp)}")
+    print(f"cep phase P {run_summary(mp, wall)} {rounds_line(programs)}")
+
+
+def rules_max_oracle(lines, updates, threshold: float):
+    """chapter2_max with the chapter-5 threshold ahead of the keyed max:
+    a row passes when its usage exceeds the threshold active at its
+    position; each passing row emits its host's keep-first cpu and
+    running max."""
+    timeline = sorted(updates)
+    state, rows, u = {}, [], 0
+    for i, line in enumerate(lines):
+        while u < len(timeline) and i >= timeline[u][0]:
+            threshold = timeline[u][1]
+            u += 1
+        _, host, cpu, usage = line.split(" ")
+        v = float(usage)
+        if not v > threshold:
+            continue
+        s = state.get(host)
+        if s is None:
+            s = state[host] = [host, cpu, v]
+        elif v > s[2]:
+            s[2] = v
+        rows.append((s[0], s[1], s[2]))
+    return rows
+
+
+def rules_phase(n_lines: int) -> int:
+    """Chapter 5: the chapter-5 job (``jobs/chapter5_dynamic_rules.py``)
+    on bench.py's chapter-1 lines at B = 65536 with three threshold
+    updates, two inside a batch, every row against the job's own oracle;
+    then chapter2_max with a pre-chain filter reading the rule
+    (B = 131072, ``key_capacity`` 1<<20, the job phase's lines, an update
+    inside a batch), every row against a host oracle, the max on
+    ``seq_rolling.cu`` (fails if it launched 0 times). Each stage's
+    program is built once in both runs: an update rebuilds nothing.
+    Returns the kernel's launches."""
+    from tpustream_torch import RuleUpdate
+    from tpustream_torch.jobs import chapter2_max, chapter5_dynamic_rules as ch5
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.step import RollingProgram, StatelessProgram
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    g = np.arange(n_lines, dtype=np.int64)
+    h = g * 2654435761
+    hosts = ((h ^ (h >> 31)) % 256).tolist()
+    cpus = (g % 4).tolist()
+    alert = (g % 128 == 0).tolist()
+    lines = [f"1563450000 h{hh:06d} cpu{c} {'91.5' if a else '50.5'}"
+             for hh, c, a in zip(hosts, cpus, alert)]
+    updates = [(100_000, 95.0), (524_288, 60.0), (n_lines - 1, 50.0)]
+    t0 = time.perf_counter()
+    want = [tuple(t) for t in ch5.oracle(lines, updates)]
+    print(f"rules input: {n_lines} chapter-1 lines; updates {updates}; oracle "
+          f"{len(want)} rows ({time.perf_counter() - t0:.1f} s)")
+
+    def build_ch5(text):
+        rules_box.append(ch5.make_rules())
+        env = text.env
+        return ch5.build(env, text, env.add_source(
+            ReplaySource(ch5.control_lines(updates))), rules_box[-1])
+
+    rules_box = []
+    builds, undo_b = count_builds()
+    S.reset_launches()
+    try:
+        items, m, wall = run_env(build_ch5, lines, name="Dynamic Threshold Alert",
+                                 batch_size=65536)
+    finally:
+        undo_b()
+    got = [tuple(t) for t in items]
+    if got != want or rules_box[-1].version != len(updates):
+        raise AssertionError(f"rules chapter5: {len(got)} rows vs {len(want)} from "
+                             f"the oracle, rule version {rules_box[-1].version}")
+    if list(builds.values()) != [1]:
+        raise AssertionError(f"rules chapter5: program builds {builds}")
+    losses = check_losses("rules chapter5", m, ("alert_overflow",))
+    print(f"rules chapter5_dynamic_rules: {len(got)} rows equal the oracle; rule "
+          f"version {rules_box[-1].version}; program builds {list(builds.values())}; "
+          f"{losses}; seq_rolling_reduce launches={S.seq_rolling_reduce.launches}")
+    print(f"rules chapter5 {run_summary(m, wall)}")
+    profile_steps("rules chapter5", StatelessProgram,
+                  lambda: run_env(build_ch5, lines, batch_size=65536)[1],
+                  m.step_times_s)
+
+    t0 = time.perf_counter()
+    max_lines = make_lines(n_lines, K_MAIN, seed=7)
+    max_updates = [(300_000, 50.0)]
+    want = rules_max_oracle(max_lines, max_updates, 90.0)
+    print(f"rules max input: {n_lines} job lines; update {max_updates}; oracle "
+          f"{len(want)} rows ({time.perf_counter() - t0:.1f} s)")
+
+    def build_max(text):
+        rules = ch5.make_rules()
+        rules_box.append(rules)
+        thr = rules.param("threshold")
+        text.env.from_collection([RuleUpdate("threshold", v, pos)
+                                  for pos, v in max_updates]).broadcast(rules)
+        return (text.map(chapter2_max.parse).filter(lambda v: v.f2 > thr)
+                .key_by(0).max(2))
+
+    builds, undo_b = count_builds()
+    S.reset_launches()
+    try:
+        items, m, wall = run_env(build_max, max_lines, name="ComputeCpuMax rules",
+                                 batch_size=B_MAIN, key_capacity=K_MAIN)
+    finally:
+        undo_b()
+    launches = S.seq_rolling_reduce.launches
+    got = [tuple(t.values()) for t in items]
+    if got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise AssertionError(f"rules max: {len(got)} rows vs {len(want)} from the "
+                             f"oracle, first difference at row {bad}")
+    if launches < 1:
+        raise AssertionError("rules max: seq_rolling_reduce launched 0 times")
+    if list(builds.values()) != [1]:
+        raise AssertionError(f"rules max: program builds {builds}")
+    print(f"rules max (chapter2_max + threshold rule): {len(got)} rows equal the "
+          f"oracle; rule version {rules_box[-1].version}; program builds "
+          f"{list(builds.values())}; seq_rolling_reduce launches={launches}")
+    print(f"rules max {run_summary(m, wall)}")
+    profile_steps("rules max", RollingProgram,
+                  lambda: run_env(build_max, max_lines, batch_size=B_MAIN,
+                                  key_capacity=K_MAIN)[1],
+                  m.step_times_s)
+    return launches
+
+
 # -- phase small: the new jobs on the card equal the same jobs on the CPU ---
 
 AVG_LINES = [
@@ -1868,11 +2258,148 @@ def small_chains() -> None:
               f"equals CPU" + ("" if golden is None else " and the golden"))
 
 
+CH4_LINES = [
+    "2019-08-28T10:00:00 www.163.com 6000",
+    "2019-08-28T10:00:10 www.163.com 7000",
+    "2019-08-28T10:00:20 www.163.com 8000",
+    "2019-08-28T10:00:30 www.sina.com 6100",
+    "2019-08-28T10:00:40 www.sina.com 7100",
+    "2019-08-28T10:01:00 www.163.com 9000",
+    "2019-08-28T10:00:50 www.sina.com 8100",
+    "2019-08-28T10:05:00 www.qq.com 50",
+]
+CH5_LINES = [
+    f"15634520{j % 100:02d} 10.8.22.{j % 5} cpu{j % 3} {60 + (j * 13) % 40}.5"
+    for j in range(40)
+]
+
+
+def small_cep_rules() -> None:
+    """The chapter-4 and chapter-5 goldens of the JAX package's suites
+    (tests/test_cep.py's chapter-4 job, tests/test_broadcast.py's
+    threshold updates, window parameter and CEP predicate), each on the
+    card equal to the same run on the CPU and to the oracle."""
+    from tpustream_torch import (BoundedOutOfOrdernessTimestampExtractor, CEP,
+                                 OutputTag, Pattern, RuleSet, RuleUpdate, Time,
+                                 Tuple2)
+    from tpustream_torch.cep import run_oracle
+    from tpustream_torch.javacompat import Double
+    from tpustream_torch.jobs import chapter4_cep_alert as ch4
+    from tpustream_torch.jobs import chapter5_dynamic_rules as ch5
+    from tpustream_torch.runtime.sources import ReplaySource
+    from tpustream_torch.utils.timeutil import iso_local_to_epoch_sec
+
+    recs = []
+    for line in CH4_LINES:
+        iso, chan, flow = line.split(" ")
+        sec = iso_local_to_epoch_sec(iso)
+        recs.append(((sec, chan, int(flow)), sec * 1000))
+    m, t, _ = run_oracle(ch4.make_pattern(), [recs], delay_ms=5000)
+    want = [f"({b0[1]},{b0[2] + b1[2] + b2[2]},{b0[0]},{b2[0]})" for b0, b1, b2 in m]
+    want_t = sorted(repr(r) for r in cep_timeout_rows(
+        [(n, s, [e + (0,) for e in evs]) for n, s, evs in t], 2, (0, None, 0)))
+    out = []
+    for dev in ("cuda", "cpu"):
+        side = []
+
+        def build(text):
+            tag = OutputTag("breach-timeout")
+            alerts = ch4.build(None, text, timeout_tag=tag)
+            side.append(alerts.get_side_output(tag).collect())
+            return alerts
+
+        items, _, _ = run_env(build, CH4_LINES, dev, event_time=True, batch_size=8)
+        out.append(([repr(x) for x in items], sorted(repr(x) for x in side[0].items)))
+    if out[0] != out[1] or out[0] != (want, want_t):
+        raise AssertionError(f"small run chapter4: card {out[0]}, CPU {out[1]}, "
+                             f"oracle {(want, want_t)}")
+    print(f"small run chapter4 golden: {len(want)} alerts, {len(want_t)} timeouts, "
+          f"card equals CPU and the oracle")
+
+    def ch5_run(dev, updates, batch):
+        rules = ch5.make_rules()
+
+        def build(text):
+            return ch5.build(text.env, text, text.env.add_source(
+                ReplaySource(ch5.control_lines(updates))), rules)
+
+        items, _, _ = run_env(build, CH5_LINES, dev, batch_size=batch)
+        return [tuple(x) for x in items], rules.version
+
+    ch5_cases = ([([(17, 95.0)], b) for b in (3, 4, 16, 64)]
+                 + [([(5, 95.0), (9, 70.0)], 16), ([(0, 75.0), (10_000, 99.0)], 8)]
+                 + [([(13, 95.0), (29, 65.0)], b) for b in (2, 5, 40)])
+    for updates, batch in ch5_cases:
+        want = [tuple(x) for x in ch5.oracle(CH5_LINES, updates)]
+        card, cpu = ch5_run("cuda", updates, batch), ch5_run("cpu", updates, batch)
+        if card != cpu or card != (want, len(updates)):
+            raise AssertionError(f"small run chapter5 {updates} at batch {batch}: "
+                                 f"card {card}, CPU {cpu}, oracle {want}")
+        print(f"small run chapter5 updates {updates} at batch {batch}: {len(want)} "
+              f"rows, card equals CPU and the oracle")
+
+    def window_param(dev, updates):
+        rules = RuleSet()
+        limit = rules.declare("sum_limit", 10.0, "f64")
+
+        def build(text):
+            text.env.from_collection(
+                [RuleUpdate("sum_limit", v, pos) for pos, v in updates]
+            ).broadcast(rules)
+            return (text.map(lambda s: Tuple2(s.split(" ")[0],
+                                              Double.parseDouble(s.split(" ")[1])))
+                    .key_by(0).count_window(2).sum(1).filter(lambda x: x.f1 < limit))
+
+        items, _, _ = run_env(build, [f"k {i}" for i in range(12)], dev, batch_size=4)
+        return [repr(x) for x in items]
+
+    for updates, want in (([(6, 100.0)], ["(k,1.0)", "(k,5.0)", "(k,9.0)", "(k,13.0)",
+                                          "(k,17.0)", "(k,21.0)"]),
+                          ([], ["(k,1.0)", "(k,5.0)", "(k,9.0)"])):
+        card, cpu = window_param("cuda", updates), window_param("cpu", updates)
+        if card != cpu or card != want:
+            raise AssertionError(f"small run window parameter {updates}: card {card}, "
+                                 f"CPU {cpu}, golden {want}")
+        print(f"small run window parameter {updates}: {len(card)} rows, card equals "
+              f"CPU and the golden")
+
+    class SecExtractor(BoundedOutOfOrdernessTimestampExtractor):
+        def __init__(self):
+            super().__init__(Time.seconds(0))
+
+        def extract_timestamp(self, element):
+            return int(element.split(" ")[0]) * 1000
+
+    vals = [30, 60, 80, 40, 70, 55, 90, 95, 20, 85]
+    lines = [f"{100 + i} ch {v}" for i, v in enumerate(vals)]
+
+    def cep_param(dev):
+        rules = RuleSet()
+        thr = rules.declare("flow_min", 50.0, "f64")
+
+        def build(text):
+            text.env.from_collection([RuleUpdate("flow_min", 75.0, 5)]).broadcast(rules)
+            keyed = (text.assign_timestamps_and_watermarks(SecExtractor())
+                     .map(lambda s: Tuple2(s.split(" ")[1], float(s.split(" ")[2])))
+                     .key_by(0))
+            pattern = (Pattern.begin("a").where(lambda r: r.f1 > thr)
+                       .next("b").where(lambda r: r.f1 > thr))
+            return CEP.pattern(keyed, pattern).select(lambda mm: mm["b"][0].f1)
+
+        items, _, _ = run_env(build, lines, dev, event_time=True, batch_size=2)
+        return sorted(items)
+
+    card, cpu = cep_param("cuda"), cep_param("cpu")
+    if card != cpu or card != [80.0, 95.0]:
+        raise AssertionError(f"small run CEP rule predicate: card {card}, CPU {cpu}")
+    print(f"small run CEP rule predicate: {card}, card equals CPU and the golden")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "small")
+                            "cep,rules,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -1881,6 +2408,8 @@ def main() -> int:
                     help="input of the ch1, avg and median phases")
     ap.add_argument("--window-lines", type=int, default=1_000_000,
                     help="input of the session and count phases")
+    ap.add_argument("--cep-lines", type=int, default=1_000_000,
+                    help="input of the cep phase's two runs and the rules phase")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1920,22 +2449,30 @@ def main() -> int:
         timed("session", session_phase, args.window_lines)
     if "count" in phases:
         timed("count", count_phase, args.window_lines)
+    if "cep" in phases:
+        timed("cep", cep_phase, args.cep_lines, args.cep_lines)
+    rules_launches = (timed("rules", rules_phase, args.cep_lines)
+                      if "rules" in phases else None)
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
         small_chains()
+        small_cep_rules()
     print(f"phases: {time.perf_counter() - t_all:.1f} s")
-    # one entry a dtype instantiation on a main path: float64 on the
-    # chapter-2 job's, int64 on the chain's (its rolling max)
+    # one entry a main path and dtype instantiation: float64 on the
+    # chapter-2 job's and on the rules phase's rolling max (its
+    # rule-reading filter ahead of the max), int64 on the chain's
     entries = []
-    for dtype, op, path_launches in (
-            ("float64", "max", launches.get("seq_rolling_reduce")),
-            ("int64", "max", chain_launches.get("int64"))):
+    for path, dtype, op, path_launches in (
+            ("job", "float64", "max", launches.get("seq_rolling_reduce")),
+            ("chain", "int64", "max", chain_launches.get("int64")),
+            ("rules", "float64", "max", rules_launches)):
         case = cases.get((dtype, op, "uniform"))
         if case is None:
             continue
         entries.append({
             "name": "seq_rolling_reduce",
+            "path": path,
             "dtype": dtype,
             "route": "cuda",
             "source": "tpustream_torch/kernels/seq_rolling.cu",

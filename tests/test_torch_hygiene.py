@@ -32,6 +32,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.runtime.window_program\n"
         "import tpustream_torch.runtime.session_program\n"
         "import tpustream_torch.runtime.count_program\n"
+        "import tpustream_torch.runtime.cep_program\n"
+        "import tpustream_torch.jobs.chapter4_cep_alert\n"
+        "import tpustream_torch.jobs.chapter5_dynamic_rules\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -41,6 +44,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     ).stdout.split()
     assert "tpustream_torch.jobs.chapter2_max" in out
     assert "tpustream_torch.jobs.chapter3_bandwidth_eventtime" in out
+    assert "tpustream_torch.runtime.cep_program" in out
+    assert "tpustream_torch.broadcast.rules" in out
     assert [m for m in out if _forbidden(m)] == []
 
 

@@ -13,8 +13,10 @@ CUDA kernel (``kernels/seq_rolling.cu``). Jobs run on
 Ported so far, on one device: the tutorial's jobs (chapters 1-3: the
 stateless filter, rolling aggregates, tumbling and sliding windows with
 ``reduce``/``aggregate``/``process()``, allowed lateness and the late
-side output), session windows and count windows. ``ROADMAP.md`` lists
-what is still to come.
+side output), session windows, count windows, chained keyed stages,
+chapter 4's CEP pattern matching (``CEP``, ``Pattern``) and chapter 5's
+dynamic rules over a broadcast control stream (``RuleSet``,
+``DataStream.broadcast``). ``ROADMAP.md`` lists what is still to come.
 """
 
 from .api.tuples import Tuple2, Tuple3, Tuple4  # noqa: E402
@@ -34,6 +36,14 @@ from .api.functions import (  # noqa: E402
     ReduceFunction,
 )
 from .api.output import OutputTag  # noqa: E402
+from .broadcast import (  # noqa: E402
+    BroadcastStream,
+    RuleDescriptor,
+    RuleParam,
+    RuleSet,
+    RuleUpdate,
+)
+from .cep import CEP, Pattern, PatternSelectFunction  # noqa: E402
 from .config import StreamConfig  # noqa: E402
 
 __version__ = "0.1.0"
@@ -42,12 +52,20 @@ __all__ = [
     "AggregateFunction",
     "AssignerWithPeriodicWatermarks",
     "BoundedOutOfOrdernessTimestampExtractor",
+    "BroadcastStream",
+    "CEP",
     "FilterFunction",
     "KeySelector",
     "MapFunction",
     "OutputTag",
+    "Pattern",
+    "PatternSelectFunction",
     "ProcessWindowFunction",
     "ReduceFunction",
+    "RuleDescriptor",
+    "RuleParam",
+    "RuleSet",
+    "RuleUpdate",
     "StreamConfig",
     "StreamExecutionEnvironment",
     "Time",

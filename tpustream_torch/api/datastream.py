@@ -79,6 +79,29 @@ class DataStream:
 
     addSink = add_sink
 
+    # -- broadcast state (dynamic rules) -------------------------------------
+    def broadcast(self, rules, parse=None):
+        """Turn THIS stream into the job's control stream (Flink's
+        ``ruleStream.broadcast(descriptor)``): its records are
+        :class:`~tpustream_torch.broadcast.RuleUpdate`s (or text lines parsed
+        by ``parse``, default ``name value [after_records]``) applied to
+        ``rules`` at exact record boundaries of the data stream. The
+        stream must come straight from a source — control records never
+        enter the data path. Registers the broadcast on the environment
+        and returns the :class:`~tpustream_torch.broadcast.BroadcastStream`."""
+        from ..broadcast import BroadcastStream
+
+        if self.node.op != "source":
+            raise NotImplementedError(
+                "broadcast() applies to a raw source stream; transform "
+                "rule records inside the parse fn instead"
+            )
+        bs = BroadcastStream(
+            self.env, self.node.params["source"], rules, parse=parse
+        )
+        self.env._register_broadcast(bs)
+        return bs
+
 
 class SingleOutputStreamOperator(DataStream):
     """A window result stream; may expose late-data side outputs

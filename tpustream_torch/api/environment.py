@@ -24,8 +24,9 @@ class StreamExecutionEnvironment:
         self._sinks: list[Node] = []
         self.job_name: Optional[str] = None
         self.metrics = None        # populated by execute()
-        # dynamic-rules control stream: not ported, always None (the
-        # planner reads it)
+        # dynamic-rules control stream (DataStream.broadcast): ONE
+        # BroadcastStream per job; its RuleSet threads through every
+        # program of the plan chain (tpustream_torch/broadcast)
         self._broadcast = None
 
     # -- construction --------------------------------------------------------
@@ -79,6 +80,14 @@ class StreamExecutionEnvironment:
     # -- execution -----------------------------------------------------------
     def _register_sink(self, node: Node) -> None:
         self._sinks.append(node)
+
+    def _register_broadcast(self, bs) -> None:
+        if self._broadcast is not None:
+            raise RuntimeError(
+                "a job supports one broadcast control stream; declare "
+                "all dynamic parameters in one RuleSet"
+            )
+        self._broadcast = bs
 
     def execute(self, job_name: str = "tpustream job"):
         """Phase B: plan, build the device program, and run the job to

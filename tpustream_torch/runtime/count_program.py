@@ -99,12 +99,12 @@ class CountWindowProgram(WindowProgram):
         """Typed per-key accumulator leaves and the open window's element
         count, each ``[K + 1]``."""
         kk, dev = key_capacity or self.cfg.key_capacity, self.device
-        return {
+        return self._with_rules({
             "acc": [torch.zeros((kk + 1,), dtype=TORCH_DTYPES[kd], device=dev)
                     for kd in self.acc_kinds],
             "cnt": torch.zeros((kk + 1,), dtype=torch.int32, device=dev),
             "window_fires": torch.zeros((), dtype=torch.int64, device=dev),
-        }
+        })
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
         """The same state at a larger ``key_capacity``: interned key ids
@@ -318,7 +318,7 @@ class SlidingCountWindowProgram(_ElementLogMixin, CountWindowProgram):
     def init_state(self, key_capacity: int = None) -> dict:
         state = self._init_log(key_capacity)
         state["window_fires"] = torch.zeros((), dtype=torch.int64, device=self.device)
-        return state
+        return self._with_rules(state)
 
     def state_from_jax_numpy(self, state_np: dict) -> dict:
         state = self._log_from_jax_numpy(state_np)
@@ -400,7 +400,7 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
         # window fires are counted on the host in evaluate_fires
         state = self._init_log(key_capacity)
         state["alert_overflow"] = torch.zeros((), dtype=torch.int64, device=self.device)
-        return state
+        return self._with_rules(state)
 
     def state_from_jax_numpy(self, state_np: dict) -> dict:
         state = self._log_from_jax_numpy(state_np)

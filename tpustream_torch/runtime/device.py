@@ -26,6 +26,7 @@ import torch
 from ..api.functions import as_callable
 from ..api.tuples import TupleBase, make_tuple
 from ..arith import reference_arithmetic
+from ..broadcast.rules import RuleParam
 from ..ops.wordplanes import TORCH_DTYPES
 from ..records import BOOL, F64, I64, STR, StringTable
 
@@ -72,6 +73,12 @@ def wrap_record(kinds: Sequence[str], tables: Sequence[Optional[StringTable]], v
     return tuple(vals)
 
 
+def as_tensor(v) -> torch.Tensor:
+    """``torch.as_tensor`` that also takes a dynamic rule's
+    ``RuleParam`` (its tensor inside a step, its host value outside)."""
+    return v._resolve() if isinstance(v, RuleParam) else torch.as_tensor(v)
+
+
 def unwrap_record(rec) -> Tuple[list, list, list]:
     """Record -> (values, kinds, tables), classified by value type.
     Python constants become 0-d tensors of their kind's dtype."""
@@ -79,6 +86,8 @@ def unwrap_record(rec) -> Tuple[list, list, list]:
     values, kinds, tables = [], [], []
     for v in vals:
         table = None
+        if isinstance(v, RuleParam):
+            v = v._resolve()
         if isinstance(v, StrVal):
             t, kind, table = v.id, STR, v.table
         elif isinstance(v, (bool, np.bool_)):
@@ -88,7 +97,7 @@ def unwrap_record(rec) -> Tuple[list, list, list]:
         elif isinstance(v, (float, np.floating)):
             t, kind = torch.tensor(float(v), dtype=torch.float64), F64
         else:
-            t = torch.as_tensor(v)
+            t = as_tensor(v)
             if t.dtype == torch.bool:
                 kind = BOOL
             elif t.is_floating_point():
@@ -156,7 +165,7 @@ class DeviceChain:
                 if op == "map":
                     rec = fn(rec)
                 else:
-                    keep = keep & torch.as_tensor(fn(rec))
+                    keep = keep & as_tensor(fn(rec))
             out, kinds, tables = unwrap_record(rec)
         return out, keep, kinds, tables
 

@@ -19,7 +19,16 @@ Emissions reach the sinks in the reference's order: a full-window
 ``process()`` program's fires are evaluated on the host against the
 state the step left (before the next step), then the ``main`` stream's
 rows go to every branch, then the rows late past the allowed lateness
-go to each late-data side output.
+go to each late-data side output, then a CEP program's expired partial
+matches go to its timeout tag's side output (and only there).
+
+Dynamic rules: a job with a broadcast control stream gets its control
+feed from ``plan.broadcast``; a source batch is split at each pending
+update's record position, rows before it run under the old rules, the
+update lands (the chain drains, the RuleSet applies it, every stage's
+rule tensors are written in place: :meth:`Runner.refresh_rules`) and the
+rest runs under the new; updates positioned at or past the last record
+apply before the end-of-stream flush.
 
 Chained keyed stages (a ``key_by`` after a keyed operator) run as one
 ``Runner`` a stage, each feeding the next through the host as columns
@@ -72,7 +81,7 @@ from ..records import (
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
 from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink
-from .step import build_program, resolve_device
+from .step import RULE_VERSION_KEY, RULES_KEY, build_program, resolve_device
 
 
 class HostStage:
@@ -381,7 +390,7 @@ class Runner:
 
     _COUNTER_NAMES = (
         "window_fires", "late_dropped", "alert_overflow", "buffer_overflow",
-        "evicted_unfired",
+        "evicted_unfired", "exchange_overflow", "cep_matches", "cep_timeouts",
     )
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig, metrics: Metrics):
@@ -555,6 +564,27 @@ class Runner:
             d._last_tick = proc_now
         d.pump_chain(proc_now)
 
+    # -- dynamic rules ------------------------------------------------------
+
+    def refresh_rules(self) -> None:
+        """Write the RuleSet's current values and version into this
+        stage's rule tensors in place (one fill a rule): the program is
+        not rebuilt, and the next step reads the new values. A leaf whose
+        shape changed (a per-tenant vector that grew) is replaced."""
+        ruleset = self.program.ruleset
+        if ruleset is None or RULES_KEY not in self.state:
+            return
+        leaves = self.state[RULES_KEY]
+        for name, new in ruleset.device_leaves().items():
+            old = leaves.get(name)
+            if old is None or old.shape != new.shape:
+                leaves[name] = new.to(self.device)
+            elif new.dim() == 0:
+                old.fill_(new.item())
+            else:
+                old.copy_(new)
+        self.state[RULE_VERSION_KEY].fill_(ruleset.version)
+
     # -- steps --------------------------------------------------------------
 
     def _check_capacity(self) -> None:
@@ -603,9 +633,11 @@ class Runner:
     def _drain(self, wm_lower: int, t_batch: float) -> None:
         """Empty steps until no window end stays deferred by
         ``max_fires_per_step`` (each still fires at most the budget)."""
-        if self.cfg.max_fires_per_step is None or not self.program.fires_on_clock:
+        ring = getattr(self.program, "ring", None)  # a CEP program has none
+        if (self.cfg.max_fires_per_step is None
+                or not self.program.fires_on_clock or ring is None):
             return
-        for _ in range(self.program.ring.n_fire_candidates + 2):
+        for _ in range(ring.n_fire_candidates + 2):
             if not self.state.get("pending_fires"):
                 return
             self._run_step(self._empty_batch(), wm_lower, t_batch)
@@ -668,7 +700,7 @@ class Runner:
         m.upload_times_s.append(sw.elapsed)
         reads = self.program.host_reads
         with Stopwatch() as sw:
-            self.state, emissions = self.program.step(
+            self.state, emissions = self.program.run_step(
                 self.state, cols, valid, ts, wm_lower)
             self._sync()
         m.step_times_s.append(sw.elapsed)
@@ -700,9 +732,14 @@ class Runner:
                     m.records_emitted += len(out[0]) if out else 0
             m.emit_times_s.append(sw.elapsed)
         late = emissions.get("late")
-        if late is not None and self.side_sinks:
+        if late is not None and self._late_sinks():
             with Stopwatch() as sw:
                 self._dispatch_late(late)
+            m.emit_times_s.append(sw.elapsed)
+        timeout = emissions.get("timeout")
+        if timeout is not None and self._timeout_sink() is not None:
+            with Stopwatch() as sw:
+                self._dispatch_timeout(timeout)
             m.emit_times_s.append(sw.elapsed)
         if m.records_emitted > emitted_before:
             m.emit_latencies_s.append(time.perf_counter() - t_batch)
@@ -740,6 +777,19 @@ class Runner:
             m.records_emitted += emitted
         m.window_fires += fired
 
+    def _late_sinks(self) -> list:
+        """The late-data side outputs: every side sink but the CEP
+        timeout tag's, which receives only the timeout stream."""
+        tt = getattr(self.program, "timeout_tag", None)
+        return [entry for tag_id, entry in self.side_sinks.items()
+                if tt is None or tag_id != tt.id]
+
+    def _timeout_sink(self):
+        """(ops, sink) of the CEP timeout tag's side output, or None (the
+        device counts expired partials in ``cep_timeouts`` either way)."""
+        tt = getattr(self.program, "timeout_tag", None)
+        return self.side_sinks.get(tt.id) if tt is not None else None
+
     def _dispatch_late(self, late) -> None:
         """Rows late past the allowed lateness, to every late-data side
         output (after its host-side ops). Their count is read first, then
@@ -754,11 +804,28 @@ class Runner:
             return
         rows = idx[:n].to(torch.int64)
         cols = self._to_host([c[rows] for c in late["cols"]])
-        for ops, sink in self.side_sinks.values():
+        for ops, sink in self._late_sinks():
             for row in self.late_formatter.rows(cols):
                 item, keep = _apply_ops(ops, row)
                 if keep:
                     sink.emit(item)
+
+    def _dispatch_timeout(self, timeout) -> None:
+        """CEP partial matches whose ``within`` expired, to the pattern's
+        timeout side output (Flink's PatternTimeoutFunction stream): the
+        row count, then that many rows."""
+        (n,) = self._to_host([timeout["count"]])
+        n = int(n)
+        if n == 0:
+            return
+        cols = self._to_host([c[:n] for c in timeout["cols"]])
+        ops, sink = self._timeout_sink()
+        fmt = EmissionFormatter(self.program.timeout_kinds,
+                                self.program.timeout_tables)
+        for row in fmt.rows(cols):
+            item, keep = _apply_ops(ops, row)
+            if keep:
+                sink.emit(item)
 
     def _fetch(self, main, want=()):
         """The step's emitted rows on the host: ``(columns, subtasks,
@@ -968,11 +1035,34 @@ def execute_job(env, sink_nodes) -> JobResult:
     runner: Optional[Runner] = None
     processing_time = plan.time_characteristic == TimeCharacteristic.ProcessingTime
     proc_now = 0
+    # dynamic rules: the control feed. A run replays the data from record
+    # 0, so the rule timeline replays with it: the RuleSet goes back to
+    # its defaults at version 0 and the feed applies every update at its
+    # record position
+    ruleset = plan.rules
+    control_feed = None
+    if plan.broadcast is not None and ruleset is not None:
+        ruleset.reset()
+        control_feed = plan.broadcast.feed(cfg.batch_size)
+    lines_consumed = 0
+
+    def apply_rule_updates(updates) -> None:
+        """Land a group of rule updates at the current record boundary:
+        every row fed so far finishes its way down the chain under the
+        old rules, then the host RuleSet and every stage's rule tensors
+        take the new values."""
+        runner.pump_chain(proc_now)
+        for u in updates:
+            ruleset.apply(u)
+        for r in runner.chain():
+            r.refresh_rules()
+
     for sb in plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms):
         with Stopwatch() as hw:
             batch, wm_hint = _parse(host, sb)
         metrics.host_times_s.append(hw.elapsed)
         metrics.batches += 1
+        lines_consumed += sb.n_records
         if sb.proc_ts.size:
             proc_now = max(proc_now, int(sb.proc_ts.max()))
         if sb.advance_proc_to is not None:
@@ -988,7 +1078,25 @@ def execute_job(env, sink_nodes) -> JobResult:
                 wm_lower = proc_now - 1
             else:
                 wm_lower = wm_hint if wm_hint is not None else LONG_MIN + 1
-            runner.feed(batch, wm_lower, t_batch=hw.t0)
+            if control_feed is None:
+                runner.feed(batch, wm_lower, t_batch=hw.t0)
+            else:
+                # split the batch at each pending update's record
+                # position: rows before position N run under the old
+                # rules, rows from N on under the new (record-exact and
+                # batch-size independent)
+                base = lines_consumed - sb.n_records
+                cursor = 0
+                for off, updates in control_feed.splits_for(base, sb.n_records):
+                    off = min(off, batch.n)  # a host filter may drop rows
+                    if off > cursor:
+                        runner.feed(batch.slice_rows(cursor, off), wm_lower,
+                                    t_batch=hw.t0)
+                        cursor = off
+                    apply_rule_updates(updates)
+                rest = batch.slice_rows(cursor, batch.n) if cursor else batch
+                if rest.n or not cursor:
+                    runner.feed(rest, wm_lower, t_batch=hw.t0)
         elif sb.advance_proc_to is not None and runner is not None and processing_time:
             runner.flush(proc_now - 1)  # the processing-time clock ticked
         if runner is not None:
@@ -998,6 +1106,12 @@ def execute_job(env, sink_nodes) -> JobResult:
     counts = host.parse_counts()
     metrics.native_parses, metrics.numpy_parses = counts["native"], counts["numpy"]
     if runner is not None:
+        if control_feed is not None:
+            # updates positioned at or after the last record still apply:
+            # they govern the end-of-stream fires
+            eos_updates = control_feed.remaining(lines_consumed)
+            if eos_updates:
+                apply_rule_updates(eos_updates)
         # Flink's end of input: a MAX watermark fires every remaining
         # event-time window; processing time fires up to the clock
         runner.flush(proc_now - 1 if processing_time else MAX_WATERMARK)

@@ -3,12 +3,12 @@
 A plain counterpart of tpustream/runtime/metrics.py without its metrics
 registry. Every time is a host-clock interval; the step interval ends in
 a device synchronise, so it covers the device's work for the batch.
-``window_fires``, ``late_dropped`` and the loss counters accumulate on
-the device and are folded in once per job (``Runner.finalize_metrics``);
-a full-window ``process()`` job counts its fires on the host. The
-summary carries every key of the reference's; the counters that have no
-source in this runtime yet (quarantine, the sharded exchange, CEP) read
-0.
+``window_fires``, ``late_dropped``, ``cep_matches``, ``cep_timeouts``
+and the loss counters accumulate on the device and are folded in once
+per job (``Runner.finalize_metrics``); a full-window ``process()`` job
+counts its fires on the host. The summary carries every key of the
+reference's; the counters that have no source in this runtime yet
+(quarantine, the sharded exchange) read 0.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ class Metrics:
     exchange_overflow: int = 0  # rows lost in a sharded exchange (no source yet)
     buffer_overflow: int = 0   # window elements past process_buffer_capacity
     evicted_unfired: int = 0   # records cleared from the ring unfired
-    cep_matches: int = 0       # CEP pattern matches (no source yet)
-    cep_timeouts: int = 0      # CEP partial matches expired (no source yet)
+    cep_matches: int = 0       # CEP pattern matches
+    cep_timeouts: int = 0      # CEP partial matches expired (within)
     build_time_s: float = 0.0  # set-up: plan, host stage, program, state
     native_parses: int = 0     # parse-plan evaluations by the native parser
     numpy_parses: int = 0      # ... and by the numpy path

@@ -446,9 +446,24 @@ def build_plan(env, sink_nodes: List[Node]) -> JobPlan:
                 raise RuntimeError(
                     "CEP.pattern requires a keyed stream: call key_by first"
                 )
-            raise NotImplementedError(
-                "CEP patterns are not ported to the PyTorch runtime yet"
+            from ..cep.nfa import compile_pattern
+            from ..cep.pattern import make_select_adapter
+
+            compiled = compile_pattern(node.params["pattern"])
+            stateful = StatefulSpec(
+                "cep",
+                cep=compiled,
+                allowed_lateness_ms=node.params.get("allowed_lateness_ms", 0),
+                late_tag=node.params.get("late_tag"),
+                timeout_tag=node.params.get("timeout_tag"),
             )
+            sel_fn = node.params.get("select_fn")
+            if sel_fn is not None:
+                # the select adapter is the FIRST post op: user map/
+                # filter tails see the selected record, not the raw
+                # L*C flat match
+                device_post.append(("map", make_select_adapter(compiled, sel_fn)))
+            continue
         raise NotImplementedError(f"operator {op} not supported in this chain")
 
     # side outputs: ops between the side_output node and the sink
@@ -634,9 +649,21 @@ def _plan_rest(env, rest: List[Node]) -> JobPlan:
                 raise RuntimeError(
                     "CEP.pattern requires a keyed stream: call key_by first"
                 )
-            raise NotImplementedError(
-                "CEP patterns are not ported to the PyTorch runtime yet"
+            from ..cep.nfa import compile_pattern
+            from ..cep.pattern import make_select_adapter
+
+            compiled = compile_pattern(node.params["pattern"])
+            stateful = StatefulSpec(
+                "cep",
+                cep=compiled,
+                allowed_lateness_ms=node.params.get("allowed_lateness_ms", 0),
+                late_tag=node.params.get("late_tag"),
+                timeout_tag=node.params.get("timeout_tag"),
             )
+            sel_fn = node.params.get("select_fn")
+            if sel_fn is not None:
+                device_post.append(("map", make_select_adapter(compiled, sel_fn)))
+            continue
         raise NotImplementedError(
             f"operator {op} is not supported in a chained stage"
         )

@@ -97,7 +97,7 @@ class ProcessWindowProgram(WindowProgram):
         }
         for name in COUNTERS:
             state[name] = torch.zeros((), dtype=torch.int64, device=dev)
-        return state
+        return self._with_rules(state)
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
         """The same state at a larger ``key_capacity``: the layout is

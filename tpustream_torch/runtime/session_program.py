@@ -330,7 +330,7 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
         }
         for name in COUNTERS:
             state[name] = torch.zeros((), dtype=torch.int64, device=dev)
-        return state
+        return self._with_rules(state)
 
     _CELL_KEYS = ("cnt", "cell_min", "cell_max", "cell_fired")
 

@@ -8,12 +8,20 @@ through the hand-written kernel, the rest through the general path), the
 tumbling/sliding window ``reduce`` and ``aggregate``
 (``window_program.WindowProgram``), the full-window ``process``
 (``process_program.ProcessWindowProgram``), session windows
-(``session_program.SessionWindowProgram``, ``SessionProcessProgram``)
-and count windows (``count_program.CountWindowProgram``,
-``SlidingCountWindowProgram``, ``CountProcessProgram``). CEP and
-``parallelism > 1`` raise ``NotImplementedError`` from
-:func:`build_program`, and so do ``acc_dtype="float32"`` windows. A step
-takes ``(state, cols, valid, ts, wm_lower)``, as in the reference.
+(``session_program.SessionWindowProgram``, ``SessionProcessProgram``),
+count windows (``count_program.CountWindowProgram``,
+``SlidingCountWindowProgram``, ``CountProcessProgram``) and CEP
+(``cep_program.CepProgram``). ``parallelism > 1`` raises
+``NotImplementedError`` from :func:`build_program`, and so do
+``acc_dtype="float32"`` windows. A step takes ``(state, cols, valid, ts,
+wm_lower)``, as in the reference.
+
+Dynamic rules (``tpustream_torch.broadcast``): every family's
+``init_state`` attaches the job's rule tensors to its state
+(:meth:`BaseProgram._with_rules`), and the Runner steps through
+:meth:`BaseProgram.run_step`, which binds them for the step so that
+every ``RuleParam`` in a user function reads its tensor. A rule update
+writes those tensors in place between steps; no program is rebuilt.
 """
 
 from __future__ import annotations
@@ -29,6 +37,11 @@ from ..ops import rolling as rolling_ops
 from ..records import I64, STR
 from .device import DeviceChain, record_combiner
 from .plan import JobPlan
+
+# dynamic-rule leaves ride the state under these keys (only when the plan
+# declares a RuleSet: rule-less jobs keep their exact state layout)
+RULES_KEY = "__rules__"
+RULE_VERSION_KEY = "__rule_version__"
 
 
 def resolve_device(name: str) -> torch.device:
@@ -70,9 +83,39 @@ class BaseProgram:
         in_kinds, in_tables = plan.record_kinds, plan.tables
         if plan.synthetic_key and in_kinds:
             in_kinds, in_tables = in_kinds[:-1], in_tables[:-1]
+        # dynamic rules: RuleParams in user functions resolve to host
+        # values at chain-build time (DeviceChain's output dry run) and
+        # to the state's rule tensors inside run_step
+        self.ruleset = plan.rules
         self.pre_chain = DeviceChain(plan.device_pre, in_kinds, in_tables)
         self.mid_kinds = self.pre_chain.out_kinds
         self.mid_tables = self.pre_chain.out_tables
+
+    def _with_rules(self, state: dict) -> dict:
+        """Attach the rule tensors to a family's init state: one 0-d
+        tensor a rule on the program's device, plus the applied-update
+        counter."""
+        if self.ruleset is None:
+            return state
+        state[RULES_KEY] = self.ruleset.device_leaves(self.device)
+        state[RULE_VERSION_KEY] = torch.tensor(
+            self.ruleset.version, dtype=torch.int64, device=self.device)
+        return state
+
+    def run_step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
+        """:meth:`step` with the rules bound: the rule tensors leave the
+        state for the step (the families see their own layout), every
+        RuleParam of the job resolves to its tensor inside it, and they
+        come back unchanged. Updates write them between steps."""
+        if self.ruleset is None:
+            return self.step(state, cols, valid, ts, wm_lower)
+        rules, version = state[RULES_KEY], state[RULE_VERSION_KEY]
+        inner = {k: v for k, v in state.items()
+                 if k not in (RULES_KEY, RULE_VERSION_KEY)}
+        with self.ruleset.bound(rules):
+            new_state, emissions = self.step(inner, cols, valid, ts, wm_lower)
+        new_state[RULES_KEY], new_state[RULE_VERSION_KEY] = rules, version
+        return new_state, emissions
 
     def _apply_pre(self, cols, valid):
         """Run the pre chain over the visible record columns; the
@@ -119,8 +162,8 @@ class StatelessProgram(BaseProgram):
         return None  # no key: nothing to grow
 
     def init_state(self, key_capacity: int = None) -> dict:
-        return {"alert_overflow": torch.zeros((), dtype=torch.int64,
-                                              device=self.device)}
+        return self._with_rules({"alert_overflow": torch.zeros(
+            (), dtype=torch.int64, device=self.device)})
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` the record's ``[B]`` tensors, ``valid``
@@ -197,17 +240,17 @@ class RollingProgram(BaseProgram):
         return None
 
     def init_state(self, key_capacity: int = None) -> dict:
-        return rolling_ops.init_rolling_state(
+        return self._with_rules(rolling_ops.init_rolling_state(
             key_capacity or self.cfg.key_capacity, self.mid_kinds,
             self.layout_kind, self.pos, sentinel_leaf=self.sentinel_leaf,
             device=self.device,
-        )
+        ))
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
-        return rolling_ops.grow_rolling_state(
+        return self._with_rules(rolling_ops.grow_rolling_state(
             state, key_capacity, self.mid_kinds, self.layout_kind, self.pos,
             sentinel_leaf=self.sentinel_leaf,
-        )
+        ))
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` are the record's ``[B]`` tensors, ``valid``
@@ -293,7 +336,8 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
         from .window_program import WindowProgram
 
         return WindowProgram(plan, cfg)
-    raise NotImplementedError(
-        f"{plan.stateful.kind} programs are not ported to the PyTorch "
-        f"runtime yet (CEP: roadmap queue item 11)"
-    )
+    if plan.stateful.kind == "cep":
+        from .cep_program import CepProgram
+
+        return CepProgram(plan, cfg)
+    raise NotImplementedError(f"unknown stateful operator {plan.stateful.kind}")

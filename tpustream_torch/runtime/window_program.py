@@ -382,7 +382,7 @@ class WindowProgram(BaseProgram):
         }
         for name in COUNTERS:
             state[name] = torch.zeros((), dtype=torch.int64, device=dev)
-        return state
+        return self._with_rules(state)
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
         """The same state at a larger ``key_capacity``: interned key ids
