@@ -39,7 +39,23 @@ pattern (L = 5, 131072 uniform keys) against the oracle. Phase
 ``rules`` drives the chapter-5 job with three threshold updates over
 1M chapter-1 lines and a rolling max whose filter reads the rule (on
 the kernel, which must launch), each against a host oracle and each
-program built once across the updates. Phase ``small`` holds the
+program built once across the updates; the kernel is then held against
+its plain version on the inputs of the max's second call. Phase
+``fleet`` drives the
+chapter-6 job server: 4096 tenants x 256 lines at B = 65536 with quotas,
+mid-stream threshold updates, removals and late admissions, every
+tenant's rows and quota side output against the chapter-6 oracle and
+one program build; the same fleet from half the tenant capacity, which
+must grow once; a profiled rerun of the first fleet; and a keyed fleet
+(a tenant-namespaced rolling max on the kernel, 65,536 keys) against a
+numpy running max, the kernel then held against its plain version on
+the inputs of the keyed fleet's second call. Phase ``obs`` runs the
+flagship's int32 configuration in three interleaved pairs, obs off and
+the obs layer on (spans, snapshots, chapter 1's health rules, latency
+markers, the live endpoint scraped while it runs), then the layer
+without the scraper and the registry alone: equal rows, equal waits on
+the card, one build, parsed scrapes, health at OK; then a short run
+under ``torch.profiler`` with the profiler bridge. Phase ``small`` holds the
 goldens of the new jobs, ``max_by``, the allowed-lateness cases (main
 and side-output rows), the session and count goldens, integer rolling
 goldens, the chained-stage goldens, a punctuated-watermark job and the
@@ -54,9 +70,9 @@ device, when the package is not beside this script, or when any phase
 fails.
 
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,small``,
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,small``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
-``--flagship-lines N`` (flagship and chain input), ``--new-lines N`` (input of
+``--flagship-lines N`` (flagship, chain and obs input), ``--new-lines N`` (input of
 ch1, avg and median), ``--window-lines N`` (input of session and count),
 ``--cep-lines N`` (input of cep and rules).
 """
@@ -391,6 +407,66 @@ def main_reference_points(S, plane, keys, vals, op, emis, bad, ms, reps):
           f"(a {2 * L2_BYTES >> 20} MB write between calls); reference "
           f"point torch.sort(keys, stable=True) sort_ms={sort_ms}")
     return launches
+
+
+def capture_kernel_call(index: int = 1):
+    """Keep the inputs of the path's ``index``-th call (0-based) of the
+    rolling kernel, cloned before the call folds them: ``(box, undo)``,
+    ``box["call"] = (plane, keys, vals, op)`` once the call was made."""
+    from tpustream_torch.ops import rolling
+
+    plain = rolling.seq_rolling_reduce
+    box = {"calls": 0}
+
+    def capture(plane, keys, vals, op="max", bad_keys=None):
+        if box["calls"] == index:
+            box["call"] = (plane.clone(), keys.clone(), vals.clone(), op)
+        box["calls"] += 1
+        return plain(plane, keys, vals, op, bad_keys=bad_keys)
+
+    rolling.seq_rolling_reduce = capture
+    return box, lambda: setattr(rolling, "seq_rolling_reduce", plain)
+
+
+def path_kernel_case(label: str, call, reps: int) -> dict:
+    """The kernel against its plain version on one call's inputs as a
+    main path gave them (a max or min: bitwise), its time and the plain
+    version's, and the bound from this call's bytes: keys, values and
+    emissions once a row, the touched plane entries read and written
+    once. (No launch count from ``device_split`` here: late in the
+    script the profiler dropped kernel records, counting 0.5 launches
+    for a call that is one launch by construction.)"""
+    import torch
+
+    from tpustream_torch.ops import seq_rolling as S
+
+    plane0, keys, vals, op = call
+    if op not in ("max", "min"):
+        raise AssertionError(f"{label}: no bitwise check for a {op}")
+    pk, pr = plane0.clone(), plane0.clone()
+    bad = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    ek = S.seq_rolling_reduce(pk, keys, vals, op, bad_keys=bad)
+    er = S.seq_rolling_reduce_ref(pr, keys, vals, op, bad_keys=bad)
+    torch.cuda.synchronize()
+    err = max(float((ek - er).abs().nan_to_num().max()),
+              float((pk - pr).abs().nan_to_num().max()))
+    if not (same_bits(ek, er) and same_bits(pk, pr)) or int(bad[0]):
+        raise AssertionError(f"{label}: kernel != plain, max |diff| {err}, "
+                             f"out-of-range count {int(bad[0])}")
+    emis = torch.empty_like(vals)
+    ms = time_ms(lambda: S.launch(pk, keys, vals, op, emis, bad), reps)
+    plain_ms = time_ms(
+        lambda: S.seq_rolling_reduce_ref(pr, keys, vals, op, bad), reps)
+    rows, size = keys.numel(), vals.element_size()
+    touched = int(torch.unique(keys[keys >= 0]).numel())
+    nbytes = rows * (keys.element_size() + 2 * size) + 2 * touched * size
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    dtype = str(vals.dtype).rsplit(".", 1)[-1]
+    print(f"kernel seq_rolling_reduce {dtype} {op} on the {label} path's "
+          f"call: B={rows} K={plane0.numel()} keys={touched} padding="
+          f"{int((keys < 0).sum())}: ok (bitwise) max_abs_err={err} ms={ms} "
+          f"plain_ms={plain_ms} bound_ms={bound_ms} bytes={nbytes}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def make_hosts(n: int, n_hosts: int, seed: int) -> np.ndarray:
@@ -1805,7 +1881,7 @@ def rules_max_oracle(lines, updates, threshold: float):
     return rows
 
 
-def rules_phase(n_lines: int) -> int:
+def rules_phase(n_lines: int, reps: int) -> dict:
     """Chapter 5: the chapter-5 job (``jobs/chapter5_dynamic_rules.py``)
     on bench.py's chapter-1 lines at B = 65536 with three threshold
     updates, two inside a batch, every row against the job's own oracle;
@@ -1814,7 +1890,8 @@ def rules_phase(n_lines: int) -> int:
     inside a batch), every row against a host oracle, the max on
     ``seq_rolling.cu`` (fails if it launched 0 times). Each stage's
     program is built once in both runs: an update rebuilds nothing.
-    Returns the kernel's launches."""
+    Returns the kernel's launches and its case on the max's second call
+    (:func:`path_kernel_case`)."""
     from tpustream_torch import RuleUpdate
     from tpustream_torch.jobs import chapter2_max, chapter5_dynamic_rules as ch5
     from tpustream_torch.ops import seq_rolling as S
@@ -1880,12 +1957,14 @@ def rules_phase(n_lines: int) -> int:
                 .key_by(0).max(2))
 
     builds, undo_b = count_builds()
+    captured, undo_c = capture_kernel_call()
     S.reset_launches()
     try:
         items, m, wall = run_env(build_max, max_lines, name="ComputeCpuMax rules",
                                  batch_size=B_MAIN, key_capacity=K_MAIN)
     finally:
         undo_b()
+        undo_c()
     launches = S.seq_rolling_reduce.launches
     got = [tuple(t.values()) for t in items]
     if got != want:
@@ -1905,7 +1984,503 @@ def rules_phase(n_lines: int) -> int:
                   lambda: run_env(build_max, max_lines, batch_size=B_MAIN,
                                   key_capacity=K_MAIN)[1],
                   m.step_times_s)
-    return launches
+    return {"launches": launches,
+            "case": path_kernel_case("rules max", captured["call"], reps)}
+
+
+# -- phases fleet and obs: chapter 6 (tenancy) and the observability layer --
+
+FLEET_TENANTS = 4096
+FLEET_RECORDS = 256  # a tenant's lines: 4096 x 256 = 1,048,576
+FLEET_B = 65536
+FLEET_LATE = 64      # tenants admitted after ingestion began
+FLEET_ROUNDS = 16    # round-robin ingestion blocks
+FLEET_HOSTS = 16     # host names every tenant of the keyed fleet shares
+
+
+def fleet_schedule(seed: int = 11) -> dict:
+    """The chapter-6 fleet's traffic, as data: per tenant its threshold,
+    its 256 lines (``c6.tenant_lines``), a quota of half its records for
+    64 of them, 256 mid-stream threshold updates (tenant, local record,
+    value), 64 removals (tenant, round) and the 64 tenants admitted at
+    round 4."""
+    from tpustream_torch.jobs import chapter6_tenant_fleet as c6
+
+    rng = np.random.default_rng(seed)
+    tenants = [f"t{i:04d}" for i in range(FLEET_TENANTS)]
+    early = tenants[:FLEET_TENANTS - FLEET_LATE]
+    pick = rng.permutation(len(early))
+    quota = {early[i]: FLEET_RECORDS // 2 for i in pick[:64]}
+    removed = {early[i]: int(rng.integers(2, FLEET_ROUNDS))
+               for i in pick[64:128]}
+    updated = [tenants[i] for i in rng.permutation(FLEET_TENANTS)[:256]]
+    updates = [(t, int(rng.integers(FLEET_RECORDS // 2, FLEET_RECORDS)),
+                float(np.round(rng.uniform(80.0, 104.0), 2))) for t in updated]
+    return {
+        "tenants": tenants, "late": tenants[len(early):],
+        "threshold": {t: float(np.round(rng.uniform(80.0, 100.0), 2))
+                      for t in tenants},
+        "lines": {t: c6.tenant_lines(t, FLEET_RECORDS,
+                                     base=float(70 + (i % 16)))
+                  for i, t in enumerate(tenants)},
+        "quota": quota, "removed": removed, "updates": updates,
+    }
+
+
+def fleet_server(sched: dict, capacity: int, device: str = "cuda", obs=None):
+    """The schedule through a JobServer: admissions, round-robin
+    ingestion in blocks, removals and the late admissions at round
+    boundaries, then the threshold updates at positions from
+    ``JobServer.position`` (each after its record was ingested)."""
+    from tpustream_torch import JobServer, TenantQuota
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs import chapter6_tenant_fleet as c6
+
+    cfg = StreamConfig(device=device, batch_size=FLEET_B,
+                       obs=obs or ObsConfig(enabled=True))
+    srv = JobServer(c6.make_plan(capacity), config=cfg)
+
+    def admit(t):
+        q = sched["quota"].get(t)
+        srv.add_tenant(t, rules={"threshold": sched["threshold"][t]},
+                       quota=TenantQuota(max_records=q) if q else None)
+
+    late = set(sched["late"])
+    admitted = {t: 0 for t in sched["tenants"]}
+    for t in sched["tenants"]:
+        if t not in late:
+            admit(t)
+    block = FLEET_RECORDS // FLEET_ROUNDS
+    for r in range(FLEET_ROUNDS):
+        if r == 4:
+            for t in sched["late"]:
+                admit(t)
+        for t, at in sched["removed"].items():
+            if at == r:
+                srv.remove_tenant(t)
+        for t in sched["tenants"]:
+            if t in late and r < 4:
+                continue
+            if t in late:
+                # the late tenants ingest all their lines in rounds 4-15
+                lo = (r - 4) * FLEET_RECORDS // 12
+                hi = (r - 3) * FLEET_RECORDS // 12
+            else:
+                lo, hi = r * block, (r + 1) * block
+            admitted[t] += srv.ingest(t, sched["lines"][t][lo:hi])
+    for t, n, v in sched["updates"]:
+        if n < admitted[t]:
+            srv.update_tenant_rules(t, {"threshold": v},
+                                    after_records=srv.position(t, n))
+    return srv
+
+
+def fleet_expected(sched: dict) -> dict:
+    """Per tenant ``(rows, quota lines)`` from ``c6.expected`` on its own
+    admitted lines and rule timeline: the quota cuts its lines at 128, a
+    removal keeps the lines ingested before it, an update lands at its
+    local record."""
+    from tpustream_torch.jobs import chapter6_tenant_fleet as c6
+
+    block = FLEET_RECORDS // FLEET_ROUNDS
+    ups = {}
+    for t, n, v in sched["updates"]:
+        ups.setdefault(t, []).append((n, v))
+    out = {}
+    for t in sched["tenants"]:
+        lines = sched["lines"][t]
+        q = sched["quota"].get(t)
+        admitted, diverted = (lines[:q], lines[q:]) if q else (lines, [])
+        if t in sched["removed"]:
+            admitted = admitted[:sched["removed"][t] * block]
+        thr = sched["threshold"][t]
+        timeline = [(0, thr)] + [(n, v) for n, v in ups.get(t, [])
+                                 if n < len(admitted)]
+        out[t] = ([tuple(x) for x in c6.expected(t, admitted, thr, timeline)],
+                  diverted)
+    return out
+
+
+def check_fleet(label: str, srv, want: dict) -> int:
+    got = srv.outputs()
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: {len(got)} tenants vs {len(want)}")
+    for t, (rows, diverted) in want.items():
+        if [tuple(x) for x in got[t]] != rows:
+            raise AssertionError(f"{label}: tenant {t}: {len(got[t])} rows "
+                                 f"vs {len(rows)} from the oracle")
+        if srv.quota_output(t) != diverted:
+            raise AssertionError(f"{label}: tenant {t}: quota side output differs")
+    # JobServer.output (a pass over every row a call), on four tenants
+    for t in srv.tenants()[::FLEET_TENANTS // 4]:
+        if [tuple(x) for x in srv.output(t)] != want[t][0]:
+            raise AssertionError(f"{label}: JobServer.output({t}) differs")
+    return sum(len(r) for r, _ in want.values())
+
+
+def recompile_causes(m) -> dict:
+    return {s["labels"].get("cause"): s["value"]
+            for s in m.obs_snapshot()["metrics"]["series"]
+            if s["name"] == "operator_recompile_cause"}
+
+
+def fleet_kv_parse(line):
+    """The keyed fleet's host parse: ``host value``."""
+    from tpustream_torch import Tuple2
+
+    items = line.split(" ")
+    return Tuple2(items[0], float(items[1]))
+
+
+def keyed_fleet(n_per_tenant: int, device: str = "cuda"):
+    """``(server, lines by tenant)``: a template ``key_by(host).max(value)``
+    (the parse is the plan's) over 4096 tenants that share 16 host names:
+    65,536 namespaced keys at ``key_capacity`` 1<<17, ingested
+    round-robin in 16 blocks."""
+    from tpustream_torch import JobServer, RuleSet, TenantPlan
+    from tpustream_torch.config import StreamConfig
+
+    rules = RuleSet()
+    rules.declare("unused", 0.0, "f64")
+    plan = TenantPlan(parse=fleet_kv_parse,
+                      build=lambda s, r: s.key_by(0).max(1),
+                      rules=rules, tenant_capacity=FLEET_TENANTS)
+    srv = JobServer(plan, config=StreamConfig(
+        device=device, batch_size=FLEET_B, key_capacity=1 << 17))
+    rng = np.random.default_rng(5)
+    tenants = [f"k{i:04d}" for i in range(FLEET_TENANTS)]
+    hosts = rng.integers(0, FLEET_HOSTS, (FLEET_TENANTS, n_per_tenant))
+    vals = np.round(rng.uniform(0.0, 1000.0, (FLEET_TENANTS, n_per_tenant)), 1)
+    lines = {t: [f"h{h:02d} {v}" for h, v in zip(hosts[i].tolist(), vals[i].tolist())]
+             for i, t in enumerate(tenants)}
+    for t in tenants:
+        srv.add_tenant(t)
+    block = max(1, n_per_tenant // FLEET_ROUNDS)
+    for lo in range(0, n_per_tenant, block):
+        for t in tenants:
+            srv.ingest(t, lines[t][lo:lo + block])
+    return srv, lines
+
+
+def keyed_fleet_oracle(lines: dict) -> dict:
+    """A running max per (tenant, host) in the tenant's arrival order."""
+    out = {}
+    for t, ls in lines.items():
+        best, rows = {}, []
+        for line in ls:
+            h, v = line.split(" ")
+            b = max(best.get(h, float("-inf")), float(v))
+            best[h] = b
+            rows.append((h, b))
+        out[t] = rows
+    return out
+
+
+def host_timers(targets):
+    """Wrap each ``(owner, name)`` method to add up its host seconds;
+    returns ``(seconds by name, undo)``."""
+    got = {name: 0.0 for _, name in targets}
+    plain = {(o, n): getattr(o, n) for o, n in targets}
+
+    def wrap(o, n):
+        f = plain[(o, n)]
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                got[n] += time.perf_counter() - t0
+        return timed
+
+    for o, n in targets:
+        setattr(o, n, wrap(o, n))
+    return got, lambda: [setattr(o, n, f) for (o, n), f in plain.items()]
+
+
+def run_fleet_server(srv, name: str):
+    """``srv.run(name)`` with its builds counted and the fleet's host
+    work outside the stages timed: the rule refreshes at updates, and the
+    per-tenant obs refresh and post-run series (``refresh_obs``,
+    ``_mint_obs``). Returns ``(result, wall, builds, host seconds)``."""
+    from tpustream_torch.runtime.executor import Runner
+    from tpustream_torch.tenancy.server import JobServer
+
+    builds, undo_b = count_builds()
+    timers, undo_t = host_timers([(Runner, "refresh_rules"),
+                                  (JobServer, "refresh_obs"),
+                                  (JobServer, "_mint_obs")])
+    try:
+        t0 = time.perf_counter()
+        res = srv.run(name)
+        wall = time.perf_counter() - t0
+    finally:
+        undo_b()
+        undo_t()
+    return res, wall, builds, timers
+
+
+def check_fleet_run(label: str, srv, res, builds, want, cap: int) -> None:
+    m = res.metrics
+    rows = check_fleet(label, srv, want)
+    causes = recompile_causes(m)
+    grown = [(e["old_capacity"], e["new_capacity"])
+             for e in m.job_obs.flight.events()
+             if e["kind"] == "tenant_capacity_grown"]
+    if list(builds.values()) != [1] or "config_change" in causes:
+        raise AssertionError(f"{label}: builds {builds}, causes {causes}")
+    if cap == FLEET_TENANTS and (grown or causes):
+        raise AssertionError(f"{label}: grew {grown}, causes {causes}")
+    if cap < FLEET_TENANTS and (grown != [(cap, FLEET_TENANTS)]
+                                or causes != {"tenant_capacity_growth": 1}):
+        raise AssertionError(f"{label}: grew {grown}, causes {causes}")
+    print(f"{label}: every tenant's {rows} rows and quota side outputs "
+          f"equal the oracle; program builds {list(builds.values())}; "
+          f"recompile causes {causes}; capacity grown {grown}")
+
+
+def fleet_phase(reps: int) -> dict:
+    """Chapter 6 at a fleet size users run: 4096 tenants, 1,048,576
+    lines, B = 65536. Every tenant's demuxed rows and quota side output
+    against ``c6.expected``; one program build; the same fleet from half
+    the tenant capacity grows once; a profiled rerun of the first fleet
+    for warm steps 2-5; the keyed fleet's rolling max on the kernel
+    against a numpy running max. Returns the kernel's launches in the
+    keyed fleet and its case on the keyed fleet's second call
+    (:func:`path_kernel_case`)."""
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.step import StatelessProgram
+
+    t0 = time.perf_counter()
+    sched = fleet_schedule()
+    want = fleet_expected(sched)
+    n_lines = FLEET_TENANTS * FLEET_RECORDS
+    print(f"fleet input: {FLEET_TENANTS} tenants x {FLEET_RECORDS} lines = "
+          f"{n_lines}; {len(sched['quota'])} quotas, {len(sched['removed'])} "
+          f"removals, {len(sched['updates'])} updates, {FLEET_LATE} late "
+          f"admissions; oracle {sum(len(r) for r, _ in want.values())} rows "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for label, cap in (("fleet", FLEET_TENANTS),
+                       ("fleet growth", FLEET_TENANTS // 2)):
+        t0 = time.perf_counter()
+        srv = fleet_server(sched, cap)
+        t_sched = time.perf_counter() - t0
+        res, wall, builds, timers = run_fleet_server(srv, label)
+        check_fleet_run(label, srv, res, builds, want, cap)
+        m = res.metrics
+        print(f"{label} lines_offered={n_lines} events_per_s_offered="
+              f"{n_lines / wall} {run_summary(m, wall)} schedule_s={t_sched} "
+              + " ".join(f"{k}_s={v}" for k, v in timers.items()))
+        if label == "fleet":
+            main_steps = m.step_times_s
+
+    def rerun():
+        g = fleet_server(sched, FLEET_TENANTS)
+        return g.run("fleet profiled").metrics
+
+    profile_steps("fleet", StatelessProgram, rerun, main_steps)
+
+    t0 = time.perf_counter()
+    srv, lines = keyed_fleet(FLEET_RECORDS)
+    kwant = keyed_fleet_oracle(lines)
+    keys = len({(t, line.split(" ")[0]) for t, ls in lines.items() for line in ls})
+    print(f"keyed fleet input: {FLEET_TENANTS} tenants x {FLEET_RECORDS} lines, "
+          f"{FLEET_HOSTS} shared hosts, {keys} namespaced keys "
+          f"({time.perf_counter() - t0:.1f} s with the oracle)")
+    captured, undo_c = capture_kernel_call()
+    S.reset_launches()
+    try:
+        res, wall, builds, timers = run_fleet_server(srv, "keyed fleet")
+    finally:
+        undo_c()
+    launches = S.seq_rolling_reduce.launches
+    got = srv.outputs()
+    for t in srv.tenants():
+        if [tuple(x) for x in got[t]] != kwant[t]:
+            raise AssertionError(f"keyed fleet: tenant {t} differs from the "
+                                 f"numpy running max")
+    if launches < 1:
+        raise AssertionError("keyed fleet: seq_rolling_reduce launched 0 times")
+    if list(builds.values()) != [1]:
+        raise AssertionError(f"keyed fleet: program builds {builds}")
+    print(f"keyed fleet: every tenant's {sum(map(len, kwant.values()))} rows "
+          f"equal the numpy running max per (tenant, host); program builds "
+          f"{list(builds.values())}; seq_rolling_reduce launches={launches}")
+    print(f"keyed fleet {run_summary(res.metrics, wall)} "
+          + " ".join(f"{k}_s={v}" for k, v in timers.items()))
+    return {"launches": launches,
+            "case": path_kernel_case("keyed fleet", captured["call"], reps)}
+
+
+def obs_run(lines, obs, scrape: bool = False, device: str = "cuda"):
+    """The flagship in the int32 configuration with ``obs``; with
+    ``scrape`` a thread reads ``/metrics`` and ``/snapshot.json`` from the
+    job's endpoint while it runs. ``(rows, metrics, wall, scrapes)``."""
+    import threading
+    import urllib.request
+
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=device, batch_size=B_MAIN, key_capacity=K_MAIN,
+        alert_capacity=1 << 16, obs=obs, **FLAGSHIP_CONFIGS["int32"]))
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    handle = chapter3_bandwidth_eventtime.build(
+        env, env.add_source(ReplaySource(lines))).collect()
+    scrapes, done = [], threading.Event()
+
+    def scraper():
+        url = None
+        while not done.is_set():
+            m = env.metrics
+            server = getattr(getattr(m, "job_obs", None), "server", None)
+            if url is None and server is not None:
+                url = server.url
+            if url is not None:
+                try:
+                    for path in ("/metrics", "/snapshot.json"):
+                        with urllib.request.urlopen(url + path, timeout=5) as r:
+                            scrapes.append((path, r.read().decode()))
+                except OSError:
+                    pass  # the job closed its endpoint
+            done.wait(0.5)
+
+    th = threading.Thread(target=scraper, daemon=True) if scrape else None
+    if th is not None:
+        th.start()
+    t0 = time.perf_counter()
+    try:
+        env.execute("BandwidthMonitorWithEventTime")
+    finally:
+        wall = time.perf_counter() - t0
+        done.set()
+        if th is not None:
+            th.join()
+    return [repr(t) for t in handle.items], env.metrics, wall, scrapes
+
+
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? \S+( \d+)?$')
+
+
+def obs_phase(n_lines: int) -> None:
+    """The flagship (int32 configuration, the flagship phase's lines and
+    settings) in three interleaved pairs of runs, obs off then the whole
+    obs layer on (spans, snapshots every second, chapter 1's health
+    rules, latency markers, the live endpoint scraped while the job
+    runs); then the whole layer without the scraper, and the registry
+    alone (no spans, snapshots, health, markers or endpoint). Every
+    run's rows equal the oracle, every run waits on the card as often,
+    each builds once with no recompile; every scrape parses, health ends
+    at OK. Prints each run's events/s and step times. Then a short run
+    with the profiler bridge under ``torch.profiler``: the span names
+    are among its events."""
+    import torch
+
+    from tpustream_torch.config import ObsConfig
+    from tpustream_torch.jobs import chapter1_threshold as ch1
+
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want = [f"({c},{v!r})" for c, v in flagship_oracle(ts, ch, flow, int32_panes=True)]
+    full = ObsConfig(enabled=True, trace=True, snapshot_interval_s=1.0,
+                     health_rules=ch1.health_rules(), serve_port=0,
+                     latency_marker_interval_ms=100.0)
+    plan = [("off", ObsConfig(), False), ("on", full, True)] * 3 + [
+        ("on, no scraper", full, False),
+        ("registry only", ObsConfig(enabled=True, trace=False), False)]
+    runs = []
+    for i, (label, obs, scrape) in enumerate(plan):
+        builds, undo_b = count_builds()
+        try:
+            rows, m, wall, scrapes = obs_run(lines, obs, scrape=scrape)
+        finally:
+            undo_b()
+        if rows != want:
+            raise AssertionError(f"obs run {i} ({label}): {len(rows)} rows vs "
+                                 f"{len(want)} from the oracle")
+        if list(builds.values()) != [1]:
+            raise AssertionError(f"obs run {i} ({label}): builds {builds}")
+        rest = sorted(m.step_times_s[1:])
+        q1, q2, q3 = statistics.quantiles(rest, n=4)
+        print(f"obs run {i} ({label}): events_per_s={n_lines / wall} "
+              f"step_ms_quartiles_rest={[q1 * 1e3, q2 * 1e3, q3 * 1e3]} "
+              f"step_s_sum={sum(m.step_times_s)} {wall_split(m, wall)}")
+        runs.append((label, m, wall, scrapes))
+    syncs = {m.d2h_syncs for _, m, _, _ in runs}
+    if len(syncs) != 1:
+        raise AssertionError(f"obs: d2h_syncs differ between runs: "
+                             f"{[(label, m.d2h_syncs) for label, m, _, _ in runs]}")
+    n_metrics = n_snap = 0
+    for label, m, _, scrapes in runs:
+        if label == "off":
+            continue
+        snap = m.obs_snapshot()
+        compiles = sum(s["value"] for s in snap["metrics"]["series"]
+                       if s["name"] == "operator_compile_count")
+        causes = recompile_causes(m)
+        if compiles != 1 or causes:
+            raise AssertionError(f"obs ({label}): compile count {compiles}, "
+                                 f"recompile causes {causes}")
+        for path, body in scrapes:
+            if path == "/metrics":
+                bad = [l for l in body.splitlines()
+                       if l and not l.startswith("#") and not PROM_LINE.match(l)]
+                if bad or not body:
+                    raise AssertionError(f"obs: /metrics does not parse: {bad[:3]}")
+                n_metrics += 1
+            else:
+                json.loads(body)["metrics"]["series"]
+                n_snap += 1
+        if label == "on" and not scrapes:
+            raise AssertionError("obs: a scraped run saw no scrape")
+        if label.startswith("on") and snap["health"]["level"] != "ok":
+            raise AssertionError(f"obs ({label}): health ended at "
+                                 f"{snap['health']['level']}: {snap['health']}")
+    eps = {}
+    for label, m, wall, _ in runs:
+        eps.setdefault(label, []).append(n_lines / wall)
+    pairs = [(on - off) / off for off, on in zip(eps["off"], eps["on"])]
+    print(f"obs: rows equal the oracle in all {len(runs)} runs ({len(want)}); "
+          f"d2h_syncs {syncs.pop()} in every run; one build and no recompile "
+          f"in every obs run; {n_metrics} /metrics and {n_snap} "
+          f"/snapshot.json scrapes parsed; health ok")
+    print(f"obs: events_per_s_obs_off={eps['off']} events_per_s_obs_on="
+          f"{eps['on']} change_a_pair={pairs} on_no_scraper="
+          f"{eps['on, no scraper']} registry_only={eps['registry only']}")
+    label, on, _, _ = [r for r in runs if r[0] == "on"][-1]
+    snap = on.obs_snapshot()
+    spans = {}
+    for e in snap["trace"]["events"]:
+        spans[e["kind"]] = spans.get(e["kind"], 0.0) + e["dur_s"]
+    s = on.summary()
+    lat = next(x["value"] for x in snap["metrics"]["series"]
+               if x["name"] == "operator_sink0_e2e_latency_ms")
+    print(f"obs: last on run: {len(on.job_obs.snapshotter.snapshots)} snapshots "
+          f"kept, trace ring {snap['trace']['total_spans']} spans "
+          f"({snap['trace']['dropped_spans']} dropped)")
+    print("obs: span seconds by kind " + " ".join(
+        f"{k}={v}" for k, v in sorted(spans.items()))
+        + f"; Metrics stage sums parse_s={s['host_time_s']} "
+        f"upload_s={s['upload_time_s']} step_s={s['device_time_s']} "
+        f"fetch_s={s['fetch_time_s']} emit_s={s['emit_time_s']}")
+    print(f"obs: latency markers source->sink0 count={lat['count']} "
+          f"p50_ms={lat['p50']} p99_ms={lat['p99']}")
+
+    short = lines[:B_MAIN]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        obs_run(short, ObsConfig(enabled=True, profiler_bridge=True))
+    names = {e.name for e in prof.events()}
+    kinds = ("parse", "h2d", "dispatch", "fetch", "emit")
+    missing = [k for k in kinds if f"tpustream.{k}" not in names]
+    if missing:
+        raise AssertionError(f"obs: spans {missing} not among the profiler's events")
+    cuda = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    print(f"obs: profiler bridge run ({len(short)} lines): every span kind "
+          f"{list(kinds)} among the profiler's events, beside {cuda} CUDA events")
 
 
 # -- phase small: the new jobs on the card equal the same jobs on the CPU ---
@@ -2399,7 +2974,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "cep,rules,small")
+                            "cep,rules,fleet,obs,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -2451,8 +3026,11 @@ def main() -> int:
         timed("count", count_phase, args.window_lines)
     if "cep" in phases:
         timed("cep", cep_phase, args.cep_lines, args.cep_lines)
-    rules_launches = (timed("rules", rules_phase, args.cep_lines)
-                      if "rules" in phases else None)
+    rules = (timed("rules", rules_phase, args.cep_lines, args.reps)
+             if "rules" in phases else {})
+    fleet = timed("fleet", fleet_phase, args.reps) if "fleet" in phases else {}
+    if "obs" in phases:
+        timed("obs", obs_phase, args.flagship_lines)
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -2460,14 +3038,18 @@ def main() -> int:
         small_cep_rules()
     print(f"phases: {time.perf_counter() - t_all:.1f} s")
     # one entry a main path and dtype instantiation: float64 on the
-    # chapter-2 job's and on the rules phase's rolling max (its
-    # rule-reading filter ahead of the max), int64 on the chain's
+    # chapter-2 job's and int64 on the chain's (the kernel phase's
+    # uniform case at their shape), float64 on the rules phase's rolling
+    # max (its rule-reading filter ahead of the max) and on the keyed
+    # fleet's tenant-namespaced max (each path's own second call)
     entries = []
-    for path, dtype, op, path_launches in (
-            ("job", "float64", "max", launches.get("seq_rolling_reduce")),
-            ("chain", "int64", "max", chain_launches.get("int64")),
-            ("rules", "float64", "max", rules_launches)):
-        case = cases.get((dtype, op, "uniform"))
+    for path, dtype, op, path_launches, case in (
+            ("job", "float64", "max", launches.get("seq_rolling_reduce"),
+             cases.get(("float64", "max", "uniform"))),
+            ("chain", "int64", "max", chain_launches.get("int64"),
+             cases.get(("int64", "max", "uniform"))),
+            ("rules", "float64", "max", rules.get("launches"), rules.get("case")),
+            ("fleet", "float64", "max", fleet.get("launches"), fleet.get("case"))):
         if case is None:
             continue
         entries.append({

@@ -35,6 +35,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.runtime.cep_program\n"
         "import tpustream_torch.jobs.chapter4_cep_alert\n"
         "import tpustream_torch.jobs.chapter5_dynamic_rules\n"
+        "import tpustream_torch.tenancy, tpustream_torch.obs\n"
+        "import tpustream_torch.jobs.chapter6_tenant_fleet\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -46,6 +48,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert "tpustream_torch.jobs.chapter3_bandwidth_eventtime" in out
     assert "tpustream_torch.runtime.cep_program" in out
     assert "tpustream_torch.broadcast.rules" in out
+    assert "tpustream_torch.tenancy.server" in out
+    assert "tpustream_torch.obs.compilation" in out
+    assert "tpustream_torch.jobs.chapter6_tenant_fleet" in out
     assert [m for m in out if _forbidden(m)] == []
 
 

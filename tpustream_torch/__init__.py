@@ -14,9 +14,15 @@ Ported so far, on one device: the tutorial's jobs (chapters 1-3: the
 stateless filter, rolling aggregates, tumbling and sliding windows with
 ``reduce``/``aggregate``/``process()``, allowed lateness and the late
 side output), session windows, count windows, chained keyed stages,
-chapter 4's CEP pattern matching (``CEP``, ``Pattern``) and chapter 5's
+chapter 4's CEP pattern matching (``CEP``, ``Pattern``), chapter 5's
 dynamic rules over a broadcast control stream (``RuleSet``,
-``DataStream.broadcast``). ``ROADMAP.md`` lists what is still to come.
+``DataStream.broadcast``), chapter 6's multi-tenant job server
+(``JobServer``, ``TenantPlan``, ``TenantQuota``: many tenants' rule
+sets in one built program) and the observability layer a job reports
+through with ``ObsConfig(enabled=True)`` (``tpustream_torch.obs``:
+registry, spans, latency markers, health rules, flight recorder,
+snapshots, the ``MetricsServer`` scrape, tenant SLOs and the build
+registry). ``ROADMAP.md`` lists what is still to come.
 """
 
 from .api.tuples import Tuple2, Tuple3, Tuple4  # noqa: E402
@@ -45,6 +51,8 @@ from .broadcast import (  # noqa: E402
 )
 from .cep import CEP, Pattern, PatternSelectFunction  # noqa: E402
 from .config import StreamConfig  # noqa: E402
+from .obs import MetricsServer, TenantSLO  # noqa: E402
+from .tenancy import JobServer, TenantPlan, TenantQuota  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -55,8 +63,10 @@ __all__ = [
     "BroadcastStream",
     "CEP",
     "FilterFunction",
+    "JobServer",
     "KeySelector",
     "MapFunction",
+    "MetricsServer",
     "OutputTag",
     "Pattern",
     "PatternSelectFunction",
@@ -68,6 +78,9 @@ __all__ = [
     "RuleUpdate",
     "StreamConfig",
     "StreamExecutionEnvironment",
+    "TenantPlan",
+    "TenantQuota",
+    "TenantSLO",
     "Time",
     "TimeCharacteristic",
     "Tuple2",

@@ -28,6 +28,12 @@ class StreamExecutionEnvironment:
         # BroadcastStream per job; its RuleSet threads through every
         # program of the plan chain (tpustream_torch/broadcast)
         self._broadcast = None
+        # multi-tenant fleet root (tenancy/server.py JobServer.build_job
+        # sets it): the executor attaches it to the job's obs root
+        self._tenancy = None
+        # dead-letter output, (line, error) pairs; stays empty here (the
+        # port has no quarantine yet) but the fleet's obs reads it
+        self.dead_letters: list = []
 
     # -- construction --------------------------------------------------------
     @staticmethod

@@ -15,7 +15,7 @@ from typing import Optional
 
 @dataclass
 class ObsConfig:
-    """Observability knobs (tpustream/obs): per-operator metrics,
+    """Observability knobs (tpustream_torch/obs): per-operator metrics,
     step-span tracing, gauges, and periodic snapshots.
 
     Disabled by default: the executor then wires the null instrument
@@ -27,9 +27,9 @@ class ObsConfig:
     trace: bool = True                # record step spans (when enabled)
     trace_ring_size: int = 4096       # retained spans (oldest overwritten)
     profiler_bridge: bool = False     # wrap spans in
-                                      # jax.profiler.TraceAnnotation so a
-                                      # jax.profiler.trace() capture shows
-                                      # host spans aligned with device work
+                                      # torch.profiler.record_function so a
+                                      # torch.profiler capture shows the
+                                      # host spans beside the CUDA kernels
     step_histogram_samples: int = 8192  # per-operator histogram ring bound
                                         # (count/sum stay exact past it)
     snapshot_interval_s: float = 0.0  # periodic registry+trace snapshots

@@ -14,7 +14,30 @@ from __future__ import annotations
 
 import datetime as _dt
 
+from .broadcast import (  # noqa: F401 — the broadcast-state surface
+    # (ruleStream.broadcast(descriptor) in Flink) re-exported with its
+    # camelCase accessors (RuleSet.getParam/getValue/getVersion,
+    # BroadcastStream.getRuleSet) so chapter-style jobs read like the
+    # original MapStateDescriptor idiom
+    BroadcastStream,
+    RuleDescriptor,
+    RuleSet,
+    RuleUpdate,
+)
+from .cep import CEP, Pattern, PatternSelectFunction  # noqa: F401 — the
+# FlinkCEP surface re-exported with its Java camelCase methods
+# (Pattern.begin(..).followedBy(..).within(..), PatternStream
+# .sideOutputLateData) so chapter-style jobs read like the original
 from .hostparse import PExpr, SymNum, SymStr
+from .obs import MetricsServer, TenantSLO  # noqa: F401 — the fleet's
+# observability surface (TenantSLO objectives, the live scrape endpoint)
+from .tenancy import (  # noqa: F401 — the multi-tenant serving surface
+    # (JobServer.addTenant/removeTenant/updateTenantRules camelCase
+    # aliases) re-exported to match the CEP/broadcast convention
+    JobServer,
+    TenantPlan,
+    TenantQuota,
+)
 from .utils.timeutil import iso_local_to_epoch_sec
 
 

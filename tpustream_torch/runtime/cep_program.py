@@ -63,6 +63,7 @@ COUNTERS = ("cep_matches", "cep_timeouts", "cep_partials", "late_dropped",
 
 
 class CepProgram(BaseProgram):
+    operator_name = "cep"
     main_emission_prefix = True  # matches compact into a prefix buffer
     # the main stream always carries each match's timestamp, so the step
     # always takes the batch's timestamps

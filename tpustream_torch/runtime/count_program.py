@@ -56,6 +56,8 @@ class CountWindowProgram(WindowProgram):
     / combine / finalize over leaf tuples) but none of its time
     machinery."""
 
+    operator_name = "count_window"
+
     fires_on_clock = False
     main_emission_prefix = False  # a mask selects the rows
 
@@ -309,6 +311,8 @@ class SlidingCountWindowProgram(_ElementLogMixin, CountWindowProgram):
     first, in ``size`` steps of the user combiner over ``[B]`` lanes (a
     Python loop where the reference runs a ``lax.scan``)."""
 
+    operator_name = "sliding_count_window"
+
     def __init__(self, plan: JobPlan, cfg):
         super().__init__(plan, cfg)
         self.count_slide = int(plan.stateful.window.count_slide)
@@ -373,6 +377,8 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
     size]`` element matrices (``F`` = ``fire_capacity`` or the batch
     size) that ride the emission; the host reads their count once and
     copies only that prefix."""
+
+    operator_name = "count_process"
 
     host_evaluated = True
 

@@ -156,6 +156,18 @@ class DeviceChain:
         self.in_tables = list(in_tables)
         self.out_kinds, self.out_tables = self._infer_output()
 
+    def describe(self) -> dict:
+        """Static size of this chain, for the build registry's events:
+        op count and arities."""
+        n_map = sum(1 for op, _ in self.ops if op == "map")
+        return {
+            "chain_ops": len(self.ops),
+            "chain_map_ops": n_map,
+            "chain_filter_ops": len(self.ops) - n_map,
+            "chain_in_arity": len(self.in_kinds),
+            "chain_out_arity": len(self.out_kinds),
+        }
+
     def _record_fn(self, values, keep):
         """The chain on one record whose fields are tensors of any one
         shape: (out values, keep, kinds, tables)."""

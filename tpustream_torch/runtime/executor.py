@@ -45,9 +45,21 @@ it, and through the line path otherwise. A punctuated watermark
 assigner's per-batch maximum watermark raises the step's watermark
 floor.
 
+Observability (``StreamConfig.obs.enabled``): the job gets a
+``JobObs`` root and each runner an ``OperatorObs`` (the null twins when
+obs is off, so a hook is a no-op attribute call). Spans ``parse``,
+``h2d``, ``dispatch``, ``fetch`` and ``emit`` time the host's side of
+each batch and step and never wait on the card: ``dispatch`` covers the
+issue of a step, the wait for it is the step timer's. Every program
+build and state reshape (key growth, tenant-capacity growth) lands in
+the build registry (``obs/compilation.py``) with its cause; latency
+markers stamped at the source ride the steps to each operator edge and
+sink; snapshots tick from the batch loop; a fleet (``tenancy/``)
+attaches its per-tenant series and SLOs to the root.
+
 Not ported here, and refused by :func:`execute_job` rather than ignored:
-checkpoints and restore, supervised restarts, the observability layer,
-ingest lanes and dead-letter quarantine. The reference's pipelining knobs
+checkpoints and restore, supervised restarts, ingest lanes and
+dead-letter quarantine. The reference's pipelining knobs
 (``async_depth``, ``h2d_depth``, ``fetch_group``, wire compression)
 change no output and are not read.
 """
@@ -78,6 +90,13 @@ from ..records import (
     DerivedKeyTable,
     StringTable,
 )
+from ..obs.compilation import (
+    CAUSE_INITIAL,
+    CAUSE_KEY_GROWTH,
+    CAUSE_TENANT_GROWTH,
+    CompileObs,
+)
+from ..obs.registry import TwinCounter
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
 from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink
@@ -397,10 +416,70 @@ class Runner:
         self.plan = plan
         self.cfg = cfg
         self.metrics = metrics
-        self.program = build_program(plan, cfg)
+        with Stopwatch() as build_sw:
+            self.program = build_program(plan, cfg)
+            self.state = self.program.init_state()
         self.device = self.program.device
-        self.state = self.program.init_state()
         self.sinks, self.side_sinks = _make_sinks(plan, cfg)
+        # per-operator observability scope: counters/histograms labelled
+        # {job, operator} plus span minting. The null twin (obs disabled)
+        # makes every obs call below a no-op attribute call.
+        self.obs = metrics.job_obs.operator(self.program.operator_name)
+        self._flight = metrics.job_obs.flight
+        self._step_idx = 0
+        # end-to-end latency markers (obs/latency.py): markers accepted
+        # here ride the next step and are recorded once its emissions
+        # are dispatched; recorded markers park in _marker_out until
+        # pump_chain hands them downstream. Both stay empty unless the
+        # source stamper is installed (obs on + a marker interval).
+        self._pending_markers: List = []
+        self._marker_out: List = []
+        # wire-traffic series: bytes the executor moves each way, and the
+        # share of an emission buffer a fetch copies (null instruments
+        # when obs is off); the port's prefix buffers hold every row, so
+        # its spill counter stays 0
+        self._h2d_bytes = self.obs.counter("h2d_bytes_total")
+        self._fetch_bytes = self.obs.counter("fetch_bytes_total")
+        self._compaction_gauge = self.obs.gauge("compaction_ratio")
+        self.obs.counter("compaction_spills")
+        self._compile_obs: Optional[CompileObs] = None
+        if self.obs.enabled:
+            # the build registry (obs/compilation.py): this build and
+            # every later reshape of the state, with its cause
+            self._compile_obs = CompileObs(
+                self.obs, self._flight,
+                meta=self.program.pre_chain.describe(),
+            )
+            # pull-style backpressure gauges, read at snapshot time: the
+            # chain hand-off rows parked between pumps, and the steps in
+            # flight (the port runs each step to its end: always 0)
+            self.obs.gauge("chain_buffer_entries").set_fn(
+                lambda: len(self._chain_buf) + len(self._chain_rows)
+            )
+            self.obs.gauge("pipeline_occupancy").set_fn(lambda: 0)
+            # every sink counts under the legacy flat name and the one
+            # labelled family, kept in lockstep
+            for i, (_, sink) in enumerate(self.sinks):
+                sink.obs_counter = TwinCounter(
+                    self.obs.counter(f"sink{i}_emitted"),
+                    self.obs.scoped(sink=str(i)).counter(
+                        "operator_sink_emitted"),
+                )
+            for tag, (_, sink) in self.side_sinks.items():
+                sink.obs_counter = TwinCounter(
+                    self.obs.counter(f"side_sink{tag}_emitted"),
+                    self.obs.scoped(sink=f"side:{tag}").counter(
+                        "operator_sink_emitted"),
+                )
+        # marker latency series: source -> this operator's edge, and
+        # (terminal stage) source -> each sink; tenant-labelled ones are
+        # minted per label the fleet's round-robin stamper emits
+        self._e2e_hist = self.obs.histogram("e2e_latency_ms")
+        self._sink_e2e = [
+            self.obs.histogram(f"sink{i}_e2e_latency_ms")
+            for i in range(len(self.sinks))
+        ]
+        self._tenant_e2e: Dict[str, object] = {}
         # a host-evaluated window's post map/filter tail
         self.post_ops = _bind_ops(plan.device_post)
         self.formatter = EmissionFormatter(
@@ -423,6 +502,16 @@ class Runner:
         self._chain_ts = False  # an event-time stage is downstream
         self._last_tick: Optional[int] = None
         self.count_input = True  # False for a stage fed by another
+        # flight breadcrumb: one a program build (no-op when obs is off)
+        self._flight.record(
+            "program_built",
+            operator=self.obs.name or self.program.operator_name,
+            key_capacity=cfg.key_capacity,
+            shards=1,
+        )
+        if self._compile_obs is not None:
+            self._compile_obs.record_compile(
+                CAUSE_INITIAL, build_sw.elapsed * 1e3)
 
     # -- chained stages ---------------------------------------------------
 
@@ -527,6 +616,11 @@ class Runner:
             d = self._build_lazy_downstream()
         if d is None:
             return
+        if self._marker_out:
+            # markers recorded at this edge continue downstream with the
+            # rows they rode
+            d.accept_markers(self._marker_out)
+            self._marker_out = []
         cols: List[np.ndarray] = []
         if self._chain_rows:
             cols, ts, kinds, tables = self._rows_to_cols()
@@ -564,26 +658,123 @@ class Runner:
             d._last_tick = proc_now
         d.pump_chain(proc_now)
 
+    # -- latency markers (obs/latency.py) ------------------------------------
+
+    def accept_markers(self, markers) -> None:
+        """Markers arriving at this stage (from the source stamper or the
+        upstream stage); they ride the next step."""
+        if markers:
+            self._pending_markers.extend(markers)
+
+    def _take_markers(self) -> list:
+        """Detach the pending markers for the step about to run."""
+        if not self._pending_markers:
+            return []
+        ms, self._pending_markers = self._pending_markers, []
+        return ms
+
+    def _record_markers(self, markers) -> None:
+        """A step's markers have now crossed this operator's edge:
+        record their source->here age, then route them on — to the
+        downstream stage, or (terminal stage) across every sink edge,
+        with the fleet's tenant-labelled series."""
+        now_ns = time.monotonic_ns()
+        edge = self.obs.name or self.program.operator_name
+        for m in markers:
+            self._e2e_hist.observe(m.observe(edge, now_ns))
+        if self.downstream is not None or self._lazy_plans:
+            self._marker_out.extend(markers)
+            return
+        for m in markers:
+            if m.tenant is None:
+                continue
+            h = self._tenant_e2e.get(m.tenant)
+            if h is None:
+                h = self.metrics.job_obs.group.group(
+                    tenant=m.tenant
+                ).histogram("tenant_e2e_latency_ms")
+                self._tenant_e2e[m.tenant] = h
+            h.observe(m.age_ms(now_ns))
+        for i, h in enumerate(self._sink_e2e):
+            for m in markers:
+                h.observe(m.observe(f"sink{i}", now_ns))
+        # sampled flight-path probes are complete at the terminal stage
+        log = self.metrics.job_obs.traces
+        for m in markers:
+            if getattr(m, "trace_id", 0):
+                log.add(m)
+
+    def settle_markers(self) -> None:
+        """End of stream: record any marker still waiting for a step (no
+        stamped marker is lost), then cascade down the chain."""
+        if self._pending_markers:
+            self._record_markers(self._take_markers())
+        if self.downstream is not None:
+            if self._marker_out:
+                self.downstream.accept_markers(self._marker_out)
+                self._marker_out = []
+            self.downstream.settle_markers()
+
     # -- dynamic rules ------------------------------------------------------
 
     def refresh_rules(self) -> None:
         """Write the RuleSet's current values and version into this
         stage's rule tensors in place (one fill a rule): the program is
-        not rebuilt, and the next step reads the new values. A leaf whose
-        shape changed (a per-tenant vector that grew) is replaced."""
+        not rebuilt, and the next step reads the new values.
+
+        One exception: when the tenant capacity grew since the last
+        refresh (a fleet admitted a slot past the current ``[T]``), or
+        the set of rule names changed, the leaves change shape. That
+        routes through :meth:`_grow_tenant_capacity`: recorded in the
+        flight ring and the build registry, as key growth is."""
         ruleset = self.program.ruleset
         if ruleset is None or RULES_KEY not in self.state:
             return
         leaves = self.state[RULES_KEY]
-        for name, new in ruleset.device_leaves().items():
-            old = leaves.get(name)
-            if old is None or old.shape != new.shape:
-                leaves[name] = new.to(self.device)
-            elif new.dim() == 0:
+        new_leaves = ruleset.device_leaves()
+        if set(new_leaves) != set(leaves) or any(
+            tuple(v.shape) != tuple(leaves[k].shape)
+            for k, v in new_leaves.items()
+        ):
+            self._grow_tenant_capacity(new_leaves)
+            return
+        for name, new in new_leaves.items():
+            old = leaves[name]
+            if new.dim() == 0:
                 old.fill_(new.item())
             else:
                 old.copy_(new)
         self.state[RULE_VERSION_KEY].fill_(ruleset.version)
+
+    def _grow_tenant_capacity(self, new_leaves) -> None:
+        """Re-shape the rule leaves after the RuleSet's tenant capacity
+        (or its set of rule names) changed: the tenancy counterpart of
+        key growth. The chain has drained (rule updates land at a batch
+        boundary, after :meth:`pump_chain`), so only the rule leaves are
+        replaced; no other state moves and no program is rebuilt. The
+        reshape is flight-recorded with the old and new capacity and
+        counted in the build registry, cause ``tenant_capacity_growth``."""
+        ruleset = self.program.ruleset
+        old = self.state[RULES_KEY]
+        old_cap = next(
+            (v.shape[0] for v in old.values() if v.dim() == 1), 0)
+        self._flight.record(
+            "tenant_capacity_grown",
+            operator=self.obs.name or self.program.operator_name,
+            old_capacity=old_cap,
+            new_capacity=ruleset.tenant_capacity,
+            cause=CAUSE_TENANT_GROWTH,
+        )
+
+        def place():
+            self.state[RULES_KEY] = {
+                k: v.to(self.device) for k, v in new_leaves.items()}
+            self.state[RULE_VERSION_KEY].fill_(ruleset.version)
+
+        if self._compile_obs is not None:
+            self._compile_obs.build(CAUSE_TENANT_GROWTH, place)
+        else:
+            place()
 
     # -- steps --------------------------------------------------------------
 
@@ -599,7 +790,19 @@ class Runner:
         cap = self.cfg.key_capacity
         while cap < len(table):
             cap *= 2
-        self.state = self.program.grow_state(self.state, cap)
+        self._flight.record(
+            "key_capacity_grown",
+            operator=self.obs.name or self.program.operator_name,
+            old_capacity=self.cfg.key_capacity,
+            new_capacity=cap,
+            cause=CAUSE_KEY_GROWTH,
+        )
+
+        def grow():
+            return self.program.grow_state(self.state, cap)
+
+        self.state = (grow() if self._compile_obs is None
+                      else self._compile_obs.build(CAUSE_KEY_GROWTH, grow))
         self.cfg = dataclasses.replace(self.cfg, key_capacity=cap)
 
     def feed(self, batch: Batch, wm_lower: int = LONG_MIN + 1,
@@ -616,6 +819,7 @@ class Runner:
             self._run_step(batch.slice_rows(start, stop), wm_lower, t_batch)
             if self.count_input:
                 self.metrics.records_in += stop - start
+                self.obs.records_in.inc(stop - start)
             # deferred window ends fire before the next batch can move
             # the ring past them
             self._drain(wm_lower, t_batch)
@@ -656,9 +860,12 @@ class Runner:
 
     def _upload(self, batch: Batch):
         pin = self.device.type == "cuda"
+        obs_on = self.obs.enabled
 
         def put(a: np.ndarray) -> torch.Tensor:
             t = torch.from_numpy(np.ascontiguousarray(a))
+            if obs_on:
+                self._h2d_bytes.inc(t.numel() * t.element_size())
             if pin:
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=pin)
@@ -676,8 +883,10 @@ class Runner:
 
     def _to_host(self, tensors) -> List[np.ndarray]:
         """Copy device tensors to the host with one wait for them all."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
         self.metrics.d2h_syncs += 1
-        self.metrics.d2h_bytes += sum(t.numel() * t.element_size() for t in tensors)
+        self.metrics.d2h_bytes += nbytes
+        self._fetch_bytes.inc(nbytes)
         if self.device.type != "cuda":
             return [t.numpy() for t in tensors]
         outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -693,19 +902,37 @@ class Runner:
 
     def _run_step(self, batch: Batch, wm_lower: int, t_batch: float) -> None:
         m = self.metrics
+        obs = self.obs
         emitted_before = m.records_emitted
-        with Stopwatch() as sw:
+        self._step_idx += 1
+        step_markers = self._take_markers()
+        with obs.span("h2d", self._step_idx), Stopwatch() as sw:
             cols, valid, ts = self._upload(batch)
             self._sync()
         m.upload_times_s.append(sw.elapsed)
+        for mk in step_markers:
+            if getattr(mk, "trace_id", 0):
+                mk.add_span("h2d", t0=sw.t0, dur=sw.elapsed)
         reads = self.program.host_reads
+        self._flight.set_active(obs.name or self.program.operator_name)
         with Stopwatch() as sw:
-            self.state, emissions = self.program.run_step(
-                self.state, cols, valid, ts, wm_lower)
+            # the span times the host's issue of the step only: the
+            # wait for the card below is the step timer's, never a span's
+            with obs.span("dispatch", self._step_idx), Stopwatch() as dw:
+                self.state, emissions = self.program.run_step(
+                    self.state, cols, valid, ts, wm_lower)
             self._sync()
         m.step_times_s.append(sw.elapsed)
         m.d2h_syncs += self.program.host_reads - reads
         m.steps += 1
+        obs.steps.inc()
+        obs.dispatch_time_s.observe(dw.elapsed)
+        obs.step_time_s.observe(sw.elapsed)
+        for mk in step_markers:
+            if getattr(mk, "trace_id", 0):
+                mk.add_span("device_step", t0=sw.t0, dur=sw.elapsed,
+                            step=self._step_idx,
+                            operator=obs.name or self.program.operator_name)
         fire_info = emissions.get("process_fire")
         if fire_info is not None:
             self._evaluate_fires(fire_info)
@@ -714,10 +941,13 @@ class Runner:
             # a stage that feeds an event-time stage hands over each
             # row's timestamp: a window's end - 1, or the record's own
             want = ("window_end", "ts") if self._chain_ts else ()
-            with Stopwatch() as sw:
+            with obs.span("fetch", self._step_idx), Stopwatch() as sw:
                 out, subtask, extra = self._fetch(main, want)
             m.fetch_times_s.append(sw.elapsed)
-            with Stopwatch() as sw:
+            for mk in step_markers:
+                if getattr(mk, "trace_id", 0):
+                    mk.add_span("fetch", t0=sw.t0, dur=sw.elapsed, group=1)
+            with obs.span("emit", self._step_idx), Stopwatch() as sw:
                 if self.downstream is not None:
                     if out and len(out[0]):
                         ts_rows = None
@@ -741,8 +971,12 @@ class Runner:
             with Stopwatch() as sw:
                 self._dispatch_timeout(timeout)
             m.emit_times_s.append(sw.elapsed)
-        if m.records_emitted > emitted_before:
+        emitted_delta = m.records_emitted - emitted_before
+        if emitted_delta:
+            obs.records_emitted.inc(emitted_delta)
             m.emit_latencies_s.append(time.perf_counter() - t_batch)
+        if step_markers:
+            self._record_markers(step_markers)
 
     def _evaluate_fires(self, fire_info) -> None:
         """A full-window program's fires: the program gathers each fired
@@ -776,6 +1010,8 @@ class Runner:
         if not self._chained:
             m.records_emitted += emitted
         m.window_fires += fired
+        if fired:
+            self.obs.counter("window_fires").inc(fired)
 
     def _late_sinks(self) -> list:
         """The late-data side outputs: every side sink but the CEP
@@ -843,6 +1079,8 @@ class Runner:
             key = main.get("key")
             if n == 0:
                 return [], None, {}
+            # the share of the emission buffer's rows the fetch copies
+            self._compaction_gauge.set(n / max(1, main["cols"][0].shape[0]))
             extra = [] if key is None else [key[:n]]
             n_cols = len(main["cols"])
             got = self._to_host([c[:n] for c in main["cols"]] + extra
@@ -852,7 +1090,9 @@ class Runner:
                 return got[:n_cols], None, got_extra
             return (got[:n_cols], got[n_cols].astype(np.int64) % n_shards,
                     got_extra)
-        # checked before any row of the step reaches a sink
+        # checked before any row of the step reaches a sink; the whole
+        # buffer is copied
+        self._compaction_gauge.set(1.0)
         bad = main.get("bad_keys")
         extra = [main[w] for w in names] + ([] if bad is None else [bad])
         got = self._to_host(
@@ -889,6 +1129,24 @@ class Runner:
             vals = self._to_host([self.state[n] for n in names])
             for n, v in zip(names, vals):
                 setattr(self.metrics, n, getattr(self.metrics, n) + int(v))
+                if int(v):
+                    self.obs.counter(n).inc(int(v))
+        if self.obs.enabled:
+            self._finalize_obs_gauges()
+
+    def _finalize_obs_gauges(self) -> None:
+        """Expose the program's scalar clocks as gauges: the event-time
+        watermark, the newest timestamp seen, the ring's high pane and
+        the deferred-fire backlog (host ints in the port, read at no
+        cost; obs-enabled runs only)."""
+        vals = self.program.obs_state_scalars(self.state)
+        for n, v in vals.items():
+            self.obs.gauge("state_" + n).set(int(v))
+        wm, max_ts = vals.get("wm"), vals.get("max_ts")
+        if wm is not None and max_ts is not None and int(wm) > LONG_MIN:
+            # 0 after the end-of-stream MAX watermark; the live lag
+            # during a run is the job-scope host gauge (execute_job)
+            self.obs.gauge("watermark_lag").set(max(0, int(max_ts) - int(wm)))
 
     def check_strict(self) -> None:
         """strict_overflow: fail loudly if any loss counter is nonzero
@@ -986,7 +1244,6 @@ def _check_supported(env, cfg: StreamConfig) -> None:
         "checkpoint_interval_batches": cfg.checkpoint_interval_batches > 0,
         "ingest_lanes": cfg.ingest_lanes > 1,
         "dead_letter": bool(cfg.dead_letter),
-        "obs.enabled": bool(cfg.obs.enabled),
     }
     names = [k for k, on in refused.items() if on]
     if names:
@@ -1022,7 +1279,55 @@ def _parse(host: HostStage, sb):
 
 def execute_job(env, sink_nodes) -> JobResult:
     """Plan the job and run it to source exhaustion on
-    ``env.config.device``."""
+    ``env.config.device``. On any failure an obs-enabled job records the
+    exception in its flight recorder and writes the postmortem dump
+    before re-raising; either way its obs root closes (a final snapshot,
+    the scrape endpoint stopped)."""
+    try:
+        result = _execute_job(env, sink_nodes)
+    except BaseException as e:
+        job_obs = getattr(getattr(env, "metrics", None), "job_obs", None)
+        if job_obs is not None:
+            job_obs.on_failure(e)
+        raise
+    env.metrics.job_obs.close()
+    return result
+
+
+def _make_job_obs(env, cfg: StreamConfig):
+    """``(metrics, job_obs)``: the registry-backed Metrics facade and,
+    with ``cfg.obs.enabled``, the job's obs root (else its null twin)."""
+    if not cfg.obs.enabled:
+        metrics = Metrics()
+        return metrics, metrics.job_obs
+    from ..obs.flightrecorder import jsonable_config
+    from ..obs.runtime import JobObs
+
+    job_obs = JobObs(cfg.obs, job_name=env.job_name or "job",
+                     device=cfg.device)
+    metrics = Metrics(registry=job_obs.registry, job_name=job_obs.job_name)
+    metrics.job_obs = job_obs
+    # fleet runs (tenancy/server.py): per-tenant gauges refresh at each
+    # snapshot tick, tenant SLOs land as health rules, and /tenants.json
+    # gets its provider
+    if getattr(env, "_tenancy", None) is not None:
+        job_obs.attach_tenancy(env._tenancy)
+    # first flight event: the exact config the job ran with
+    job_obs.flight.record(
+        "config_resolved", job=job_obs.job_name,
+        config=jsonable_config(cfg))
+    from .. import native as _native_mod
+
+    if not _native_mod.available():
+        job_obs.flight.record(
+            "native_parse_unavailable",
+            error=_native_mod.build_error() or "build not attempted")
+    else:
+        job_obs.flight.record("native_parse_ready")
+    return metrics, job_obs
+
+
+def _execute_job(env, sink_nodes) -> JobResult:
     cfg = env.config
     _check_supported(env, cfg)
     resolve_device(cfg.device)  # refuse a missing card before any work
@@ -1030,11 +1335,26 @@ def execute_job(env, sink_nodes) -> JobResult:
         plans = build_plan_chain(env, sink_nodes)
         plan = plans[0]
         host = HostStage(plan, cfg)
-    metrics = Metrics(build_time_s=setup.elapsed)
+    metrics, job_obs = _make_job_obs(env, cfg)
     env.metrics = metrics
+    metrics.build_time_s = setup.elapsed
     runner: Optional[Runner] = None
     processing_time = plan.time_characteristic == TimeCharacteristic.ProcessingTime
     proc_now = 0
+    # host-side watermark gauges (obs on): fed per batch from the job's
+    # periodic timestamp assigner; they stay nonzero during the run,
+    # where the program's own clock reads 0 lag after the end-of-stream
+    # MAX watermark
+    assigner = plan.ts_assigner
+    wm_gauge = lag_gauge = None
+    wm_prev: Optional[int] = None
+    if (job_obs.enabled and assigner is not None
+            and hasattr(assigner, "observe")
+            and hasattr(assigner, "get_current_watermark")):
+        wm_gauge = job_obs.gauge("watermark_ms")
+        lag_gauge = job_obs.gauge("watermark_lag_ms")
+    if job_obs.enabled:
+        job_obs.gauge("source_queue_depth").set_fn(plan.source.queue_depth)
     # dynamic rules: the control feed. A run replays the data from record
     # 0, so the rule timeline replays with it: the RuleSet goes back to
     # its defaults at version 0 and the feed applies every update at its
@@ -1045,24 +1365,108 @@ def execute_job(env, sink_nodes) -> JobResult:
         ruleset.reset()
         control_feed = plan.broadcast.feed(cfg.batch_size)
     lines_consumed = 0
+    # perf_counter at the last rule application; the next non-empty feed
+    # closes the propagation window (rule_update_propagation_ms)
+    rule_apply_t0: List[Optional[float]] = [None]
 
     def apply_rule_updates(updates) -> None:
         """Land a group of rule updates at the current record boundary:
         every row fed so far finishes its way down the chain under the
         old rules, then the host RuleSet and every stage's rule tensors
         take the new values."""
+        rule_apply_t0[0] = time.perf_counter()
         runner.pump_chain(proc_now)
+        old_version = ruleset.version
         for u in updates:
             ruleset.apply(u)
         for r in runner.chain():
             r.refresh_rules()
+        tenant_slots = sorted({u.tenant for u in updates
+                               if getattr(u, "tenant", None) is not None})
+        job_obs.gauge("rule_version").set(ruleset.version)
+        job_obs.counter("rule_updates_total").inc(len(updates))
+        if job_obs.enabled and tenant_slots:
+            from ..broadcast.rules import TENANT_ACTIVE_RULE, _to_bool
 
-    for sb in plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms):
-        with Stopwatch() as hw:
+            srv = getattr(env, "_tenancy", None)
+            # a falsy __tenant_active__ update IS a removal: those slots
+            # get their per-tenant series retired, not re-minted
+            removed = {
+                u.tenant for u in updates
+                if getattr(u, "tenant", None) is not None
+                and u.name == TENANT_ACTIVE_RULE and not _to_bool(u.value)
+            }
+            for slot in tenant_slots:
+                if slot in removed:
+                    continue
+                label = srv.tenant_label(slot) if srv is not None else str(slot)
+                job_obs.group.group(tenant=label).gauge(
+                    "tenant_rule_version").set(ruleset.version)
+            if removed and srv is not None:
+                for slot in sorted(removed):
+                    srv.retire_tenant_obs(slot, job_obs)
+        job_obs.flight.record(
+            "rule_applied",
+            old_version=old_version,
+            new_version=ruleset.version,
+            rules={u.name: ruleset.value(u.name) for u in updates},
+            tenants=tenant_slots or None,
+        )
+
+    def feed(b, wm_low, t0) -> None:
+        runner.feed(b, wm_low, t_batch=t0)
+        if rule_apply_t0[0] is not None and b.n:
+            job_obs.histogram("rule_update_propagation_ms").observe(
+                (time.perf_counter() - rule_apply_t0[0]) * 1000.0)
+            rule_apply_t0[0] = None
+
+    source_batches = plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms)
+    if job_obs.enabled and cfg.obs.latency_marker_interval_ms > 0:
+        # end-to-end latency markers, stamped at the source and riding
+        # the same h2d/dispatch/fetch/emit path as the records; a fleet
+        # labels them round-robin over its active tenants
+        from ..obs.latency import MarkerStamper, stamp_markers
+
+        tenancy = getattr(env, "_tenancy", None)
+        source_batches = stamp_markers(
+            source_batches,
+            MarkerStamper(
+                cfg.obs.latency_marker_interval_ms,
+                counter=job_obs.counter("latency_markers_emitted"),
+                tenant_provider=(tenancy.marker_tenant_provider()
+                                 if tenancy is not None else None),
+                trace_sample_rate=cfg.obs.trace_sample_rate,
+                trace_counter=job_obs.counter("record_traces_sampled_total"),
+            ),
+        )
+    marker_backlog: list = []
+    for sb in source_batches:
+        with job_obs.tracer.span("parse"), Stopwatch() as hw:
             batch, wm_hint = _parse(host, sb)
+        if sb.markers:
+            for mk in sb.markers:
+                if getattr(mk, "trace_id", 0):
+                    mk.add_host_parse(hw.t0, hw.elapsed)
+            marker_backlog.extend(sb.markers)
         metrics.host_times_s.append(hw.elapsed)
         metrics.batches += 1
         lines_consumed += sb.n_records
+        if (lag_gauge is not None and batch is not None
+                and batch.ts is not None and batch.ts.size):
+            # the batch max, then the monotone watermark and its lag
+            assigner.observe(int(batch.ts.max()))
+            wm_now = assigner.get_current_watermark().timestamp
+            wm_gauge.set(wm_now)
+            lag = getattr(assigner, "current_lag_ms", None)
+            if lag is not None:
+                lag_gauge.set(lag())
+            if (wm_prev is not None
+                    and wm_now - wm_prev > cfg.obs.flight_watermark_jump_ms):
+                job_obs.flight.record(
+                    "watermark_jump", from_ms=wm_prev, to_ms=wm_now,
+                    jump_ms=wm_now - wm_prev)
+            wm_prev = wm_now
+        job_obs.maybe_snapshot()
         if sb.proc_ts.size:
             proc_now = max(proc_now, int(sb.proc_ts.max()))
         if sb.advance_proc_to is not None:
@@ -1074,12 +1478,15 @@ def execute_job(env, sink_nodes) -> JobResult:
                 with Stopwatch() as bw:
                     runner = _make_runner_chain(plans, cfg, metrics)
                 metrics.build_time_s += bw.elapsed
+            if marker_backlog:
+                runner.accept_markers(marker_backlog)
+                marker_backlog = []
             if processing_time:
                 wm_lower = proc_now - 1
             else:
                 wm_lower = wm_hint if wm_hint is not None else LONG_MIN + 1
             if control_feed is None:
-                runner.feed(batch, wm_lower, t_batch=hw.t0)
+                feed(batch, wm_lower, hw.t0)
             else:
                 # split the batch at each pending update's record
                 # position: rows before position N run under the old
@@ -1090,14 +1497,16 @@ def execute_job(env, sink_nodes) -> JobResult:
                 for off, updates in control_feed.splits_for(base, sb.n_records):
                     off = min(off, batch.n)  # a host filter may drop rows
                     if off > cursor:
-                        runner.feed(batch.slice_rows(cursor, off), wm_lower,
-                                    t_batch=hw.t0)
+                        feed(batch.slice_rows(cursor, off), wm_lower, hw.t0)
                         cursor = off
                     apply_rule_updates(updates)
                 rest = batch.slice_rows(cursor, batch.n) if cursor else batch
                 if rest.n or not cursor:
-                    runner.feed(rest, wm_lower, t_batch=hw.t0)
+                    feed(rest, wm_lower, hw.t0)
         elif sb.advance_proc_to is not None and runner is not None and processing_time:
+            if marker_backlog:
+                runner.accept_markers(marker_backlog)
+                marker_backlog = []
             runner.flush(proc_now - 1)  # the processing-time clock ticked
         if runner is not None:
             runner.pump_chain(proc_now)
@@ -1106,6 +1515,10 @@ def execute_job(env, sink_nodes) -> JobResult:
     counts = host.parse_counts()
     metrics.native_parses, metrics.numpy_parses = counts["native"], counts["numpy"]
     if runner is not None:
+        if marker_backlog:
+            # the last markers ride the end-of-stream flush
+            runner.accept_markers(marker_backlog)
+            marker_backlog = []
         if control_feed is not None:
             # updates positioned at or after the last record still apply:
             # they govern the end-of-stream fires
@@ -1126,6 +1539,9 @@ def execute_job(env, sink_nodes) -> JobResult:
                 break
             d.flush(MAX_WATERMARK)
             r = d
+        # markers that met no further step still record at every
+        # remaining edge: no stamped marker is lost
+        runner.settle_markers()
         for r in runner.chain():
             r.finalize_metrics()
             r.check_strict()

@@ -57,6 +57,8 @@ class ProcessWindowProgram(WindowProgram):
     elements from the state the step left, so the executor calls it
     before the next step."""
 
+    operator_name = "process_window"
+
     host_evaluated = True
 
     def _build_agg(self) -> None:

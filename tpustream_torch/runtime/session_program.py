@@ -200,6 +200,8 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
     pane-major into ``fire_capacity`` rows, finalized, sent through the
     post chain and compacted again into ``alert_capacity``."""
 
+    operator_name = "session_window"
+
     accepted_kinds = ("session",)
 
     def __init__(self, plan: JobPlan, cfg):
@@ -597,6 +599,8 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
     START of the next step, because the host gathers the fired elements
     from the state the step left in between (the executor evaluates the
     fires before the next step)."""
+
+    operator_name = "session_process"
 
     accepted_kinds = ("session",)
     _CELL_KEYS = ("cell_min", "cell_max", "cell_fired", "pending_mark",

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..api.functions import as_callable
@@ -73,6 +74,12 @@ class BaseProgram:
     # process() function): a stage chained after one infers its record
     # schema from the rows the function collects
     host_evaluated = False
+    # the operator label of this program's obs series (the reference's
+    # names, so both packages' series line up)
+    operator_name = "operator"
+    # host-side scalar clocks the obs layer exposes as state_<name>
+    # gauges at the end of a job
+    OBS_STATE_SCALARS = ("wm", "max_ts", "hi", "pending_fires")
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         self.plan = plan
@@ -101,6 +108,12 @@ class BaseProgram:
         state[RULE_VERSION_KEY] = torch.tensor(
             self.ruleset.version, dtype=torch.int64, device=self.device)
         return state
+
+    def obs_state_scalars(self, state: dict) -> dict:
+        """The OBS_STATE_SCALARS this program keeps in ``state`` as host
+        ints (reading them never waits on the card)."""
+        return {n: state[n] for n in self.OBS_STATE_SCALARS
+                if isinstance(state.get(n), (int, np.integer))}
 
     def run_step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """:meth:`step` with the rules bound: the rule tensors leave the
@@ -148,6 +161,8 @@ class StatelessProgram(BaseProgram):
     then only that many rows: for a sparse filter like the > 90
     threshold, a small part of the batch."""
 
+    operator_name = "stateless"
+
     main_emission_prefix = True
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
@@ -192,6 +207,8 @@ class RollingProgram(BaseProgram):
     ``emit_ts`` (set by ``_make_runner_chain`` when an event-time stage is
     downstream): the step's ``main`` stream also carries ``ts``, each
     row's input timestamp, which the rolling aggregate forwards."""
+
+    operator_name = "rolling"
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         super().__init__(plan, cfg)

@@ -117,6 +117,7 @@ class _Emission:
 
 
 class WindowProgram(BaseProgram):
+    operator_name = "window"
     accepted_kinds = ("tumbling", "sliding")
     fires_on_clock = True
     main_emission_prefix = True  # append-compacted alert buffer
