@@ -2485,6 +2485,280 @@ def obs_phase(n_lines: int) -> None:
 
 # -- phase small: the new jobs on the card equal the same jobs on the CPU ---
 
+# -- phase pipeline: the executor pipeline at three settings -----------------
+
+PIPELINE_SETTINGS = {
+    # fully synchronous: one step in flight, no staging, no compaction,
+    # the wire unpacked
+    "sync": dict(async_depth=1, h2d_depth=1, compaction_capacity=0,
+                 packed_wire=False, h2d_compress=False),
+    "defaults": {},
+    "deep": dict(async_depth=4, h2d_depth=3, fetch_group=2, parse_ahead=2),
+}
+LANE_FRAME = 32768  # lines a raw frame of the lanes' source: 32 frames a 1M
+PIPELINE_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+
+
+def pipeline_line(label: str, m, wall: float) -> None:
+    """One run's numbers: the wall split, waits on the card a step and
+    the wire bytes each way."""
+    print(f"pipeline {label}: {wall_split(m, wall)} "
+          f"waits_per_step={m.d2h_syncs / max(1, m.steps)} "
+          f"h2d_bytes_total={m.h2d_bytes} fetch_bytes_total={m.d2h_bytes} "
+          f"compaction_spills={m.compaction_spills}")
+
+
+def one_build(label: str, counts: dict, m=None) -> None:
+    """Every run builds its program once; a wire demotion is the only
+    rebuild, reported by its cause (obs-enabled runs)."""
+    if sorted(counts.values()) != [1]:
+        raise AssertionError(f"{label}: program builds {counts}")
+    counts.clear()
+    if m is not None:
+        causes = recompile_causes(m)
+        if set(causes) - {"batch_shape_change"}:
+            raise AssertionError(f"{label}: rebuilds by cause {causes}")
+
+
+def flight_kinds(m) -> list:
+    return [e["kind"] for e in m.job_obs.flight.events()]
+
+
+def lane_run(lines, n_lines, injector=None, **cfg):
+    """The flagship's int32 config from raw frames of LANE_FRAME lines
+    through ``ingest_lanes=4``, obs on (the plane's breadcrumbs and
+    per-lane series): ``(rows, metrics, wall)``."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.sources import ReplayBytesSource
+
+    config = StreamConfig(
+        device=PIPELINE_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+        alert_capacity=1 << 16,
+        ingest_lanes=4, obs=ObsConfig(enabled=True),
+        **FLAGSHIP_CONFIGS["int32"], **cfg)
+    if injector is not None:
+        config = injector.install(config)
+    env = StreamExecutionEnvironment(config)
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    frames = [("\n".join(lines[i:i + LANE_FRAME]).encode(),
+               len(lines[i:i + LANE_FRAME]))
+              for i in range(0, n_lines, LANE_FRAME)]
+    handle = chapter3_bandwidth_eventtime.build(
+        env, env.add_source(ReplayBytesSource(frames))).collect()
+    t0 = time.perf_counter()
+    env.execute("BandwidthMonitorWithEventTime")
+    return [repr(t) for t in handle.items], env.metrics, time.perf_counter() - t0
+
+
+def lane_series(m, name: str) -> dict:
+    return {s["labels"]["lane"]: s["value"]
+            for s in m.obs_snapshot()["metrics"]["series"]
+            if s["name"] == name and "lane" in s["labels"]}
+
+
+def pipeline_phase(n_lines: int, flagship_lines: int, dead_lines: int,
+                   reps: int) -> dict:
+    """The executor pipeline on the card. Chapter 2 on the kernel and
+    the flagship's int32 config at three settings (``sync``, the
+    defaults, ``deep``), each against its oracle; the flagship from raw
+    frames through four ingest lanes, then again with one lane SIGKILLed
+    at frame 3 (it must heal in place); chapter 1 with one line in
+    10,000 malformed under ``dead_letter``; the flagship under the
+    adaptive controller. Returns the kernel's launches on the chapter-2
+    ``defaults`` run and its case on that run's second call."""
+    from tpustream_torch.config import ObsConfig
+    from tpustream_torch.jobs import chapter1_threshold, chapter2_max
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.testing import FaultInjector, FaultPoint
+
+    out = {}
+    counts, undo = count_builds()
+    try:
+        # chapter 2 on the kernel
+        lines = make_lines(n_lines, K_MAIN, seed=7)
+        want = oracle_rows(lines)
+        for name, cfg in PIPELINE_SETTINGS.items():
+            box, undo_cap = (capture_kernel_call(1) if name == "defaults"
+                             else (None, lambda: None))
+            S.reset_launches()
+            try:
+                items, m, wall = run_job(
+                    chapter2_max, lines, PIPELINE_DEVICE, "ComputeCpuMax",
+                    batch_size=B_MAIN, key_capacity=K_MAIN, **cfg)
+            finally:
+                undo_cap()
+            launches = S.seq_rolling_reduce.launches
+            if [tuple(t.values()) for t in items] != want:
+                raise AssertionError(f"pipeline ch2 {name}: rows differ from "
+                                     f"the oracle")
+            if launches != m.steps or m.steps < 1:
+                raise AssertionError(f"pipeline ch2 {name}: kernel launched "
+                                     f"{launches} times over {m.steps} steps")
+            one_build(f"pipeline ch2 {name}", counts)
+            print(f"pipeline ch2 {name}: {len(items)} rows equal the oracle; "
+                  f"seq_rolling_reduce launches={launches} (one a data step); "
+                  f"{check_native(f'pipeline ch2 {name}', m)}")
+            pipeline_line(f"ch2 {name}", m, wall)
+            if name == "defaults":
+                out["launches"] = launches
+                out["case"] = path_kernel_case("pipeline", box["call"], reps)
+
+        # the flagship's int32 config
+        lines, ts, ch, flow = make_flagship_input(flagship_lines, K_MAIN, seed=3)
+        want = [f"({c},{v!r})" for c, v in
+                flagship_oracle(ts, ch, flow, int32_panes=True)]
+        losses = ("late_dropped", "alert_overflow", "evicted_unfired",
+                  "buffer_overflow")
+        for name, cfg in PIPELINE_SETTINGS.items():
+            rows, m, wall = run_flagship(lines, PIPELINE_DEVICE,
+                                         **FLAGSHIP_CONFIGS["int32"], **cfg)
+            if rows != want:
+                raise AssertionError(f"pipeline flagship {name}: {len(rows)} "
+                                     f"rows vs {len(want)} from the oracle")
+            lost = check_losses(f"pipeline flagship {name}", m, losses)
+            one_build(f"pipeline flagship {name}", counts)
+            print(f"pipeline flagship {name}: {len(rows)} rows equal the "
+                  f"oracle; {lost}; "
+                  f"{check_native(f'pipeline flagship {name}', m)}")
+            pipeline_line(f"flagship {name}", m, wall)
+
+        # chapter 4 (CEP) at sync and deep: its waits on the card a step
+        from tpustream_torch import OutputTag, Time
+        from tpustream_torch.jobs import chapter4_cep_alert as ch4
+
+        cep_rows = {}
+        for name in ("sync", "deep"):
+            timeouts = []
+
+            def build(text):
+                tag = OutputTag("breach-timeout")
+                alerts = ch4.build(None, text, delay=Time.minutes(1),
+                                   timeout_tag=tag)
+                timeouts.append(alerts.get_side_output(tag).collect())
+                return alerts
+
+            items, m, wall = run_env(
+                build, lines, PIPELINE_DEVICE, "cep", True, batch_size=B_MAIN,
+                key_capacity=K_MAIN, alert_capacity=1 << 18,
+                **PIPELINE_SETTINGS[name])
+            cep_rows[name] = ([repr(t) for t in items],
+                              [repr(t) for t in timeouts[0].items])
+            check_losses(f"pipeline cep {name}", m,
+                         ("late_dropped", "alert_overflow"))
+            one_build(f"pipeline cep {name}", counts)
+            print(f"pipeline cep {name}: {len(cep_rows[name][0])} alerts, "
+                  f"{len(cep_rows[name][1])} timeouts")
+            pipeline_line(f"cep {name}", m, wall)
+        if cep_rows["deep"] != cep_rows["sync"] or not cep_rows["sync"][0]:
+            raise AssertionError("pipeline cep: deep rows differ from sync")
+
+        # ingest lanes, then one lane killed at frame 3
+        for label, inj in (("lanes", None), (
+                "lanes, lane killed", FaultInjector(
+                    FaultPoint("lane_worker_crash", at=3, exit_code=-9)))):
+            extra = {} if inj is None else {"ingest_lane_restarts": 1}
+            rows, m, wall = lane_run(lines, flagship_lines, inj, **extra)
+            if rows != want:
+                raise AssertionError(f"pipeline {label}: {len(rows)} rows vs "
+                                     f"{len(want)} from the oracle")
+            check_losses(f"pipeline {label}", m, losses)
+            one_build(f"pipeline {label}", counts, m)
+            kinds = flight_kinds(m)
+            per_lane = lane_series(m, "ingest_lane_records_total")
+            if ("ingest_lanes_enabled" not in kinds
+                    or "ingest_lanes_disabled" in kinds
+                    or "ingest_degraded" in kinds):
+                raise AssertionError(f"pipeline {label}: the lane plane did "
+                                     f"not run ({kinds})")
+            restarts = sum(lane_series(m, "ingest_lane_restarts_total").values())
+            if inj is None:
+                if sum(per_lane.values()) != flagship_lines or restarts:
+                    raise AssertionError(
+                        f"pipeline {label}: lanes parsed {per_lane} of "
+                        f"{flagship_lines} lines, restarts {restarts}")
+            elif (restarts != 1 or "ingest_lane_restarted" not in kinds
+                  or "ingest_lane_folded" in kinds):
+                raise AssertionError(
+                    f"pipeline {label}: restarts {restarts}, events "
+                    f"{[k for k in kinds if k.startswith('ingest_')]}")
+            print(f"pipeline {label}: {len(rows)} rows equal the oracle; "
+                  f"records a lane {per_lane}; ingest_lane_restarts_total="
+                  f"{restarts}; "
+                  f"{[k for k in kinds if k.startswith('ingest_lane_')]}")
+            pipeline_line(label, m, wall)
+
+        # dead letters: one line in 10,000 of chapter 1's is malformed
+        g = np.arange(dead_lines, dtype=np.int64)
+        h = g * 2654435761
+        hosts = ((h ^ (h >> 31)) % 256).tolist()
+        clean = [f"1563450000 h{hh:06d} cpu{c} {'91.5' if a else '50.5'}"
+                 for hh, c, a in zip(hosts, (g % 4).tolist(),
+                                     (g % 128 == 0).tolist())]
+        want_dl = [(f"h{hh:06d}", f"cpu{c}", 91.5) for hh, c, a in
+                   zip(hosts, (g % 4).tolist(), (g % 128 == 0).tolist()) if a]
+        poisoned = list(clean)
+        bad_at = list(range(5_000, dead_lines, 10_000))
+        for i in bad_at:
+            poisoned[i] = f"!!malformed line {i}!!"
+            if clean[i].endswith("91.5"):
+                raise AssertionError("a malformed line replaced an alert")
+        from tpustream_torch import StreamExecutionEnvironment
+        from tpustream_torch.config import StreamConfig
+        from tpustream_torch.runtime.sources import ReplaySource
+
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=PIPELINE_DEVICE, batch_size=65536, dead_letter=True))
+        handle = chapter1_threshold.build(
+            env, env.add_source(ReplaySource(poisoned))).collect()
+        t0 = time.perf_counter()
+        env.execute("Window WordCount")
+        wall = time.perf_counter() - t0
+        m = env.metrics
+        got = [tuple(t.values()) for t in handle.items]
+        dead = env.dead_letters
+        if (got != want_dl or len(dead) != len(bad_at)
+                or m.records_quarantined != len(bad_at)
+                or [d[0] for d in dead] != [poisoned[i] for i in bad_at]):
+            raise AssertionError(
+                f"pipeline dead letters: {len(got)} rows vs {len(want_dl)}, "
+                f"{len(dead)} dead letters and {m.records_quarantined} "
+                f"quarantined vs {len(bad_at)} malformed")
+        one_build("pipeline dead letters", counts)
+        print(f"pipeline dead letters: {dead_lines} chapter-1 lines, "
+              f"{len(bad_at)} malformed: {len(got)} rows equal the oracle, "
+              f"len(dead_letters)={len(dead)} records_quarantined="
+              f"{m.records_quarantined}; first {dead[0]}")
+        pipeline_line("dead letters", m, wall)
+
+        # the adaptive controller
+        rows, m, wall = run_flagship(
+            lines, PIPELINE_DEVICE, obs=ObsConfig(enabled=True, adaptive=True,
+                                         snapshot_interval_s=0.25,
+                                         adaptive_cooldown_ticks=0),
+            **FLAGSHIP_CONFIGS["int32"])
+        if rows != want:
+            raise AssertionError(f"pipeline controller: {len(rows)} rows "
+                                 f"differ from the defaults run's")
+        check_losses("pipeline controller", m, losses)
+        one_build("pipeline controller", counts, m)
+        moves = [(e.get("action"), e.get("knob"), e.get("old"), e.get("new"))
+                 for e in m.job_obs.flight.events()
+                 if e["kind"] == "controller_decision"]
+        knobs = {s["name"]: s["value"]
+                 for s in m.obs_snapshot()["metrics"]["series"]
+                 if s["name"] in ("controller_async_depth",
+                                  "controller_fetch_group",
+                                  "controller_h2d_depth")}
+        print(f"pipeline controller: {len(rows)} rows equal the defaults "
+              f"run's; decisions {moves}; final knobs {knobs}")
+        pipeline_line("controller", m, wall)
+    finally:
+        undo()
+    return out
+
+
 AVG_LINES = [
     "1563452056 10.8.22.1 cpu0 80.5",
     "1563452050 10.8.22.1 cpu0 78.4",
@@ -2974,7 +3248,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "cep,rules,fleet,obs,small")
+                            "cep,rules,fleet,obs,pipeline,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -2985,6 +3259,9 @@ def main() -> int:
                     help="input of the session and count phases")
     ap.add_argument("--cep-lines", type=int, default=1_000_000,
                     help="input of the cep phase's two runs and the rules phase")
+    ap.add_argument("--dead-letter-lines", type=int, default=200_000,
+                    help="chapter-1 input of the pipeline phase's dead "
+                         "letters (one line in 10,000 malformed)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3031,6 +3308,9 @@ def main() -> int:
     fleet = timed("fleet", fleet_phase, args.reps) if "fleet" in phases else {}
     if "obs" in phases:
         timed("obs", obs_phase, args.flagship_lines)
+    pipeline = (timed("pipeline", pipeline_phase, args.lines,
+                      args.flagship_lines, args.dead_letter_lines, args.reps)
+                if "pipeline" in phases else {})
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -3049,7 +3329,9 @@ def main() -> int:
             ("chain", "int64", "max", chain_launches.get("int64"),
              cases.get(("int64", "max", "uniform"))),
             ("rules", "float64", "max", rules.get("launches"), rules.get("case")),
-            ("fleet", "float64", "max", fleet.get("launches"), fleet.get("case"))):
+            ("fleet", "float64", "max", fleet.get("launches"), fleet.get("case")),
+            ("pipeline", "float64", "max", pipeline.get("launches"),
+             pipeline.get("case"))):
         if case is None:
             continue
         entries.append({

@@ -37,6 +37,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.jobs.chapter5_dynamic_rules\n"
         "import tpustream_torch.tenancy, tpustream_torch.obs\n"
         "import tpustream_torch.jobs.chapter6_tenant_fleet\n"
+        "import tpustream_torch.runtime.ingest, tpustream_torch.runtime.watchdog\n"
+        "import tpustream_torch.runtime.controller\n"
+        "import tpustream_torch.runtime.supervisor\n"
+        "import tpustream_torch.parallel.lanes, tpustream_torch.testing\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -51,6 +55,52 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert "tpustream_torch.tenancy.server" in out
     assert "tpustream_torch.obs.compilation" in out
     assert "tpustream_torch.jobs.chapter6_tenant_fleet" in out
+    assert "tpustream_torch.runtime.ingest" in out
+    assert "tpustream_torch.parallel.lanes" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_lane_worker_under_the_gate_imports_no_torch():
+    """A lane worker starts in a fresh interpreter (the "spawn" start
+    method) with ``TPUSTREAM_LANE_WORKER=1``: it parses a frame through
+    the native plan and never imports torch, nor JAX, nor the JAX
+    package; the public names still resolve, lazily."""
+    code = (
+        "import queue, sys, threading\n"
+        "import tpustream_torch\n"
+        "from tpustream_torch.hostparse import PExpr\n"
+        "from tpustream_torch.parallel.lanes import (LaneSpec, ShmRing,\n"
+        "    lane_worker_main, unpack_columns)\n"
+        "from tpustream_torch.records import F64, STR\n"
+        "spec = LaneSpec([PExpr.field(' ', 0),\n"
+        "    PExpr('parse_f64', (PExpr.field(' ', 1),))], [STR, F64],\n"
+        "    [True, False])\n"
+        "a, b = ShmRing(1 << 16), ShmRing(1 << 16)\n"
+        "qs = [queue.Queue() for _ in range(4)]\n"
+        "stop = threading.Event()\n"
+        "t = threading.Thread(target=lane_worker_main, args=(0, spec, a.name,\n"
+        "    a.size, b.name, b.size, *qs, stop), daemon=True)\n"
+        "t.start()\n"
+        "data = b'x 1.5\\ny 2.5'\n"
+        "off, cost = a.write(data, lambda: qs[2].get(timeout=10))\n"
+        "qs[0].put(('frame', 0, off, cost, len(data), 2))\n"
+        "r = qs[1].get(timeout=10)\n"
+        "assert r[0] == 'frame', r\n"
+        "cols = unpack_columns(r[6], spec.kinds, b.read(r[2], r[4]), 2)\n"
+        "assert cols[1].tolist() == [1.5, 2.5], cols\n"
+        "qs[0].put(('stop',)); stop.set(); t.join(10); a.close(); b.close()\n"
+        "assert 'torch' not in sys.modules\n"
+        "print(tpustream_torch.Tuple2.__name__)\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TPUSTREAM_LANE_WORKER="1")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, check=True,
+    ).stdout.split()
+    assert out[0] == "Tuple2"
+    assert "tpustream_torch.parallel.lanes" in out
+    assert "torch" not in out
     assert [m for m in out if _forbidden(m)] == []
 
 

@@ -640,3 +640,23 @@ def test_chapter1_health_rules_stay_ok_on_a_moving_job():
     assert len(job_obs.snapshotter.snapshots) > 1
     assert job_obs.snapshotter.snapshots[-1]["health"]["level"] == "ok"
     assert job_obs.snapshot()["health"]["level"] == "ok"
+
+
+def test_fetch_group_clamped_to_inflight_window():
+    """tests/test_obs.py's clamp case: the effective fetch group is the
+    requested one clamped to the in-flight window minus one (at least
+    1), live, so the controller may move async_depth under a job."""
+    import types
+
+    from tpustream_torch.runtime.executor import Runner
+
+    def eff(fetch_group, async_depth):
+        fake = types.SimpleNamespace(
+            cfg=types.SimpleNamespace(fetch_group=fetch_group),
+            _max_inflight=max(0, async_depth - 1))
+        return Runner._fetch_group.fget(fake)
+
+    assert eff(8, 2) == 1   # a full-window group would drain the pipeline
+    assert eff(8, 4) == 3   # clamped to async_depth - 1
+    assert eff(2, 4) == 2   # under the window: honoured
+    assert eff(4, 1) == 1   # no pipelining at all: a fetch a step

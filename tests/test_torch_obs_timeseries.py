@@ -5,11 +5,12 @@ modes, counter history and snapshot rates, the histogram reservoir
 (exact count/sum over 100k observations), the snapshotter's absolute
 deadline grid, and the pipeline profiler's stage attribution.
 
-The JAX suite's nine adaptive-controller cases (``runtime/controller.py``
-and ``Runner.apply_knobs``) have no counterpart yet: the controller
-tunes the pipelining knobs (``async_depth``, ``h2d_depth``,
-``fetch_group``), which the port does not read until its executor
-pipeline is ported.
+The adaptive controller (``runtime/controller.py``, a copy in the port)
+runs over both packages too: a kept probe, a reverted one, the backoff
+on a p99 breach, the user bounds and the series it mints.
+``Runner.apply_knobs`` runs on a stub of the port's Runner (the depths
+follow the knobs; the live-state guard wins), and an adaptive job's rows
+equal those of the same job with obs off, with decisions recorded.
 """
 
 import numpy as np
@@ -204,3 +205,193 @@ def test_profiler_attributes_batch_time_to_stages(pk):
     assert sum(s["share"] for s in p["stages"].values()) == pytest.approx(1.0)
     prom = reg.to_prometheus_text()
     assert "profile_binding_stage" in prom and 'stage="dispatch"' in prom
+
+
+# ---------------------------------------------------------------------------
+# the adaptive controller, over both packages
+# ---------------------------------------------------------------------------
+
+
+def make_controller(pk, **obs_over):
+    import importlib
+
+    controller = importlib.import_module(
+        pk.root + ".runtime.controller").AdaptiveController
+    obs_over.setdefault("adaptive_cooldown_ticks", 0)
+    obs_cfg = pk.ObsConfig(enabled=True, adaptive=True,
+                           snapshot_interval_s=1.0, **obs_over)
+    cfg = pk.StreamConfig(obs=obs_cfg)
+    job_obs = pk.JobObs(obs_cfg, job_name="ctl")
+    reg = job_obs.registry
+    clk = [100.0]
+    reg.now = lambda: clk[0]
+    reg._epoch_wall = 0.0
+    reg._epoch_perf = 0.0
+    ctl = controller(cfg, job_obs)
+    return ctl, job_obs, clk, job_obs.counter("records_in")
+
+
+def controller_events(job_obs):
+    return [e for e in job_obs.flight.events()
+            if e["kind"] == "controller_decision"]
+
+
+def test_adaptive_is_off_by_default(pk):
+    assert pk.ObsConfig().adaptive is False
+
+
+def test_controller_keeps_improving_probe(pk):
+    ctl, job_obs, clk, ingest = make_controller(pk)
+    start = dict(ctl.knobs)
+    clk[0] = 101.0
+    ingest.inc(1000)
+    clk[0] = 102.0
+    knobs = ctl.on_tick()  # probes the first knob up one step
+    assert knobs["async_depth"] == start["async_depth"] + 1
+    clk[0] = 103.0
+    ingest.inc(4000)  # the rate doubles, well past the hysteresis band
+    clk[0] = 104.0
+    assert ctl.on_tick() is None  # kept: nothing further to apply
+    assert ctl.knobs["async_depth"] == start["async_depth"] + 1
+    assert [e["action"] for e in controller_events(job_obs)] == [
+        "probe", "keep"]
+    for k, v in ctl.knobs.items():
+        lo, hi = ctl.bounds[k]
+        assert lo <= v <= hi
+
+
+def test_controller_reverts_flat_probe_and_flips_direction(pk):
+    ctl, job_obs, clk, ingest = make_controller(pk)
+    start = dict(ctl.knobs)
+    clk[0] = 101.0
+    ingest.inc(1000)
+    clk[0] = 102.0
+    assert ctl.on_tick()["async_depth"] == start["async_depth"] + 1
+    clk[0] = 103.0
+    ingest.inc(1000)  # the same rate: inside the hysteresis band
+    clk[0] = 104.0
+    knobs = ctl.on_tick()
+    assert knobs["async_depth"] == start["async_depth"]
+    assert ctl._dir["async_depth"] == -1
+    assert int(ctl._reverts.value) == 1
+    assert [e["action"] for e in controller_events(job_obs)] == [
+        "probe", "revert"]
+
+
+def test_controller_backs_off_on_p99_breach(pk):
+    ctl, job_obs, clk, ingest = make_controller(pk, adaptive_p99_ms=300.0)
+    start = dict(ctl.knobs)
+    lat = job_obs.histogram("emit_latency_s")
+    clk[0] = 101.0
+    ingest.inc(1000)
+    lat.observe(0.5)  # 500 ms against a 300 ms bound
+    clk[0] = 102.0
+    knobs = ctl.on_tick()
+    for k in ("async_depth", "h2d_depth"):
+        assert knobs[k] == max(ctl.bounds[k][0], start[k] - 1)
+    evs = controller_events(job_obs)
+    assert evs and evs[-1]["action"] == "backoff"
+    assert evs[-1]["p99_ms"] == pytest.approx(500.0, rel=1e-6)
+
+
+def test_controller_respects_user_bounds(pk):
+    ctl, _, clk, ingest = make_controller(
+        pk, adaptive_bounds={"async_depth": (1, 2), "bogus_knob": (0, 99)})
+    assert ctl.bounds["async_depth"] == (1, 2)
+    assert "bogus_knob" not in ctl.bounds
+    for i in range(12):
+        clk[0] = 101.0 + i
+        ingest.inc(1000 * (i + 1))
+        clk[0] += 0.5
+        ctl.on_tick()
+        assert 1 <= ctl.knobs["async_depth"] <= 2
+
+
+def test_controller_series_surface(pk):
+    ctl, job_obs, clk, ingest = make_controller(pk)
+    clk[0] = 101.0
+    ingest.inc(1000)
+    clk[0] = 102.0
+    ctl.on_tick()
+    names = {s["name"] for s in job_obs.registry.snapshot()["series"]}
+    for want in ("controller_async_depth", "controller_fetch_group",
+                 "controller_h2d_depth", "controller_decisions_total",
+                 "controller_objective_rows_per_s"):
+        assert want in names, want
+
+
+# ---------------------------------------------------------------------------
+# Runner.apply_knobs of the port, on a stub
+# ---------------------------------------------------------------------------
+
+
+def _stub_runner(ref_state=False, max_fires=None):
+    import types
+
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.runtime.executor import Runner
+
+    resized = []
+    stub = types.SimpleNamespace(
+        cfg=StreamConfig(device="cpu", async_depth=2, fetch_group=1,
+                         h2d_depth=2, max_fires_per_step=max_fires),
+        program=types.SimpleNamespace(emissions_reference_state=ref_state),
+        _max_inflight=0 if ref_state else 1,
+        _h2d_ahead=0 if ref_state else 1,
+        _wire=types.SimpleNamespace(resize=resized.append),
+    )
+    stub._stage_ok = lambda: Runner._stage_ok(stub)
+    return stub, (lambda knobs: Runner.apply_knobs(stub, knobs)), resized
+
+
+def test_apply_knobs_sets_depths_and_cfg():
+    stub, apply_knobs, resized = _stub_runner()
+    apply_knobs({"async_depth": 4, "fetch_group": 3, "h2d_depth": 3})
+    assert stub._max_inflight == 3
+    assert stub._h2d_ahead == 2
+    assert (stub.cfg.async_depth, stub.cfg.fetch_group, stub.cfg.h2d_depth) == (
+        4, 3, 3)
+    assert resized == [4]  # the pinned ring: h2d_depth + 1 slots
+
+
+@pytest.mark.parametrize("ref_state,max_fires", [(True, None), (False, 2)],
+                         ids=["live-state", "fire-budget"])
+def test_apply_knobs_live_state_guard_wins(ref_state, max_fires):
+    """A state-referencing program stays at depth 1 and unstaged, and a
+    fire budget stays unstaged, whatever the controller asks for."""
+    stub, apply_knobs, _ = _stub_runner(ref_state, max_fires)
+    apply_knobs({"async_depth": 4, "h2d_depth": 4})
+    assert stub._h2d_ahead == 0
+    assert stub._max_inflight == (0 if ref_state else 3)
+    assert stub.cfg.async_depth == 4  # the request is recorded
+
+
+def test_adaptive_controller_end_to_end_output_parity():
+    import tpustream_torch as T
+    from tpustream_torch.config import ObsConfig
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines = [f"1 k{i % 5} {(i * 7) % 97}" for i in range(60)]
+
+    def run(obs):
+        env = T.StreamExecutionEnvironment(
+            T.StreamConfig(device="cpu", batch_size=4, obs=obs))
+        h = (env.add_source(ReplaySource(lines))
+             .map(lambda line: T.Tuple2(line.split(" ")[1],
+                                        int(line.split(" ")[2])))
+             .key_by(0).sum(1).collect())
+        env.execute("adaptive-parity")
+        return [tuple(t) for t in h.items], env.metrics
+
+    want, _ = run(ObsConfig(enabled=False))
+    got, m = run(ObsConfig(enabled=True, adaptive=True,
+                           snapshot_interval_s=1e-4,
+                           adaptive_cooldown_ticks=0))
+    assert got == want  # knob moves never change output
+    names = {s["name"] for s in m.obs_snapshot()["metrics"]["series"]}
+    assert {"controller_async_depth", "controller_decisions_total"} <= names
+    evs = [e for e in m.job_obs.flight.events()
+           if e["kind"] == "controller_decision"]
+    assert evs, "ticks at flood rate must produce at least one decision"
+    assert all(e["action"] in ("probe", "keep", "revert", "backoff")
+               for e in evs)

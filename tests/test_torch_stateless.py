@@ -77,7 +77,10 @@ def test_small_batches_equivalent():
 
 def test_only_kept_rows_are_copied_back():
     # the step compacts the kept rows on the device: the host copies the
-    # count, then only those rows
+    # count, then only those rows; once a step has fired, each later
+    # step's copy of its count also carries a slice of the prefix sized
+    # by the last firing step (twice its power-of-two bucket, at least
+    # 32 rows), which serves a step whose count fits with one wait
     lines = [f"1 h{i % 5} cpu0 {91.5 if i % 16 == 0 else 50.5}" for i in range(256)]
     env = tpustream_torch.StreamExecutionEnvironment(
         tpustream_torch.StreamConfig(device="cpu", batch_size=64))
@@ -85,9 +88,17 @@ def test_only_kept_rows_are_copied_back():
     env.execute("Window WordCount")
     m = env.metrics.summary()
     assert len(h.items) == 16 and m["records_emitted"] == 16
-    # per batch: a 4-byte count, then 4 rows of (int32 host, int32 cpu,
-    # float64 usage); 8 bytes for the overflow counter at the end
-    assert m["d2h_bytes"] == 4 * (4 + 4 * 16) + 8
+    # a row is (int32 host, int32 cpu, float64 usage): 16 bytes. Per
+    # batch a 4-byte count. At the default async_depth of 2 the second
+    # batch is issued before the first one's count is read: the first
+    # two batches copy their 4 rows after their count, the last two a
+    # 32-row slice with it and nothing after; 8 bytes for the overflow
+    # counter at the end
+    row = 16
+    assert m["d2h_bytes"] == 4 * 4 + 2 * 4 * row + 2 * 32 * row + 8
+    # a wait a batch, one more for each of the first two batches' rows,
+    # and one for the counter
+    assert m["d2h_syncs"] == 4 + 2 + 1
     assert m["alert_overflow"] == 0
 
 

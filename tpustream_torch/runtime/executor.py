@@ -57,11 +57,38 @@ markers stamped at the source ride the steps to each operator edge and
 sink; snapshots tick from the batch loop; a fleet (``tenancy/``)
 attaches its per-tenant series and SLOs to the root.
 
+The pipeline (``Runner``; the reference's executor.py:979-2230):
+each step's rows are packed into a narrow wire format on the host
+(``h2d_compress``: int64 as 16- then 32-bit deltas against a per-batch
+base; ``packed_wire``: float64 as exact float32, string ids as int16,
+booleans and the valid mask as bits; a column whose rows stop fitting
+demotes for good and the decode step is rebuilt once, cause
+``batch_shape_change``). The copy is staged up to ``h2d_depth - 1`` feeds
+ahead through a ring of pinned buffers and a copy stream. The step
+decodes on the device, runs, and returns one count scalar a stream (and,
+with ``compaction_capacity``, each mask-carrying stream gathered into a
+fixed buffer of rows); the scalars go to pinned host memory without a
+wait, up to ``async_depth - 1`` steps stay in flight, and a group of
+``fetch_group`` steps waits once for its scalars, then copies only the
+rows worth fetching (a compacted stream past its capacity spills to its
+whole buffer, counted in ``compaction_spills``). A program whose
+emissions the host evaluates against the live state runs at depth 1,
+unstaged and uncompacted. The pipeline drains at every barrier: a rule
+update, key or tenant-capacity growth, a wire demotion, the chain pump,
+a processing-time tick, the end of the stream; a source that paused
+longer than 50 ms fetches at once. None of it changes an output byte.
+
+Around the loop (:func:`execute_job`): the config is resolved first
+(``StreamConfig.resolve``, one ``config_clamped`` flight event a
+clamp); ``parse_ahead`` parses on a thread ahead of the steps;
+``ingest_lanes`` parse raw frames in worker processes behind
+shared-memory rings and merge them in order (``runtime/ingest.py``,
+self-healing); ``dead_letter`` quarantines the lines of a failed batch
+that fail alone into ``env.dead_letters``; ``ObsConfig.adaptive`` moves
+the pipeline depths at snapshot ticks (``runtime/controller.py``).
+
 Not ported here, and refused by :func:`execute_job` rather than ignored:
-checkpoints and restore, supervised restarts, ingest lanes and
-dead-letter quarantine. The reference's pipelining knobs
-(``async_depth``, ``h2d_depth``, ``fetch_group``, wire compression)
-change no output and are not read.
+checkpoints and restore, and supervised restarts.
 """
 
 from __future__ import annotations
@@ -91,6 +118,7 @@ from ..records import (
     StringTable,
 )
 from ..obs.compilation import (
+    CAUSE_BATCH_SHAPE,
     CAUSE_INITIAL,
     CAUSE_KEY_GROWTH,
     CAUSE_TENANT_GROWTH,
@@ -402,6 +430,178 @@ def _make_sinks(plan: JobPlan, cfg: StreamConfig):
     return main, side
 
 
+def _fault_hook(cfg: StreamConfig):
+    """The installed FaultInjector's check (``cfg.extra["fault_injector"]``,
+    tpustream_torch/testing/faults.py), or None in a real run."""
+    inj = cfg.extra.get("fault_injector") if cfg.extra else None
+    return inj.check if inj is not None else None
+
+
+@dataclasses.dataclass
+class _Packed:
+    """One step's rows in the wire format: the packed columns with their
+    delta bases, the valid mask, the timestamps (None when the program
+    reads none), the row count and the modes they were packed under."""
+    cols: tuple
+    bases: tuple
+    valid: np.ndarray
+    ts: Optional[np.ndarray]
+    ts_base: int
+    n: int
+    col_modes: tuple
+    ts_mode: str
+    valid_mode: str
+
+
+@dataclasses.dataclass
+class _Uploaded:
+    """A packed step's wire tensors on the device, and the event after
+    their copy (None on the CPU)."""
+    inputs: _Packed
+    tensors: list
+    event: object = None
+
+
+class _Entry:
+    """One step in flight: its emissions (and their compacted form), the
+    names of its count scalars, their host copies and the event after
+    them, and the markers that ride it."""
+
+    __slots__ = ("emissions", "compact", "names", "t_batch", "markers",
+                 "dispatch_s", "host", "event", "n_spec", "counts",
+                 "spec_host")
+
+    def __init__(self, emissions, compact, names, t_batch, markers):
+        self.emissions = emissions
+        self.compact = compact
+        self.names = names
+        self.t_batch = t_batch
+        self.markers = markers
+        self.dispatch_s = 0.0
+        self.host: list = []
+        self.event = None
+        self.n_spec = 0
+        self.counts: Dict[str, int] = {}
+        self.spec_host: Optional[list] = None
+
+
+class _WireRing:
+    """The host side of the wire to one device.
+
+    Uploads: on CUDA a ring of ``slots`` sets of pinned host buffers (one
+    a wire column, reallocated only when a column's shape or dtype
+    changes) replaces a ``pin_memory()`` call per column and step. A
+    step's copy is issued with ``non_blocking=True`` on a dedicated copy
+    stream and an event is recorded after it; the compute stream waits
+    on that event before the step, and ``record_stream`` keeps the
+    allocator from reusing the device tensors early. A slot is rewritten
+    only after its last copy's event has completed.
+
+    Count scalars: copied to pinned host memory with ``non_blocking=True``
+    right after the step is issued, with an event; a fetch group waits
+    once, on its last entry's event. On the CPU every copy is a view."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._slots: List[list] = [[] for _ in range(max(2, slots))]
+        self._events: list = [None] * len(self._slots)
+        self._next = 0
+        self._copy_stream = None
+
+    def resize(self, slots: int) -> None:
+        """A new ring size (at a drained barrier)."""
+        slots = max(2, slots)
+        if slots != len(self._slots):
+            for ev in self._events:
+                if ev is not None:
+                    ev.synchronize()
+            self._slots = [[] for _ in range(slots)]
+            self._events = [None] * slots
+            self._next = 0
+
+    def put(self, inputs: _Packed) -> _Uploaded:
+        arrays = list(inputs.cols) + [inputs.valid]
+        if inputs.ts is not None:
+            arrays.append(inputs.ts)
+        if not self.cuda:
+            return _Uploaded(inputs, [torch.from_numpy(a) for a in arrays])
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()  # the slot's last copy landed
+        slot = self._slots[i]
+        hosts = []
+        for j, a in enumerate(arrays):
+            h = slot[j] if j < len(slot) else None
+            want = torch.from_numpy(a)
+            if h is None or h.shape != want.shape or h.dtype != want.dtype:
+                h = torch.empty(want.shape, dtype=want.dtype, pin_memory=True)
+                if j < len(slot):
+                    slot[j] = h
+                else:
+                    slot.append(h)
+            h.copy_(want)
+            hosts.append(h)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            devs = [h.to(self.device, non_blocking=True) for h in hosts]
+        ev = torch.cuda.Event()
+        ev.record(self._copy_stream)
+        self._events[i] = ev
+        return _Uploaded(inputs, devs, ev)
+
+    def ready(self, up: _Uploaded) -> None:
+        """Order the compute stream after the upload's copy."""
+        if up.event is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(up.event)
+        for t in up.tensors:
+            t.record_stream(cur)
+
+    def issue_counts(self, entry: _Entry, counts: list, spec) -> None:
+        """Start the copy of a step's count scalars (one int32 vector)
+        and of the speculative prefix slice."""
+        tensors = [torch.stack(counts)] if counts else []
+        if spec:
+            tensors += spec
+            entry.n_spec = len(spec)
+        if not tensors:
+            return
+        if not self.cuda:
+            entry.host = tensors
+            return
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in tensors]
+        for h, t in zip(hosts, tensors):
+            h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        entry.host, entry.event = hosts, ev
+
+    def wait_counts(self, entries, metrics) -> int:
+        """Wait once for a group's count copies and read them into each
+        entry's ``counts`` (and ``spec_host``); returns the bytes read."""
+        last = next((e.event for e in reversed(entries)
+                     if e.event is not None), None)
+        if last is not None:
+            last.synchronize()
+        nbytes = 0
+        for e in entries:
+            arrs = [h.numpy() for h in e.host]
+            nbytes += sum(int(a.nbytes) for a in arrs)
+            if e.names:
+                e.counts = dict(zip(e.names, (int(v) for v in arrs[0])))
+            if e.n_spec:
+                e.spec_host = arrs[len(arrs) - e.n_spec:]
+        if any(e.host for e in entries):
+            metrics.d2h_syncs += 1
+            metrics.d2h_bytes += nbytes
+        return nbytes
+
+
 class Runner:
     """Feeds batches through the program on its device and fans the
     emissions out to the sinks, or, for a stage with a ``downstream``
@@ -441,7 +641,39 @@ class Runner:
         self._h2d_bytes = self.obs.counter("h2d_bytes_total")
         self._fetch_bytes = self.obs.counter("fetch_bytes_total")
         self._compaction_gauge = self.obs.gauge("compaction_ratio")
-        self.obs.counter("compaction_spills")
+        self._spill_counter = self.obs.counter("compaction_spills")
+        self._fault = _fault_hook(cfg)
+        # -- the pipeline (StreamConfig.async_depth, h2d_depth, fetch_group,
+        # compaction_capacity, h2d_compress, packed_wire) -------------------
+        # up to async_depth - 1 steps stay in flight before their emissions
+        # are fetched; a program whose emissions the host evaluates against
+        # the live state runs at depth 1, unstaged and uncompacted
+        ref_state = self.program.emissions_reference_state
+        depth = 1 if ref_state else cfg.async_depth
+        self._max_inflight = max(0, depth - 1)
+        self._inflight: List[_Entry] = []
+        # staged uploads: a packed batch's copy is issued up to
+        # h2d_depth - 1 feeds before the step that consumes it. Off for a
+        # state-referencing program and under max_fires_per_step (a staged
+        # batch would run after the drain steps that must follow it)
+        self._h2d_ahead = max(0, cfg.h2d_depth - 1) if self._stage_ok() else 0
+        self._upload_q: List[tuple] = []
+        # device-side compaction: each mask-carrying stream also gathers
+        # its emitted rows into [compaction_capacity] buffers, so a step
+        # fetches about count rows instead of [B] buffers
+        self._compact_cap = (int(cfg.compaction_capacity)
+                             if cfg.compaction_capacity and not ref_state
+                             else 0)
+        self._spilled_streams: set = set()
+        # sticky per-column wire modes, known at the first pack
+        self._col_modes: Optional[tuple] = None
+        self._ts_mode: Optional[str] = None
+        self._valid_mode: Optional[str] = None
+        self._stepped = False  # a step ran: a later demotion is a rebuild
+        # rows of the last firing step's prefix stream, the size of the
+        # slice fetched with the next step's count scalars
+        self._prefix_hint = 0
+        self._wire = _WireRing(self.device, cfg.h2d_depth + 1)
         self._compile_obs: Optional[CompileObs] = None
         if self.obs.enabled:
             # the build registry (obs/compilation.py): this build and
@@ -451,12 +683,14 @@ class Runner:
                 meta=self.program.pre_chain.describe(),
             )
             # pull-style backpressure gauges, read at snapshot time: the
-            # chain hand-off rows parked between pumps, and the steps in
-            # flight (the port runs each step to its end: always 0)
+            # chain hand-off rows parked between pumps, and the staged
+            # uploads plus the steps in flight
             self.obs.gauge("chain_buffer_entries").set_fn(
                 lambda: len(self._chain_buf) + len(self._chain_rows)
             )
-            self.obs.gauge("pipeline_occupancy").set_fn(lambda: 0)
+            self.obs.gauge("pipeline_occupancy").set_fn(
+                lambda: len(self._upload_q) + len(self._inflight)
+            )
             # every sink counts under the legacy flat name and the one
             # labelled family, kept in lockstep
             for i, (_, sink) in enumerate(self.sinks):
@@ -610,7 +844,11 @@ class Runner:
 
     def pump_chain(self, proc_now: int) -> None:
         """Move buffered emissions to the downstream runner (or tick its
-        processing-time clock when there are none), then cascade."""
+        processing-time clock when there are none), then cascade. A
+        barrier: the steps in flight dispatch first."""
+        if not self._chained:
+            return
+        self.drain_inflight()
         d = self.downstream
         if d is None and self._chain_rows and self._lazy_plans:
             d = self._build_lazy_downstream()
@@ -755,6 +993,7 @@ class Runner:
         reshape is flight-recorded with the old and new capacity and
         counted in the build registry, cause ``tenant_capacity_growth``."""
         ruleset = self.program.ruleset
+        self.drain_inflight()
         old = self.state[RULES_KEY]
         old_cap = next(
             (v.shape[0] for v in old.values() if v.dim() == 1), 0)
@@ -787,6 +1026,9 @@ class Runner:
         table = self.program.key_table()
         if table is None or len(table) <= self.cfg.key_capacity:
             return
+        # a barrier: the staged uploads step and the steps in flight
+        # dispatch against the state they were computed on
+        self.drain_inflight()
         cap = self.cfg.key_capacity
         while cap < len(table):
             cap *= 2
@@ -809,14 +1051,19 @@ class Runner:
              t_batch: Optional[float] = None) -> None:
         """Run ``batch`` in steps of at most ``batch_size`` rows;
         ``t_batch`` (the batch's arrival on the host clock) dates its
-        emissions' latency."""
+        emissions' latency. Each step's rows are packed into the wire
+        format, staged onto the device and stepped (at once, or up to
+        ``h2d_depth - 1`` feeds later); its emissions are fetched up to
+        ``async_depth - 1`` steps later."""
         if t_batch is None:
             t_batch = time.perf_counter()
         self._check_capacity()
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
-            self._run_step(batch.slice_rows(start, stop), wm_lower, t_batch)
+            with self.obs.span("pack", self._step_idx + 1):
+                inputs = self._pack_batch(batch.slice_rows(start, stop))
+            self._stage_step(inputs, wm_lower, t_batch)
             if self.count_input:
                 self.metrics.records_in += stop - start
                 self.obs.records_in.inc(stop - start)
@@ -826,12 +1073,15 @@ class Runner:
 
     def flush(self, wm_lower: int, t_batch: Optional[float] = None) -> None:
         """Advance time with an empty batch (processing-time tick / end
-        of stream), then drain any fires deferred by the budget."""
+        of stream), then drain any fires deferred by the budget. A
+        barrier: the staged uploads step and the steps in flight
+        dispatch first."""
+        self.drain_inflight()
         if not self.program.fires_on_clock:
             return
         if t_batch is None:
             t_batch = time.perf_counter()
-        self._run_step(self._empty_batch(), wm_lower, t_batch)
+        self._run_step(self._pack_batch(self._empty_batch()), wm_lower, t_batch)
         self._drain(wm_lower, t_batch)
 
     def _drain(self, wm_lower: int, t_batch: float) -> None:
@@ -844,7 +1094,8 @@ class Runner:
         for _ in range(ring.n_fire_candidates + 2):
             if not self.state.get("pending_fires"):
                 return
-            self._run_step(self._empty_batch(), wm_lower, t_batch)
+            self._run_step(self._pack_batch(self._empty_batch()),
+                           wm_lower, t_batch)
 
     def _empty_batch(self) -> Batch:
         """One invalid row of the input layout."""
@@ -858,28 +1109,601 @@ class Runner:
                                 valid=np.zeros(1, dtype=np.bool_))
         return self._empty
 
-    def _upload(self, batch: Batch):
-        pin = self.device.type == "cuda"
-        obs_on = self.obs.enabled
+    # -- the wire: packing (tpustream/runtime/executor.py:979-1082) -----------
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if obs_on:
-                self._h2d_bytes.inc(t.numel() * t.element_size())
-            if pin:
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=pin)
+    _I32_SPAN = 0x7FFF_FFFF
+    _U16_SPAN = 0xFFFF
 
-        cols = [put(c.data) for c in batch.columns]
-        if not (self.program.fires_on_clock or self.program.emit_ts):
-            return cols, put(batch.valid), None
-        if self.event_time and batch.ts is not None:
-            ts = batch.ts
-        elif batch.proc_ts is not None:
-            ts = batch.proc_ts
+    def _initial_modes(self) -> None:
+        """Sticky per-column wire mode chains (narrowest first):
+        int64 -> d16 (16-bit delta) -> d32 (int32 delta) -> raw;
+        float64 -> f32 (exact-round-trip float32) -> raw;
+        interned string ids (int32) -> i16 -> raw;
+        bool columns and the valid mask -> bits (8 rows a byte).
+        A demoted column stays demoted."""
+        compress, packed = self.cfg.h2d_compress, self.cfg.packed_wire
+        i64_mode = "d16" if compress and packed else "d32" if compress else "raw"
+        modes = []
+        for k in self.plan.record_kinds:
+            if k == I64:
+                modes.append(i64_mode)
+            elif k == F64 and packed:
+                modes.append("f32")
+            elif k == STR and packed:
+                modes.append("i16")
+            elif k == BOOL and packed:
+                modes.append("bits")
+            else:
+                modes.append("raw")
+        self._col_modes = tuple(modes)
+        self._ts_mode = i64_mode
+        self._valid_mode = "bits" if packed else "raw"
+
+    def _pack_batch(self, batch: Batch) -> "_Packed":
+        """One step's rows in the wire format. The timestamp column ships
+        only for a program that reads it."""
+        cols = [np.ascontiguousarray(c.data) for c in batch.columns]
+        ts = None
+        if self.program.fires_on_clock or self.program.emit_ts:
+            if self.event_time and batch.ts is not None:
+                ts = batch.ts
+            elif batch.proc_ts is not None:
+                ts = batch.proc_ts
+            else:
+                ts = np.zeros(batch.n, dtype=np.int64)
+            ts = np.ascontiguousarray(ts, dtype=np.int64)
+        with Stopwatch() as sw:
+            packed = self._pack(cols, np.ascontiguousarray(batch.valid), ts)
+        self.metrics.upload_times_s.append(sw.elapsed)
+        return packed
+
+    def _pack(self, cols, valid, ts) -> "_Packed":
+        """Numpy-side wire packing per the sticky column modes
+        (h2d_compress delta coding, packed_wire narrowing); demotes a
+        column down its mode chain, and rebuilds the decode step once,
+        when a batch's valid rows no longer fit the narrow form. A
+        16-bit delta travels as int16 bits and is widened with a mask."""
+        if self._col_modes is None:
+            self._initial_modes()
+        all_valid = bool(valid.all())
+        any_valid = all_valid or bool(valid.any())
+
+        def pack_one(arr, mode):
+            if mode in ("d32", "d16"):
+                if not any_valid:
+                    z = np.zeros(arr.shape,
+                                 np.int16 if mode == "d16" else np.int32)
+                    return z, 0, mode
+                va = arr if all_valid else arr[valid]
+                lo = int(va.min())
+                # Python-int span: an int64 subtraction could wrap for
+                # full-range columns and pass the check
+                span = int(va.max()) - lo
+                if mode == "d16" and span <= self._U16_SPAN:
+                    # invalid rows wrap mod 2^16; nothing reads them
+                    return ((arr - lo).astype(np.uint16).view(np.int16),
+                            lo, mode)
+                if span <= self._I32_SPAN:
+                    mode = "d32" if self.cfg.h2d_compress else "raw"
+                    if mode == "d32":
+                        return (arr - lo).astype(np.int32), lo, mode
+                return arr, 0, "raw"
+            if mode == "f32":
+                f = arr.astype(np.float32)
+                ok = f.astype(np.float64) == arr  # NaN demotes
+                if bool(ok.all() if all_valid else ok[valid].all()):
+                    return f, 0, mode
+                return arr, 0, "raw"
+            if mode == "i16":
+                va = arr if all_valid else arr[valid]
+                if not any_valid or (
+                        int(va.min()) >= -0x8000 and int(va.max()) <= 0x7FFF):
+                    return arr.astype(np.int16), 0, mode
+                return arr, 0, "raw"
+            if mode == "bits":
+                return np.packbits(arr.astype(bool)), 0, mode
+            return arr, 0, mode
+
+        packed, bases, modes = [], [], []
+        for arr, mode in zip(cols, self._col_modes):
+            p, b, m = pack_one(arr, mode)
+            packed.append(p)
+            bases.append(b)
+            modes.append(m)
+        ts_p, ts_b, ts_m = (None, 0, self._ts_mode) if ts is None \
+            else pack_one(ts, self._ts_mode)
+        if tuple(modes) != self._col_modes or ts_m != self._ts_mode:
+            self._demote(tuple(modes), ts_m)
+            return self._pack(cols, valid, ts)
+        valid_p = np.packbits(valid) if self._valid_mode == "bits" else valid
+        return _Packed(tuple(packed), tuple(bases), valid_p, ts_p, ts_b,
+                       int(valid.shape[0]), self._col_modes, self._ts_mode,
+                       self._valid_mode)
+
+    def _demote(self, modes: tuple, ts_mode: str) -> None:
+        """A wire-layout demotion: a barrier (staged uploads were packed
+        under the old layout and step first, then the steps in flight
+        dispatch), then the decode step is rebuilt once for the new
+        layout, recorded under the cause ``batch_shape_change``."""
+        self.drain_inflight()
+
+        def rebuild():
+            self._col_modes, self._ts_mode = modes, ts_mode
+
+        if self._compile_obs is not None and self._stepped:
+            self._compile_obs.build(CAUSE_BATCH_SHAPE, rebuild)
         else:
-            ts = np.zeros(batch.n, dtype=np.int64)
-        return cols, put(batch.valid), put(ts)
+            # before the first step the layout is still being chosen:
+            # nothing was built for the old one
+            rebuild()
+
+    @staticmethod
+    def _wire_nbytes(inputs: "_Packed") -> int:
+        """Wire bytes of one packed step: the packed columns, valid and
+        ts, plus 8 bytes a base scalar."""
+        n = sum(int(p.nbytes) for p in inputs.cols) + int(inputs.valid.nbytes)
+        if inputs.ts is not None:
+            n += int(inputs.ts.nbytes)
+        return n + 8 * (len(inputs.bases) + 1)
+
+    # -- staged uploads (tpustream/runtime/executor.py:1202-1270) -------------
+
+    def _stage_ok(self) -> bool:
+        return (not self.program.emissions_reference_state
+                and self.cfg.max_fires_per_step is None)
+
+    def _stage_step(self, inputs: "_Packed", wm_lower: int, t_batch) -> None:
+        """Run one packed batch through the upload side of the pipeline:
+        at h2d_depth 1 (or when staging is off) the step runs now;
+        deeper, the batch's copy is issued now and its step runs up to
+        ``h2d_depth - 1`` feeds later."""
+        nbytes = self._wire_nbytes(inputs)
+        self.metrics.h2d_bytes += nbytes
+        self._h2d_bytes.inc(nbytes)
+        if not self._h2d_ahead:
+            self._run_step(inputs, wm_lower, t_batch)
+            return
+        traced = [m for m in self._pending_markers
+                  if getattr(m, "trace_id", 0)]
+        with self.obs.span("h2d", self._step_idx + len(self._upload_q) + 1), \
+                Stopwatch() as sw:
+            uploaded = self._wire.put(inputs)
+        for m in traced:
+            m.add_span("h2d", t0=sw.t0, dur=sw.elapsed)
+        # markers detach at stage time so they ride THIS batch's step
+        markers = self._take_markers()
+        self._upload_q.append((uploaded, wm_lower, t_batch, markers))
+        while len(self._upload_q) > self._h2d_ahead:
+            self._pop_upload()
+
+    def _pop_upload(self) -> None:
+        uploaded, wm_lower, t_batch, markers = self._upload_q.pop(0)
+        self._run_step(None, wm_lower, t_batch, markers=markers,
+                       uploaded=uploaded)
+
+    def _flush_uploads(self) -> None:
+        """Run every staged batch's step."""
+        while self._upload_q:
+            self._pop_upload()
+
+    # -- the counted step (tpustream/runtime/executor.py:1302-1405) -----------
+
+    def _decode(self, uploaded: "_Uploaded"):
+        """The step's ``(cols, valid, ts)`` from the wire tensors: delta
+        expansion, dtype widening and bit unpacking on the device."""
+        inp = uploaded.inputs
+        n = inp.n
+        t = uploaded.tensors
+
+        def unpack_bits(p):
+            shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=p.device)
+            bits = (p[:, None] >> shifts) & 1
+            return bits.reshape(-1)[:n].to(torch.bool)
+
+        def expand(p, b, mode):
+            if mode == "d16":
+                return (p.to(torch.int64) & 0xFFFF) + b
+            if mode == "d32":
+                return p.to(torch.int64) + b
+            if mode == "f32":
+                return p.to(torch.float64)
+            if mode == "i16":
+                return p.to(torch.int32)
+            if mode == "bits":
+                return unpack_bits(p)
+            return p
+
+        n_cols = len(inp.cols)
+        cols = [expand(p, b, m) for p, b, m
+                in zip(t[:n_cols], inp.bases, inp.col_modes)]
+        valid = t[n_cols]
+        if inp.valid_mode == "bits":
+            valid = unpack_bits(valid)
+        ts = None if inp.ts is None else expand(t[n_cols + 1], inp.ts_base,
+                                                inp.ts_mode)
+        return cols, valid, ts
+
+    def _count_and_compact(self, emissions):
+        """One count scalar a stream the host will read (the rows a mask
+        selects, or a prefix stream's ``count``), each stream's
+        ``bad_keys`` as of this step, and the compacted form of each
+        mask-carrying stream: ``(names, counts, compact)``. Prefix
+        streams are compact already and skip the gather."""
+        names, counts, compact = [], [], {}
+        wanted = {"main": True, "late": bool(self._late_sinks()),
+                  "timeout": self._timeout_sink() is not None}
+        for name, stream in emissions.items():
+            if not wanted.get(name, False):
+                continue
+            bad = stream.get("bad_keys")
+            if bad is not None:
+                # the counter accumulates over steps: read it as of this one
+                stream["bad_keys"] = bad = bad.clone()
+                names.append(name + ":bad")
+                counts.append(bad.reshape(()).to(torch.int32))
+            if "mask" in stream:
+                names.append(name)
+                counts.append(stream["mask"].sum(dtype=torch.int32))
+                if self._compact_cap:
+                    compact[name] = self._compact_stream(stream)
+            elif isinstance(stream.get("count"), torch.Tensor):
+                names.append(name)
+                counts.append(stream["count"].reshape(()).to(torch.int32))
+        return names, counts, compact
+
+    def _compact_stream(self, stream) -> dict:
+        """Gather one stream's emitted rows, in emission order, into
+        ``[compaction_capacity]`` buffers: the row indices (``__sel__``)
+        and every ``[B]`` leaf. Rows past the capacity are absent; the
+        host then spills to the full fetch."""
+        mask, cap = stream["mask"], self._compact_cap
+        nb = mask.shape[0]
+        order = stream.get("order")
+        if order is not None:
+            # emission order is ascending j where mask[order[j]]
+            pos, _ = compact_positions(mask[order], cap)
+            sel = order[pos.to(torch.int64)]
+        else:
+            sel, _ = compact_positions(mask, cap)
+        sel = sel.to(torch.int64)
+
+        def gather(a):
+            if isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == nb:
+                return a[sel]
+            if isinstance(a, tuple):
+                return tuple(gather(x) for x in a)
+            return a
+
+        comp = {k: gather(v) for k, v in stream.items()
+                if k not in ("mask", "order", "bad_keys")}
+        comp["__sel__"] = sel
+        return comp
+
+    # -- steps in flight (tpustream/runtime/executor.py:1407-1496) ------------
+
+    def _run_step(self, inputs: Optional["_Packed"], wm_lower: int, t_batch,
+                  markers=None, uploaded=None) -> None:
+        """One device step: upload (unless staged), decode, the program's
+        step, the count scalars and compaction; the entry then waits in
+        flight until its group is fetched. ``markers`` is the staged path
+        handing over the markers it detached at stage time."""
+        if self._fault is not None:
+            self._fault("device_step")
+            if self.program.operator_name == "cep":
+                self._fault("cep_step")
+        m, obs = self.metrics, self.obs
+        self._step_idx += 1
+        self._stepped = True
+        step_markers = self._take_markers() if markers is None else markers
+        if uploaded is None:
+            with obs.span("h2d", self._step_idx), Stopwatch() as hw:
+                uploaded = self._wire.put(inputs)
+            for mk in step_markers:
+                if getattr(mk, "trace_id", 0):
+                    mk.add_span("h2d", t0=hw.t0, dur=hw.elapsed)
+        reads = self.program.host_reads
+        self._flight.set_active(obs.name or self.program.operator_name)
+        # the span times the host's issue of the step only: the wait for
+        # the card is the fetch's
+        with obs.span("dispatch", self._step_idx), Stopwatch() as dw:
+            self._wire.ready(uploaded)
+            cols, valid, ts = self._decode(uploaded)
+            self.state, emissions = self.program.run_step(
+                self.state, cols, valid, ts, wm_lower)
+            names, counts, compact = self._count_and_compact(emissions)
+            entry = _Entry(emissions, compact, names, t_batch, step_markers)
+            self._wire.issue_counts(entry, counts, self._spec_leaves(emissions))
+        entry.dispatch_s = dw.elapsed
+        m.d2h_syncs += self.program.host_reads - reads
+        m.steps += 1
+        obs.steps.inc()
+        obs.dispatch_time_s.observe(dw.elapsed)
+        for mk in step_markers:
+            if getattr(mk, "trace_id", 0):
+                mk.add_span("device_step", t0=dw.t0, dur=dw.elapsed,
+                            step=self._step_idx,
+                            operator=obs.name or self.program.operator_name)
+        self._inflight.append(entry)
+        obs.inflight.set(len(self._inflight))
+        while len(self._inflight) > self._max_inflight:
+            g = self._fetch_group
+            self._finish_group(self._inflight[:g])
+            del self._inflight[:g]
+
+    @property
+    def _fetch_group(self) -> int:
+        """Steps whose count scalars are read with one wait
+        (``StreamConfig.fetch_group``), clamped to the in-flight window
+        minus one: a group covering the whole window would drain the
+        pipeline on every fetch."""
+        return max(1, min(self.cfg.fetch_group, max(1, self._max_inflight)))
+
+    def drain_inflight(self) -> None:
+        """Dispatch every pending step's emissions (a barrier): staged
+        uploads step first."""
+        self._flush_uploads()
+        if self._inflight:
+            entries, self._inflight = self._inflight, []
+            g = self._fetch_group
+            for s in range(0, len(entries), g):
+                self._finish_group(entries[s:s + g])
+            self.obs.inflight.set(0)
+
+    def drain_chain(self, proc_now: int) -> None:
+        """Flush every stage's in-flight emissions down the chain: after
+        this, the emissions of every consumed batch have reached the
+        sinks or some stage's state."""
+        r = self
+        while r is not None:
+            r.drain_inflight()
+            r.pump_chain(proc_now)
+            r = r.downstream
+
+    def apply_knobs(self, knobs: dict) -> None:
+        """Apply the barrier-safe pipeline knobs (``async_depth``,
+        ``fetch_group``, ``h2d_depth``) at a drained barrier, the
+        adaptive controller's application point. The build-time guards
+        still win (a state-referencing program stays at depth 1,
+        unstaged; max_fires_per_step stays unstaged), so output bytes
+        never depend on a knob."""
+        kw = {}
+        if "async_depth" in knobs:
+            d = max(1, int(knobs["async_depth"]))
+            if d != self.cfg.async_depth:
+                kw["async_depth"] = d
+            if not self.program.emissions_reference_state:
+                self._max_inflight = max(0, d - 1)
+        if "fetch_group" in knobs:
+            g = max(1, int(knobs["fetch_group"]))
+            if g != self.cfg.fetch_group:
+                kw["fetch_group"] = g  # read live through the property
+        if "h2d_depth" in knobs:
+            d = max(1, int(knobs["h2d_depth"]))
+            if d != self.cfg.h2d_depth:
+                kw["h2d_depth"] = d
+            self._h2d_ahead = max(0, d - 1) if self._stage_ok() else 0
+            self._wire.resize(d + 1)
+        if kw:
+            self.cfg = self.cfg.replace(**kw)
+
+    # -- the fetch (tpustream/runtime/executor.py:1889-2078, 2192-2230) -------
+
+    def _spec_leaves(self, emissions):
+        """The prefix ``main`` stream's leaves to copy with this step's
+        count scalars, sliced to the last firing step's rows (one wait
+        then serves a step whose count fits), or None."""
+        main = emissions.get("main")
+        if (not self._prefix_hint or not self.program.main_emission_prefix
+                or main is None or not isinstance(main.get("count"),
+                                                  torch.Tensor)):
+            return None
+        leaves = self._prefix_leaves(main)
+        b = min(self._prefix_hint, int(leaves[0].shape[0]))
+        return [t[:b] for t in leaves]
+
+    def _prefix_leaves(self, stream) -> List[torch.Tensor]:
+        """A prefix stream's row leaves in a fixed order: its columns,
+        then ``key``, then the chained hand-off's ``window_end``/``ts``."""
+        leaves = list(stream["cols"])
+        for k in ("key",) + (("window_end", "ts") if self._chain_ts else ()):
+            if k in stream:
+                leaves.append(stream[k])
+        return leaves
+
+    def _rows_from(self, stream, arrays) -> dict:
+        """Host arrays of a prefix or compacted stream's rows, in
+        :meth:`_prefix_leaves` order, as ``{"cols", "key", ...}``."""
+        n_cols = len(stream["cols"])
+        out = {"cols": list(arrays[:n_cols])}
+        i = n_cols
+        for k in ("key",) + (("window_end", "ts") if self._chain_ts else ()):
+            if k in stream:
+                out[k] = arrays[i]
+                i += 1
+        return out
+
+    def _plan_stream(self, entry, name: str, c: int):
+        """``(tensors, resolve)`` for one stream worth fetching: the
+        tensors to copy, and a function from their host arrays to the
+        stream's rows (``{"cols", "subtask"?, "key"?, "window_end"?,
+        "ts"?}``, in emission order). A prefix stream copies its first
+        ``c`` rows; a compacted stream within its capacity the first
+        ``c`` compact rows; past it the stream spills to the full fetch,
+        exact, counted in ``compaction_spills``."""
+        stream = entry.emissions[name]
+        if "mask" not in stream:
+            spec = entry.spec_host
+            if name == "main" and spec is not None and c <= spec[0].shape[0]:
+                got = [a[:c] for a in spec]
+                return [], lambda _got: self._rows_from(stream, got)
+            leaves = [t[:c] for t in self._prefix_leaves(stream)]
+            return leaves, lambda got: self._rows_from(stream, got)
+        comp = entry.compact.get(name)
+        if comp is not None:
+            if c <= self._compact_cap:
+                leaves = [t[:c] for t in self._prefix_leaves(comp)]
+                sub = comp.get("subtask")
+                if sub is not None:
+                    leaves.append(sub[:c])
+
+                def resolve(got):
+                    rows = self._rows_from(comp, got)
+                    if sub is not None:
+                        rows["subtask"] = got[-1]
+                    return rows
+
+                return leaves, resolve
+            self._spill_counter.inc()
+            self.metrics.compaction_spills += 1
+            if name not in self._spilled_streams:
+                self._spilled_streams.add(name)
+                self._flight.record(
+                    "compaction_spill",
+                    operator=self.obs.name or self.program.operator_name,
+                    stream=name, count=int(c), capacity=self._compact_cap)
+        leaves = [stream["mask"]] + self._prefix_leaves(stream)
+        sub = stream.get("subtask")
+        if sub is not None:
+            leaves.append(sub)
+        order = stream.get("order")
+        if order is not None:
+            leaves.append(order)
+
+        def resolve_full(got):
+            mask = got[0]
+            if order is not None:
+                o = got[-1].astype(np.int64)
+                sel = o[np.nonzero(mask[o])[0]]
+                got = got[:-1]
+            else:
+                sel = np.nonzero(mask)[0]
+            rows = self._rows_from(stream, [a[sel] for a in got[1:]])
+            if sub is not None:
+                rows["subtask"] = got[-1][sel]
+            return rows
+
+        return leaves, resolve_full
+
+    def _finish_group(self, entries) -> None:
+        """Fetch and dispatch a group of steps in order: one wait for
+        every entry's count scalars (the last entry's copy follows the
+        others on the stream), then one copy of every stream still worth
+        fetching, then each entry's rows to the sinks."""
+        m = self.metrics
+        with self.obs.span("fetch", self._step_idx), Stopwatch() as sw:
+            with Stopwatch() as ww:
+                self._wire.wait_counts(entries, m)
+            plans = []
+            for e in entries:
+                cnt = e.counts
+                bad = max((v for k, v in cnt.items() if k.endswith(":bad")),
+                          default=0)
+                plan = {}
+                if not bad:
+                    for name in e.emissions:
+                        c = cnt.get(name)
+                        if c:
+                            plan[name] = self._plan_stream(e, name, c)
+                    main_c = cnt.get("main", 0)
+                    if main_c and self.program.main_emission_prefix:
+                        cap = int(e.emissions["main"]["cols"][0].shape[0]) \
+                            if e.emissions["main"]["cols"] else 0
+                        self._prefix_hint = min(
+                            cap, 1 << max(5, (main_c - 1).bit_length() + 1))
+                plans.append((plan, bad))
+            tensors = [t for plan, _ in plans for lv, _ in plan.values()
+                       for t in lv]
+            got = self._to_host(tensors) if tensors else []
+            if self.obs.enabled:
+                self._account_fetch(entries, plans, got)
+        per_wait = ww.elapsed / len(entries)
+        per_rows = (sw.elapsed - ww.elapsed) / len(entries)
+        i = 0
+        for e, (plan, bad) in zip(entries, plans):
+            rows = {}
+            for name, (lv, resolve) in plan.items():
+                rows[name] = resolve(got[i:i + len(lv)])
+                i += len(lv)
+            step_s = e.dispatch_s + per_wait
+            m.step_times_s.append(step_s)
+            self.obs.step_time_s.observe(step_s)
+            m.fetch_times_s.append(per_rows)
+            for mk in e.markers:
+                if getattr(mk, "trace_id", 0):
+                    mk.add_span("fetch", t0=sw.t0, dur=sw.elapsed,
+                                group=len(entries))
+            if bad:
+                raise IndexError(
+                    f"{int(bad)} rows carried a key id past the keyed "
+                    f"state's capacity of {self.cfg.key_capacity}"
+                )
+            self._dispatch(e, rows)
+
+    def _account_fetch(self, entries, plans, got) -> None:
+        """``fetch_bytes_total`` and ``compaction_ratio`` (obs-enabled
+        runs only): the bytes fetched against what the same streams
+        would cost as whole buffers."""
+        # the rows' copy counted itself (_to_host); the count scalars and
+        # the speculative slices are counted here
+        side = sum(sum(int(h.numel() * h.element_size()) for h in e.host)
+                   for e in entries)
+        self._fetch_bytes.inc(side)
+        fetched = side + sum(int(a.nbytes) for a in got)
+        full = 0
+        for e, (plan, _) in zip(entries, plans):
+            for name in plan:
+                st = e.emissions[name]
+                full += sum(t.numel() * t.element_size() for t in
+                            ([st["mask"]] if "mask" in st else [])
+                            + self._prefix_leaves(st))
+        if full:
+            self._compaction_gauge.set(fetched / full)
+
+    def _dispatch(self, entry, rows) -> None:
+        """One step's emissions to the sinks (or the chain buffer), in
+        the reference's order: a full-window program's fires, the main
+        stream, the late rows, the CEP timeouts."""
+        m, obs = self.metrics, self.obs
+        emitted_before = m.records_emitted
+        fire_info = entry.emissions.get("process_fire")
+        if fire_info is not None:
+            self._evaluate_fires(fire_info)
+        main = rows.get("main")
+        if main is not None and len(main["cols"]) and len(main["cols"][0]):
+            with obs.span("emit", self._step_idx), Stopwatch() as sw:
+                out = main["cols"]
+                if self.downstream is not None:
+                    ts_rows = None
+                    if self._chain_ts:
+                        wend = main.get("window_end")
+                        ts_rows = wend - 1 if wend is not None else main["ts"]
+                    self._chain_buf.append((out, ts_rows))
+                else:
+                    subtask = main.get("subtask")
+                    if subtask is None and main.get("key") is not None:
+                        n_shards = max(1, self.cfg.parallelism)
+                        subtask = main["key"].astype(np.int64) % n_shards
+                    for j, row in enumerate(self.formatter.rows(out)):
+                        self._emit_row(
+                            row, None if subtask is None else int(subtask[j]))
+                    m.records_emitted += len(out[0])
+            m.emit_times_s.append(sw.elapsed)
+        late = rows.get("late")
+        if late is not None:
+            with Stopwatch() as sw:
+                self._dispatch_late(late["cols"])
+            m.emit_times_s.append(sw.elapsed)
+        timeout = rows.get("timeout")
+        if timeout is not None:
+            with Stopwatch() as sw:
+                self._dispatch_timeout(timeout["cols"])
+            m.emit_times_s.append(sw.elapsed)
+        emitted_delta = m.records_emitted - emitted_before
+        if emitted_delta:
+            obs.records_emitted.inc(emitted_delta)
+            m.emit_latencies_s.append(time.perf_counter() - entry.t_batch)
+        if entry.markers:
+            self._record_markers(entry.markers)
 
     def _to_host(self, tensors) -> List[np.ndarray]:
         """Copy device tensors to the host with one wait for them all."""
@@ -895,88 +1719,6 @@ class Runner:
             o.copy_(t, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return [o.numpy() for o in outs]
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _run_step(self, batch: Batch, wm_lower: int, t_batch: float) -> None:
-        m = self.metrics
-        obs = self.obs
-        emitted_before = m.records_emitted
-        self._step_idx += 1
-        step_markers = self._take_markers()
-        with obs.span("h2d", self._step_idx), Stopwatch() as sw:
-            cols, valid, ts = self._upload(batch)
-            self._sync()
-        m.upload_times_s.append(sw.elapsed)
-        for mk in step_markers:
-            if getattr(mk, "trace_id", 0):
-                mk.add_span("h2d", t0=sw.t0, dur=sw.elapsed)
-        reads = self.program.host_reads
-        self._flight.set_active(obs.name or self.program.operator_name)
-        with Stopwatch() as sw:
-            # the span times the host's issue of the step only: the
-            # wait for the card below is the step timer's, never a span's
-            with obs.span("dispatch", self._step_idx), Stopwatch() as dw:
-                self.state, emissions = self.program.run_step(
-                    self.state, cols, valid, ts, wm_lower)
-            self._sync()
-        m.step_times_s.append(sw.elapsed)
-        m.d2h_syncs += self.program.host_reads - reads
-        m.steps += 1
-        obs.steps.inc()
-        obs.dispatch_time_s.observe(dw.elapsed)
-        obs.step_time_s.observe(sw.elapsed)
-        for mk in step_markers:
-            if getattr(mk, "trace_id", 0):
-                mk.add_span("device_step", t0=sw.t0, dur=sw.elapsed,
-                            step=self._step_idx,
-                            operator=obs.name or self.program.operator_name)
-        fire_info = emissions.get("process_fire")
-        if fire_info is not None:
-            self._evaluate_fires(fire_info)
-        main = emissions.get("main")
-        if main is not None:
-            # a stage that feeds an event-time stage hands over each
-            # row's timestamp: a window's end - 1, or the record's own
-            want = ("window_end", "ts") if self._chain_ts else ()
-            with obs.span("fetch", self._step_idx), Stopwatch() as sw:
-                out, subtask, extra = self._fetch(main, want)
-            m.fetch_times_s.append(sw.elapsed)
-            for mk in step_markers:
-                if getattr(mk, "trace_id", 0):
-                    mk.add_span("fetch", t0=sw.t0, dur=sw.elapsed, group=1)
-            with obs.span("emit", self._step_idx), Stopwatch() as sw:
-                if self.downstream is not None:
-                    if out and len(out[0]):
-                        ts_rows = None
-                        if self._chain_ts:
-                            wend = extra.get("window_end")
-                            ts_rows = wend - 1 if wend is not None else extra["ts"]
-                        self._chain_buf.append((out, ts_rows))
-                else:
-                    for j, row in enumerate(self.formatter.rows(out)):
-                        self._emit_row(
-                            row, None if subtask is None else int(subtask[j]))
-                    m.records_emitted += len(out[0]) if out else 0
-            m.emit_times_s.append(sw.elapsed)
-        late = emissions.get("late")
-        if late is not None and self._late_sinks():
-            with Stopwatch() as sw:
-                self._dispatch_late(late)
-            m.emit_times_s.append(sw.elapsed)
-        timeout = emissions.get("timeout")
-        if timeout is not None and self._timeout_sink() is not None:
-            with Stopwatch() as sw:
-                self._dispatch_timeout(timeout)
-            m.emit_times_s.append(sw.elapsed)
-        emitted_delta = m.records_emitted - emitted_before
-        if emitted_delta:
-            obs.records_emitted.inc(emitted_delta)
-            m.emit_latencies_s.append(time.perf_counter() - t_batch)
-        if step_markers:
-            self._record_markers(step_markers)
 
     def _evaluate_fires(self, fire_info) -> None:
         """A full-window program's fires: the program gathers each fired
@@ -1026,35 +1768,19 @@ class Runner:
         tt = getattr(self.program, "timeout_tag", None)
         return self.side_sinks.get(tt.id) if tt is not None else None
 
-    def _dispatch_late(self, late) -> None:
+    def _dispatch_late(self, cols) -> None:
         """Rows late past the allowed lateness, to every late-data side
-        output (after its host-side ops). Their count is read first, then
-        only that many rows, compacted on the device, are copied. (The
-        device counts drops itself, in ``late_dropped``, for jobs with no
-        side output.)"""
-        mask = late["mask"]
-        idx, count = compact_positions(mask, mask.shape[0])
-        (n,) = self._to_host([count])
-        n = int(n)
-        if n == 0:
-            return
-        rows = idx[:n].to(torch.int64)
-        cols = self._to_host([c[rows] for c in late["cols"]])
+        output (after its host-side ops). (The device counts drops
+        itself, in ``late_dropped``, for jobs with no side output.)"""
         for ops, sink in self._late_sinks():
             for row in self.late_formatter.rows(cols):
                 item, keep = _apply_ops(ops, row)
                 if keep:
                     sink.emit(item)
 
-    def _dispatch_timeout(self, timeout) -> None:
+    def _dispatch_timeout(self, cols) -> None:
         """CEP partial matches whose ``within`` expired, to the pattern's
-        timeout side output (Flink's PatternTimeoutFunction stream): the
-        row count, then that many rows."""
-        (n,) = self._to_host([timeout["count"]])
-        n = int(n)
-        if n == 0:
-            return
-        cols = self._to_host([c[:n] for c in timeout["cols"]])
+        timeout side output (Flink's PatternTimeoutFunction stream)."""
         ops, sink = self._timeout_sink()
         fmt = EmissionFormatter(self.program.timeout_kinds,
                                 self.program.timeout_tables)
@@ -1062,51 +1788,6 @@ class Runner:
             item, keep = _apply_ops(ops, row)
             if keep:
                 sink.emit(item)
-
-    def _fetch(self, main, want=()):
-        """The step's emitted rows on the host: ``(columns, subtasks,
-        extra)``; subtasks are None for a stream without a key, and
-        ``extra`` holds the rows of each stream leaf named in ``want``
-        that the stream has (``window_end``, ``ts``)."""
-        n_shards = max(1, self.cfg.parallelism)
-        names = [w for w in want if w in main]
-        if self.program.main_emission_prefix:
-            # read the count, then copy only that many rows
-            count = main["count"]
-            if isinstance(count, torch.Tensor):
-                (count,) = self._to_host([count])
-            n = int(count)
-            key = main.get("key")
-            if n == 0:
-                return [], None, {}
-            # the share of the emission buffer's rows the fetch copies
-            self._compaction_gauge.set(n / max(1, main["cols"][0].shape[0]))
-            extra = [] if key is None else [key[:n]]
-            n_cols = len(main["cols"])
-            got = self._to_host([c[:n] for c in main["cols"]] + extra
-                                + [main[w][:n] for w in names])
-            got_extra = dict(zip(names, got[len(got) - len(names):]))
-            if key is None:
-                return got[:n_cols], None, got_extra
-            return (got[:n_cols], got[n_cols].astype(np.int64) % n_shards,
-                    got_extra)
-        # checked before any row of the step reaches a sink; the whole
-        # buffer is copied
-        self._compaction_gauge.set(1.0)
-        bad = main.get("bad_keys")
-        extra = [main[w] for w in names] + ([] if bad is None else [bad])
-        got = self._to_host(
-            [main["mask"], main["subtask"]] + list(main["cols"]) + extra)
-        if bad is not None and int(got[-1][0]):
-            raise IndexError(
-                f"{int(got[-1][0])} rows carried a key id past the keyed "
-                f"state's capacity of {self.cfg.key_capacity}"
-            )
-        sel = np.nonzero(got[0])[0]
-        n_cols = len(main["cols"])
-        cols = got[2:2 + n_cols]
-        got_extra = {w: a[sel] for w, a in zip(names, got[2 + n_cols:])}
-        return [c[sel] for c in cols], got[1][sel], got_extra
 
     def _emit_row(self, row, subtask: Optional[int], ts=None, order=None) -> None:
         """Fan one emitted record out to every branch: the branch's
@@ -1239,17 +1920,17 @@ def _make_runner_chain(plans, cfg, metrics) -> Runner:
 
 
 def _check_supported(env, cfg: StreamConfig) -> None:
+    """Refuse, by name, the knobs whose machinery is not ported yet
+    (rather than ignore them)."""
     refused = {
         "restart_strategy": cfg.restart_strategy is not None,
         "checkpoint_interval_batches": cfg.checkpoint_interval_batches > 0,
-        "ingest_lanes": cfg.ingest_lanes > 1,
-        "dead_letter": bool(cfg.dead_letter),
     }
     names = [k for k, on in refused.items() if on]
     if names:
         raise NotImplementedError(
             f"StreamConfig {', '.join(names)} not ported to the PyTorch "
-            f"runtime yet"
+            f"runtime yet (checkpoints and supervised restarts)"
         )
 
 
@@ -1282,7 +1963,19 @@ def execute_job(env, sink_nodes) -> JobResult:
     ``env.config.device``. On any failure an obs-enabled job records the
     exception in its flight recorder and writes the postmortem dump
     before re-raising; either way its obs root closes (a final snapshot,
-    the scrape endpoint stopped)."""
+    the scrape endpoint stopped) and its ingest lanes stop."""
+    if env.config.ingest_lanes > 1 and env.config.obs.enabled:
+        # lane recovery keeps the job running with no restart: it
+        # surfaces through a built-in WARN health rule, installed before
+        # the obs root reads the rules
+        from .supervisor import (
+            _install_lane_contention_health_rule,
+            _install_lane_restart_health_rule,
+        )
+
+        _install_lane_restart_health_rule(env)
+        if getattr(env.config.obs, "resources", False):
+            _install_lane_contention_health_rule(env)
     try:
         result = _execute_job(env, sink_nodes)
     except BaseException as e:
@@ -1290,8 +1983,61 @@ def execute_job(env, sink_nodes) -> JobResult:
         if job_obs is not None:
             job_obs.on_failure(e)
         raise
+    finally:
+        # lane workers and their shared-memory rings die with the job,
+        # failed or not
+        plane = env.__dict__.pop("_ingest_plane", None)
+        if plane is not None:
+            plane.close()
     env.metrics.job_obs.close()
     return result
+
+
+def _prefetch_iter(it, depth: int, depth_gauge=None):
+    """Drain ``it`` on a daemon thread into a bounded queue (size
+    ``depth``): the producer blocks when the consumer falls behind, and a
+    producer exception re-raises at the consumer. Used for
+    ``StreamConfig.parse_ahead``; ``depth_gauge`` (obs) reads the queue
+    depth at snapshot time. (A copy of the reference's.)"""
+    import queue as queue_mod
+    import threading
+
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=max(1, depth))
+    if depth_gauge is not None:
+        depth_gauge.set_fn(q.qsize)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # gives up when the consumer abandoned the generator, so the
+        # producer never blocks on a full queue forever
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            for item in it:
+                if not put(("item", item)):
+                    return
+            put(("done", None))
+        except BaseException as e:  # surfaces in the consumer
+            put(("err", e))
+
+    threading.Thread(target=run, daemon=True).start()
+    try:
+        while True:
+            kind, payload = q.get()
+            if kind == "done":
+                return
+            if kind == "err":
+                raise payload
+            yield payload
+    finally:
+        stop.set()
 
 
 def _make_job_obs(env, cfg: StreamConfig):
@@ -1328,7 +2074,9 @@ def _make_job_obs(env, cfg: StreamConfig):
 
 
 def _execute_job(env, sink_nodes) -> JobResult:
-    cfg = env.config
+    # the effective config: cross-knob clamps applied once, here;
+    # env.config keeps the requested values
+    cfg, resolve_notes = env.config.resolve()
     _check_supported(env, cfg)
     resolve_device(cfg.device)  # refuse a missing card before any work
     with Stopwatch() as setup:
@@ -1338,6 +2086,23 @@ def _execute_job(env, sink_nodes) -> JobResult:
     metrics, job_obs = _make_job_obs(env, cfg)
     env.metrics = metrics
     metrics.build_time_s = setup.elapsed
+    # one breadcrumb a resolution clamp
+    for note in resolve_notes:
+        job_obs.flight.record("config_clamped", **note)
+    # the adaptive pipeline controller (runtime/controller.py): moves the
+    # barrier-safe depths at snapshot ticks; it reads the live registry
+    controller = None
+    if job_obs.enabled and getattr(cfg.obs, "adaptive", False):
+        from .controller import AdaptiveController
+
+        controller = AdaptiveController(cfg, job_obs)
+    # dead-letter quarantine output (StreamConfig.dead_letter): on the
+    # env, where the user reads it after execute
+    dead_letters = getattr(env, "dead_letters", None)
+    if dead_letters is None and cfg.dead_letter:
+        dead_letters = env.dead_letters = []
+    fault = _fault_hook(cfg)
+    injector = cfg.extra.get("fault_injector") if cfg.extra else None
     runner: Optional[Runner] = None
     processing_time = plan.time_characteristic == TimeCharacteristic.ProcessingTime
     proc_now = 0
@@ -1372,10 +2137,10 @@ def _execute_job(env, sink_nodes) -> JobResult:
     def apply_rule_updates(updates) -> None:
         """Land a group of rule updates at the current record boundary:
         every row fed so far finishes its way down the chain under the
-        old rules, then the host RuleSet and every stage's rule tensors
-        take the new values."""
+        old rules (a barrier: the pipeline drains), then the host RuleSet
+        and every stage's rule tensors take the new values."""
         rule_apply_t0[0] = time.perf_counter()
-        runner.pump_chain(proc_now)
+        runner.drain_chain(proc_now)
         old_version = ruleset.version
         for u in updates:
             ruleset.apply(u)
@@ -1383,6 +2148,10 @@ def _execute_job(env, sink_nodes) -> JobResult:
             r.refresh_rules()
         tenant_slots = sorted({u.tenant for u in updates
                                if getattr(u, "tenant", None) is not None})
+        if fault is not None:
+            fault("control_apply")
+            if tenant_slots:
+                fault("tenant_apply")
         job_obs.gauge("rule_version").set(ruleset.version)
         job_obs.counter("rule_updates_total").inc(len(updates))
         if job_obs.enabled and tenant_slots:
@@ -1420,7 +2189,64 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 (time.perf_counter() - rule_apply_t0[0]) * 1000.0)
             rule_apply_t0[0] = None
 
+    def quarantine(sb, err):
+        """Re-parse a failed batch line by line: the lines that parse
+        feed the device as one batch, the rest land in
+        ``env.dead_letters`` as ``(line, "Type: message")``, up to
+        ``dead_letter_capacity`` (``records_quarantined`` counts past
+        it). A batch that fails only as a whole re-raises."""
+        lines = _raw_lines(sb) if sb.raw is not None else sb.lines
+        good: List[str] = []
+        good_idx: List[int] = []
+        bad = 0
+        first_err = None
+        for i, line in enumerate(lines):
+            try:
+                host.process([line], sb.proc_ts[i:i + 1])
+            except Exception as line_err:
+                bad += 1
+                first_err = first_err if first_err is not None else line_err
+                if len(dead_letters) < cfg.dead_letter_capacity:
+                    dead_letters.append(
+                        (line, f"{type(line_err).__name__}: {line_err}"))
+            else:
+                good.append(line)
+                good_idx.append(i)
+        if not bad:
+            # every line parses alone: a batch-level error, not bad data
+            raise err
+        metrics.records_quarantined += bad
+        job_obs.flight.record(
+            "records_quarantined",
+            count=bad,
+            total=int(metrics.records_quarantined),
+            error=f"{type(first_err).__name__}: {str(first_err)[:200]}",
+        )
+        return host.process(
+            good, sb.proc_ts[np.asarray(good_idx, dtype=np.int64)])
+
+    def prepare(sb):
+        """The host stage of one source batch: ``(sb, Batch or None,
+        wm_hint, stopwatch)``. Runs inline, on the parse-ahead thread, or
+        (for the frames the ingest lanes cannot take) at the lanes'
+        merge point."""
+        with job_obs.tracer.span("parse"), Stopwatch() as hw:
+            if fault is not None:
+                fault("parse")
+            try:
+                batch, wm_hint = _parse(host, sb)
+            except Exception as e:
+                # injected faults model a crash, not bad data: they
+                # escalate
+                if dead_letters is None or getattr(e, "fault_injection", False):
+                    raise
+                batch, wm_hint = quarantine(sb, e)
+        return sb, batch, wm_hint, hw
+
     source_batches = plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms)
+    if injector is not None:
+        # source_read faults fire between batch pulls
+        source_batches = injector.wrap_source(source_batches)
     if job_obs.enabled and cfg.obs.latency_marker_interval_ms > 0:
         # end-to-end latency markers, stamped at the source and riding
         # the same h2d/dispatch/fetch/emit path as the records; a fleet
@@ -1439,10 +2265,43 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 trace_counter=job_obs.counter("record_traces_sampled_total"),
             ),
         )
+    prepared = map(prepare, source_batches)
+    # sharded host ingestion (runtime/ingest.py): lane worker processes
+    # parse frames in parallel and the merge yields the same prepared
+    # tuples in sequence order; execute_job closes the plane on any exit
+    ingest_plane = None
+    if cfg.ingest_lanes > 1:
+        from .ingest import build_ingest_plane
+
+        ingest_plane = env._ingest_plane = build_ingest_plane(
+            host, cfg, plan, job_obs, single_process=True, fault=fault)
+        if ingest_plane is not None:
+            prepared = ingest_plane.frames(source_batches, prepare)
+            resources = getattr(job_obs, "resources", None)
+            if resources is not None:
+                resources.attach_lanes(ingest_plane.lane_pids)
+    prefetched = cfg.parse_ahead > 0 and ingest_plane is None
+    if prefetched:
+        # source and parse on their own thread: batch N+1 parses while N
+        # steps (the native parser releases the GIL)
+        prepared = _prefetch_iter(
+            prepared, cfg.parse_ahead,
+            depth_gauge=(job_obs.gauge("parse_ahead_queue_depth")
+                         if job_obs.enabled else None))
+    # a paced source (idle gaps between batches) fetches synchronously:
+    # results would otherwise wait in flight for async_depth batch
+    # intervals. The gap is the wait inside the source, not parse time.
+    t_iter_done: Optional[float] = None
+    IDLE_GAP_S = 0.05
+    STALL_GAP_S = 1.0  # source gaps beyond this become flight events
     marker_backlog: list = []
-    for sb in source_batches:
-        with job_obs.tracer.span("parse"), Stopwatch() as hw:
-            batch, wm_hint = _parse(host, sb)
+    for sb, batch, wm_hint, hw in prepared:
+        now_ref = time.perf_counter() if prefetched else hw.t0
+        src_gap = now_ref - t_iter_done if t_iter_done is not None else 0.0
+        if src_gap > STALL_GAP_S:
+            job_obs.flight.record(
+                "source_stall", gap_s=round(src_gap, 3),
+                batches_consumed=metrics.batches)
         if sb.markers:
             for mk in sb.markers:
                 if getattr(mk, "trace_id", 0):
@@ -1466,7 +2325,14 @@ def _execute_job(env, sink_nodes) -> JobResult:
                     "watermark_jump", from_ms=wm_prev, to_ms=wm_now,
                     jump_ms=wm_now - wm_prev)
             wm_prev = wm_now
-        job_obs.maybe_snapshot()
+        tick = job_obs.maybe_snapshot()
+        if controller is not None and tick is not None and runner is not None:
+            knobs = controller.on_tick()
+            if knobs:
+                # at a drained barrier: output bytes never depend on them
+                runner.drain_chain(proc_now)
+                for r in runner.chain():
+                    r.apply_knobs(knobs)
         if sb.proc_ts.size:
             proc_now = max(proc_now, int(sb.proc_ts.max()))
         if sb.advance_proc_to is not None:
@@ -1478,6 +2344,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 with Stopwatch() as bw:
                     runner = _make_runner_chain(plans, cfg, metrics)
                 metrics.build_time_s += bw.elapsed
+            idle = t_iter_done is not None and src_gap > IDLE_GAP_S
             if marker_backlog:
                 runner.accept_markers(marker_backlog)
                 marker_backlog = []
@@ -1503,6 +2370,8 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 rest = batch.slice_rows(cursor, batch.n) if cursor else batch
                 if rest.n or not cursor:
                     feed(rest, wm_lower, hw.t0)
+            if idle:
+                runner.drain_inflight()
         elif sb.advance_proc_to is not None and runner is not None and processing_time:
             if marker_backlog:
                 runner.accept_markers(marker_backlog)
@@ -1510,6 +2379,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
             runner.flush(proc_now - 1)  # the processing-time clock ticked
         if runner is not None:
             runner.pump_chain(proc_now)
+        t_iter_done = time.perf_counter()
         if sb.final:
             break
     counts = host.parse_counts()
@@ -1528,6 +2398,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
         # Flink's end of input: a MAX watermark fires every remaining
         # event-time window; processing time fires up to the clock
         runner.flush(proc_now - 1 if processing_time else MAX_WATERMARK)
+        runner.drain_inflight()
         # chained stages: push the final emissions down the chain, then
         # fire everything still windowed downstream; a pump may BUILD a
         # process()-fed stage here, so downstream is read after it
@@ -1538,6 +2409,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
             if d is None:
                 break
             d.flush(MAX_WATERMARK)
+            d.drain_inflight()
             r = d
         # markers that met no further step still record at every
         # remaining edge: no stamped marker is lost

@@ -1,13 +1,16 @@
 """Per-job metrics: batches, records, and where each batch's time went.
 
 Counterpart of tpustream/runtime/metrics.py. Every time is a host-clock
-interval; the step interval ends in a device synchronise, so it covers
-the device's work for the batch. ``window_fires``, ``late_dropped``,
-``cep_matches``, ``cep_timeouts`` and the loss counters accumulate on
-the device and are folded in once per job (``Runner.finalize_metrics``);
-a full-window ``process()`` job counts its fires on the host. The
-summary carries every key of the reference's; the counters that have no
-source in this runtime yet (quarantine, the sharded exchange) read 0.
+interval. A step's time is its host issue plus its share of the wait for
+its fetch group's count scalars: at ``async_depth=1`` that wait covers
+the device's work for the batch; with steps in flight it is what the
+host still waited, as in the reference. ``window_fires``,
+``late_dropped``, ``cep_matches``, ``cep_timeouts`` and the loss
+counters accumulate on the device and are folded in once per job
+(``Runner.finalize_metrics``); a full-window ``process()`` job counts
+its fires on the host. The summary carries every key of the
+reference's; the sharded exchange's counter has no source in this
+runtime yet and reads 0.
 
 ``Metrics`` is a facade over :class:`tpustream_torch.obs.registry
 .MetricsRegistry`, as the reference's is: every counter the reference
@@ -15,7 +18,8 @@ keeps is a property backed by a job-scope registry Counter (``metrics
 .records_in += n`` behaves as a plain int does), and the step, host and
 emit-latency sample lists mirror each appended sample into a job-scope
 Histogram. The port's own fields (``steps``, ``d2h_syncs``,
-``d2h_bytes``, the parse-path counts, the upload/fetch/emit stage
+``d2h_bytes``, ``h2d_bytes``, ``compaction_spills``, the parse-path
+counts, the upload/fetch/emit stage
 lists, ``build_time_s``) stay plain attributes, so an obs-enabled job
 exposes the reference's series and no others. Callers that want
 per-operator series, spans or exposition go through ``metrics.job_obs``
@@ -70,7 +74,7 @@ class Metrics:
         "records_emitted",  # records handed to the sinks
         "window_fires",     # (key, window) results fired
         "late_dropped",     # records behind the watermark, dropped
-        "records_quarantined",  # poison lines diverted (no source yet)
+        "records_quarantined",  # poison lines diverted (dead_letter)
         "alert_overflow",   # fired rows past alert_capacity, lost
         "exchange_overflow",  # rows lost in a sharded exchange (no source yet)
         "buffer_overflow",  # window elements past process_buffer_capacity
@@ -84,17 +88,21 @@ class Metrics:
         self.registry = registry if registry is not None else MetricsRegistry()
         group = self.registry.group(job=job_name)
         self._counters = {n: group.counter(n) for n in self._COUNTER_FIELDS}
-        self.step_times_s = _Samples(group.histogram("step_time_s"))  # step + sync
+        # a step's host issue plus its share of its fetch group's wait
+        # for the count scalars (the whole wait at async_depth 1)
+        self.step_times_s = _Samples(group.histogram("step_time_s"))
         self.host_times_s = _Samples(group.histogram("host_time_s"))  # parse
         # batch arrival (parse start) to the dispatch of its emissions,
         # one sample a step that emitted at least one record
         self.emit_latencies_s = _Samples(group.histogram("emit_latency_s"))
-        self.upload_times_s: List[float] = []  # host -> device
+        self.upload_times_s: List[float] = []  # wire packing on the host
         self.fetch_times_s: List[float] = []   # device -> host
         self.emit_times_s: List[float] = []    # format + sinks
         self.steps = 0          # device steps run
         self.d2h_syncs = 0      # waits on a device-to-host copy
         self.d2h_bytes = 0      # bytes the executor copied device -> host
+        self.h2d_bytes = 0      # wire bytes the executor staged host -> device
+        self.compaction_spills = 0  # compacted fetches past the capacity
         self.build_time_s = build_time_s  # set-up: plan, host stage, program, state
         self.native_parses = 0  # parse-plan evaluations by the native parser
         self.numpy_parses = 0   # ... and by the numpy path

@@ -60,6 +60,8 @@ class ProcessWindowProgram(WindowProgram):
     operator_name = "process_window"
 
     host_evaluated = True
+    # evaluate_fires reads the window buffers the step left
+    emissions_reference_state = True
 
     def _build_agg(self) -> None:
         # no incremental aggregation: the accumulators ARE the buffers

@@ -74,6 +74,11 @@ class BaseProgram:
     # process() function): a stage chained after one infers its record
     # schema from the rows the function collects
     host_evaluated = False
+    # True when the host evaluates a step's emissions against the live
+    # state (a full-window process() program reads its window buffers
+    # at dispatch): such a program runs at async_depth 1, unstaged and
+    # uncompacted, since a later step would rewrite what it reads
+    emissions_reference_state = False
     # the operator label of this program's obs series (the reference's
     # names, so both packages' series line up)
     operator_name = "operator"
