@@ -87,6 +87,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2759,6 +2760,277 @@ def pipeline_phase(n_lines: int, flagship_lines: int, dead_lines: int,
     return out
 
 
+# -- phase recovery: checkpoints, savepoints, supervised restarts -----------
+
+RECOVERY_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+
+
+def recorded_metrics():
+    """Keep every Metrics the executor makes (one a supervised attempt):
+    ``(list, undo)``."""
+    import tpustream_torch.runtime.executor as E
+
+    made = []
+    plain = E.Metrics
+
+    class Recorded(plain):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    E.Metrics = Recorded
+    return made, lambda: setattr(E, "Metrics", plain)
+
+
+def series_value(m, name: str, field=None):
+    """The sum of an obs series over its labels (a histogram's
+    ``field``, e.g. ``sum``), from an attempt's registry."""
+    total = 0
+    for s in m.obs_snapshot()["metrics"]["series"]:
+        if s["name"] == name:
+            v = s["value"]
+            total += v[field] if field else v
+    return total
+
+
+def checkpoint_lines(label: str, made) -> None:
+    """Each attempt's barrier captures and each write report it noted
+    (a write still queued when its attempt failed lands, unreported). A
+    restored attempt counts its batches from the restore, skipped ones
+    included, so its first barrier may re-save the restored position."""
+    for a, m in enumerate(made):
+        print(f"recovery {label}: attempt {a} capture_ms="
+              f"{m.checkpoint_capture_ms}")
+        for r in m.checkpoint_reports:
+            print(f"recovery {label}: attempt {a} wrote "
+                  f"{r['path'].rsplit('/', 1)[-1]} batches={r['batches']} "
+                  f"write_wall_ms={r.get('write_wall_ms')} bytes="
+                  f"{r['bytes_total']} bytes_delta={r['bytes_delta']} "
+                  f"chunks_written={r['chunks_written']} chunks_reused="
+                  f"{r['chunks_reused']} gc_deleted={r['gc_deleted']}")
+
+
+def supervised(env, interval: int, directory: str, at: int):
+    """Checkpointing every ``interval`` batches into ``directory``, a
+    fixed-delay restart strategy and a ``device_step`` fault at data
+    step ``at``: the injector."""
+    from tpustream_torch.runtime.supervisor import fixed_delay
+    from tpustream_torch.testing import FaultInjector, FaultPoint
+
+    inj = FaultInjector(FaultPoint("device_step", at=at))
+    env.config = inj.install(env.config)
+    env.enable_checkpointing(interval, directory)
+    env.set_restart_strategy(fixed_delay(3, 0.0))
+    return inj
+
+
+def check_recovered(label: str, inj, m) -> dict:
+    restarts = series_value(m, "job_restarts_total")
+    if inj.fired != 1 or restarts != 1:
+        raise AssertionError(f"recovery {label}: fault fired {inj.fired} "
+                             f"times, job_restarts_total={restarts}")
+    kinds = flight_kinds(m)
+    for want in ("job_failed", "job_restarting", "job_restored", "job_recovered"):
+        if want not in kinds:
+            raise AssertionError(f"recovery {label}: no {want} in {kinds}")
+    return {"recovery_wall_ms": series_value(m, "recovery_wall_ms", "sum"),
+            "recovery_replay_batches": series_value(m, "recovery_replay_batches")}
+
+
+def recovery_ch2(n_lines: int) -> dict:
+    """Chapter 2 at the job phase's shape: an uninterrupted run, then a
+    supervised one crashed at data step 5 (snapshots every 2 batches),
+    whose rows must equal it and the oracle; the kernel held against its
+    plain version on its first call after the restore."""
+    from tpustream_torch import StreamExecutionEnvironment
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs.chapter2_max import build
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    want = [str(r) for r in oracle_rows(lines)]
+
+    def run(directory=None, at=None):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=RECOVERY_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            obs=ObsConfig(enabled=True)))
+        inj = supervised(env, 2, directory, at) if directory else None
+        h = build(env, env.add_source(ReplaySource(lines))).collect()
+        t0 = time.perf_counter()
+        env.execute("ComputeCpuMax")
+        wall = time.perf_counter() - t0
+        return [str(tuple(t.values())) for t in h.items], env.metrics, wall, inj
+
+    full, m0, wall0, _ = run()
+    if full != want:
+        raise AssertionError("recovery ch2: the uninterrupted run differs "
+                             "from the oracle")
+    steps = m0.steps
+    with tempfile.TemporaryDirectory() as d:
+        # the first attempt runs 5 steps (calls 0-4) and fails at the
+        # 6th: call 5 is the restored run's first
+        box, undo = capture_kernel_call(index=5)
+        made, undo_m = recorded_metrics()
+        S.reset_launches()
+        try:
+            got, m, wall, inj = run(d, at=5)
+        finally:
+            undo()
+            undo_m()
+        launches = S.seq_rolling_reduce.launches
+        rec = check_recovered("ch2", inj, m)
+        if got != full:
+            raise AssertionError("recovery ch2: recovered rows differ from "
+                                 "the uninterrupted run")
+        checkpoint_lines("ch2", made)
+    print(f"recovery ch2: {n_lines} lines, {steps} steps a run, recovered "
+          f"rows equal the uninterrupted run and the oracle; "
+          f"job_restarts_total=1 {rec} kernel launches={launches}; "
+          f"events_per_s uninterrupted={n_lines / wall0} "
+          f"recovered={n_lines / wall} (wall_s {wall0} / {wall})")
+    if RECOVERY_DEVICE != "cuda":
+        return {"launches": launches}
+    case = path_kernel_case("recovery (first call after the restore)",
+                            box["call"], 20)
+    return {"launches": launches, "case": case}
+
+
+def recovery_flagship(n_lines: int) -> None:
+    """The flagship's exact config at 1M lines and 1M channels, async
+    incremental snapshots every 3 batches, crashed at data step 5: rows
+    equal to an uninterrupted run and the oracle, losses 0, the
+    snapshots' sizes and times, the recovery's wall and replay; then a
+    restore drill on the store."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.checkpoint import restore_drill
+    from tpustream_torch.runtime.sources import ReplaySource
+    from tpustream_torch.runtime.window_program import WindowProgram
+
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want = [f"({c},{v!r})" for c, v in flagship_oracle(ts, ch, flow)]
+
+    def run(directory=None, at=None):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=RECOVERY_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            alert_capacity=1 << 16, obs=ObsConfig(enabled=True)))
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        inj = supervised(env, 3, directory, at) if directory else None
+        h = chapter3_bandwidth_eventtime.build(
+            env, env.add_source(ReplaySource(lines))).collect()
+        t0 = time.perf_counter()
+        env.execute("BandwidthMonitorWithEventTime")
+        wall = time.perf_counter() - t0
+        return [repr(t) for t in h.items], env.metrics, wall, inj
+
+    full, m0, wall0, _ = run()
+    if full != want:
+        raise AssertionError("recovery flagship: the uninterrupted run "
+                             "differs from the oracle")
+    with tempfile.TemporaryDirectory() as d:
+        got_bytes, undo_b = state_bytes(WindowProgram)
+        made, undo_m = recorded_metrics()
+        try:
+            got, m, wall, inj = run(d, at=5)
+        finally:
+            undo_b()
+            undo_m()
+        rec = check_recovered("flagship", inj, m)
+        losses = {k: getattr(m, k) for k in
+                  ("late_dropped", "alert_overflow", "evicted_unfired")}
+        if got != full or any(losses.values()):
+            raise AssertionError(f"recovery flagship: recovered rows equal "
+                                 f"the uninterrupted run: {got == full}; "
+                                 f"losses {losses}")
+        checkpoint_lines("flagship", made)
+        t0 = time.perf_counter()
+        drill = restore_drill(d)
+        drill_s = time.perf_counter() - t0
+        if drill["ok"] is not True:
+            raise AssertionError(f"recovery flagship: restore drill {drill}")
+    print(f"recovery flagship: {n_lines} lines, {len(full)} rows equal the "
+          f"uninterrupted run and the oracle; {losses}; state_bytes="
+          f"{got_bytes.get('n')} job_restarts_total=1 {rec}; restore drill "
+          f"ok in {drill_s} s; events_per_s uninterrupted={n_lines / wall0} "
+          f"recovered={n_lines / wall} (wall_s {wall0} / {wall})")
+
+
+def recovery_savepoint(n_lines: int) -> None:
+    """A savepoint of the flagship's int32 config after the third batch,
+    restored in a fresh env: its rows equal the uninterrupted run's
+    suffix from the savepoint's ``emitted``."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.checkpoint import load_checkpoint
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want = [f"({c},{v!r})" for c, v in
+            flagship_oracle(ts, ch, flow, int32_panes=True)]
+
+    class SavepointAt(ReplaySource):
+        """Requests a savepoint as it yields its third batch (the
+        executor writes it at that batch's boundary)."""
+
+        def __init__(self, items, env):
+            super().__init__(items)
+            self.env = env
+
+        def batches(self, batch_size, max_delay_ms):
+            for i, sb in enumerate(super().batches(batch_size, max_delay_ms)):
+                if i == 2:
+                    self.env.savepoint("batch3")
+                yield sb
+
+    def run(directory, restore=None):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=RECOVERY_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            alert_capacity=1 << 16, checkpoint_dir=directory, parse_ahead=0,
+            **FLAGSHIP_CONFIGS["int32"]))
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        if restore is not None:
+            env.restore_from_checkpoint(restore)
+            src = ReplaySource(lines)
+        else:
+            src = SavepointAt(lines, env)
+        h = chapter3_bandwidth_eventtime.build(env, env.add_source(src)).collect()
+        t0 = time.perf_counter()
+        env.execute("BandwidthMonitorWithEventTime")
+        return [repr(t) for t in h.items], env, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        full, env, wall0 = run(d)
+        if full != want or len(env.savepoints) != 1:
+            raise AssertionError(f"recovery savepoint: rows equal the oracle: "
+                                 f"{full == want}; savepoints {env.savepoints}")
+        sp = env.savepoints[0]
+        ck = load_checkpoint(sp)
+        got, _, wall = run(d, restore=sp)
+        if got != full[ck.emitted:] or ck.batches != 3:
+            raise AssertionError(
+                f"recovery savepoint: restored rows equal the suffix: "
+                f"{got == full[ck.emitted:]}; savepoint batches {ck.batches}")
+    print(f"recovery savepoint: {sp.rsplit('/', 1)[-1]} after batch 3 "
+          f"(source_pos={ck.source_pos}, emitted={ck.emitted}); the fresh "
+          f"env's {len(got)} rows equal the uninterrupted run's suffix; "
+          f"wall_s full={wall0} restored={wall}")
+
+
+def recovery_phase(n_lines: int, flagship_lines: int) -> dict:
+    for name, fn, args in (("ch2", recovery_ch2, (n_lines,)),
+                           ("flagship", recovery_flagship, (flagship_lines,)),
+                           ("savepoint", recovery_savepoint, (flagship_lines,))):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"recovery {name}: {time.perf_counter() - t0:.1f} s")
+        if name == "ch2":
+            result = out
+    return result
+
+
 AVG_LINES = [
     "1563452056 10.8.22.1 cpu0 80.5",
     "1563452050 10.8.22.1 cpu0 78.4",
@@ -3248,7 +3520,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "cep,rules,fleet,obs,pipeline,small")
+                            "cep,rules,fleet,obs,pipeline,recovery,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -3311,6 +3583,9 @@ def main() -> int:
     pipeline = (timed("pipeline", pipeline_phase, args.lines,
                       args.flagship_lines, args.dead_letter_lines, args.reps)
                 if "pipeline" in phases else {})
+    recovery = (timed("recovery", recovery_phase, args.lines,
+                      args.flagship_lines)
+                if "recovery" in phases else {})
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -3331,7 +3606,9 @@ def main() -> int:
             ("rules", "float64", "max", rules.get("launches"), rules.get("case")),
             ("fleet", "float64", "max", fleet.get("launches"), fleet.get("case")),
             ("pipeline", "float64", "max", pipeline.get("launches"),
-             pipeline.get("case"))):
+             pipeline.get("case")),
+            ("recovery", "float64", "max", recovery.get("launches"),
+             recovery.get("case"))):
         if case is None:
             continue
         entries.append({

@@ -76,11 +76,18 @@ def builds(monkeypatch):
     return counts
 
 
-def run_ch5(lines, updates, batch_size=4, **over):
+def run_ch5(lines, updates, batch_size=4, ckdir=None, injector=None,
+            strategy=None, **over):
     """One chapter-5 dynamic-threshold run through the port on the CPU;
     returns (result, tuples, rules)."""
-    env = T.StreamExecutionEnvironment(
-        T.StreamConfig(batch_size=batch_size, device="cpu", **over))
+    cfg = T.StreamConfig(batch_size=batch_size, device="cpu", **over)
+    if ckdir is not None:
+        cfg = cfg.replace(checkpoint_dir=str(ckdir), checkpoint_interval_batches=1)
+    if injector is not None:
+        cfg = injector.install(cfg)
+    env = T.StreamExecutionEnvironment(cfg)
+    if strategy is not None:
+        env.set_restart_strategy(strategy)
     rules = make_rules()
     handle = build_ch5(
         env, env.add_source(ReplaySource(lines)),
@@ -514,3 +521,63 @@ def test_rule_param_resolves_to_the_bound_tensor():
     with rules.bound({"p": torch.tensor([10.0, 20.0, 30.0], dtype=torch.float64)}):
         with rules.bound_tenant(torch.tensor([2, 0])):
             assert (col + p).tolist() == [31.0, 13.0]
+
+
+# ---------------------------------------------------------------------------
+# tests/test_broadcast.py's durability cases: checkpoint meta and crash
+# recovery across a rule update
+# ---------------------------------------------------------------------------
+
+
+def test_checkpoint_meta_carries_rules(tmp_path):
+    import glob
+    import os
+
+    from tpustream_torch.runtime.checkpoint import load_checkpoint
+
+    run_ch5(LINES, [(5, 95.0)], batch_size=4, ckdir=tmp_path)
+    snaps = sorted(glob.glob(os.path.join(str(tmp_path), "ckpt-*.npz")))
+    assert snaps
+    ck = load_checkpoint(snaps[-1])
+    assert ck.rule_values == {"threshold": 95.0}
+    assert ck.rule_version == 1
+    # and an early snapshot (if still retained) predates the update
+    assert load_checkpoint(snaps[0]).rule_version in (0, 1)
+
+
+def test_control_apply_crash_recovers_byte_identical(tmp_path):
+    """A crash between a rule's application and the next data batch:
+    the supervised restart restores the pre-update rule version from the
+    checkpoint, replays, and re-applies the update at the same record
+    boundary; the output equals an uninterrupted run's and the final
+    version is exactly 1 (no double apply)."""
+    from tpustream_torch.runtime.supervisor import fixed_delay
+    from tpustream_torch.testing import FaultInjector, FaultPoint
+
+    updates = [(17, 95.0)]
+    want = expect_ch5(LINES, updates)
+    _, clean, _ = run_ch5(LINES, updates, batch_size=4)
+    assert clean == want
+    inj = FaultInjector(FaultPoint("control_apply", at=0))
+    _, got, rules = run_ch5(LINES, updates, batch_size=4, ckdir=tmp_path,
+                            injector=inj, strategy=fixed_delay(3, 0.0))
+    assert inj.fired == 1
+    assert got == want
+    assert rules.version == 1
+    assert rules.value("threshold") == 95.0
+
+
+def test_scratch_restart_replays_rule_timeline():
+    """A crash before any checkpoint exists restarts from scratch: the
+    RuleSet resets to its defaults and the control feed re-applies the
+    update at its original boundary."""
+    from tpustream_torch.runtime.supervisor import fixed_delay
+    from tpustream_torch.testing import FaultInjector, FaultPoint
+
+    updates = [(17, 95.0)]
+    inj = FaultInjector(FaultPoint("device_step", at=0))
+    _, got, rules = run_ch5(LINES, updates, batch_size=4, injector=inj,
+                            strategy=fixed_delay(3, 0.0))
+    assert inj.fired == 1
+    assert got == expect_ch5(LINES, updates)
+    assert rules.version == 1

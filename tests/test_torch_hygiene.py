@@ -40,6 +40,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.runtime.ingest, tpustream_torch.runtime.watchdog\n"
         "import tpustream_torch.runtime.controller\n"
         "import tpustream_torch.runtime.supervisor\n"
+        "import tpustream_torch.runtime.checkpoint, tpustream_torch.utils.tree\n"
         "import tpustream_torch.parallel.lanes, tpustream_torch.testing\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )

@@ -1,7 +1,8 @@
 """The self-healing ingest plane of the PyTorch port (``runtime/ingest.py``,
 ``runtime/watchdog.py``), on the CPU: tests/test_ingest_selfheal.py:113-368,
-output only (the checkpoint digests and the escalation to a supervised
-restart wait for checkpoints and the supervisor). Lane supervision
+with the checkpoint digests of the healed runs, and the escalation of
+a hang past lane healing to the watchdog and a supervised restart. Lane
+supervision
 detects dead and hung workers, re-routes their un-merged frames inline,
 respawns a lane within its restart budget and folds a lane out past it,
 and the job's rows stay those of a single-lane run. The watchdog and
@@ -10,14 +11,21 @@ parametrised test. A lane worker is forked while the parent holds
 threads of its own (the watchdog, the ingest producer) and never touches
 ``torch``. Tolerance: identical rows."""
 
+import hashlib
 import importlib
+import json
 import time
 
+import numpy as np
 import pytest
 
 from tests.test_torch_chains import PKGS, run_job
 from tpustream_torch.config import ObsConfig
-from tpustream_torch.runtime.supervisor import LANE_RESTART_HEALTH_RULE_NAME
+from tpustream_torch.runtime.checkpoint import load_checkpoint
+from tpustream_torch.runtime.supervisor import (
+    LANE_RESTART_HEALTH_RULE_NAME,
+    fixed_delay,
+)
 from tpustream_torch.testing import FaultInjector, FaultPoint
 
 PACKAGES = {"jax": "tpustream", "torch": "tpustream_torch"}
@@ -46,13 +54,51 @@ def base_rows():
     return rows
 
 
-def run_healed(injector, **over):
-    """The chapter-2 job through the port with lanes and the injector:
-    ``(rows, flight events, snapshot)``."""
+@pytest.fixture(scope="module")
+def base_ckpt(tmp_path_factory):
+    """The single-lane run's newest checkpoint (a snapshot every batch)."""
+    d = tmp_path_factory.mktemp("base")
+    run_job("torch", ch2, LONG_LINES, event_time=False, batch_size=4,
+            checkpoint_dir=str(d), checkpoint_interval_batches=1)
+    return d
+
+
+def _digest(path, fields):
+    ck = load_checkpoint(str(path))
+    h = hashlib.sha256()
+    for leaf in ck.leaves:
+        a = np.asarray(leaf)
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(json.dumps([getattr(ck, f) for f in fields]).encode())
+    return h.hexdigest()
+
+
+def checkpoint_digest(path):
+    """The replayable checkpoint content: the state leaves and the
+    stream cursors (the session and the informational lane cursor are
+    left out)."""
+    return _digest(path, ("source_pos", "emitted", "batches"))
+
+
+def replay_state_digest(path):
+    """The state leaves and the source cursor only: across a supervised
+    restart ``emitted`` counts from the restore, by design."""
+    return _digest(path, ("source_pos",))
+
+
+def run_healed(injector, ckdir=None, strategy=None, **over):
+    """The chapter-2 job through the port with lanes and the injector
+    (``ckdir``: a checkpoint every batch): ``(rows, flight events,
+    snapshot)``."""
     ns = PKGS["torch"]
     cfg = injector.install(ns.pkg.StreamConfig(
         batch_size=4, obs=ObsConfig(enabled=True), **over, **ns.cfg))
+    if ckdir is not None:
+        cfg = cfg.replace(checkpoint_dir=str(ckdir), checkpoint_interval_batches=1)
     env = ns.pkg.StreamExecutionEnvironment(cfg)
+    if strategy is not None:
+        env.set_restart_strategy(strategy)
     h = ch2(ns, env.add_source(ns.sources.ReplaySource(LONG_LINES))).collect()
     env.execute("ingest-selfheal-test")
     return ([repr(t) for t in h.items], list(env.metrics.job_obs.flight.events()),
@@ -156,10 +202,12 @@ def test_lane_restart_policy_budget_is_per_lane(pk):
 
 # -- failure shapes: the lane heals in place --------------------------------------
 
-def test_lane_crash_sigkill_inplace_recovery(base_rows):
+def test_lane_crash_sigkill_inplace_recovery(base_rows, base_ckpt, tmp_path):
     inj = FaultInjector(FaultPoint("lane_worker_crash", at=3, exit_code=-9))
-    rows, events, snap = run_healed(inj, ingest_lanes=2)
+    rows, events, snap = run_healed(inj, ckdir=tmp_path, ingest_lanes=2)
+    # byte-identical stream and checkpoint despite a dead worker
     assert rows == base_rows
+    assert checkpoint_digest(tmp_path) == checkpoint_digest(base_ckpt)
     k = kinds(events)
     assert "ingest_lanes_enabled" in k
     assert "ingest_lane_died" in k and "ingest_lane_restarted" in k
@@ -188,25 +236,48 @@ def test_premature_clean_exit_is_detected_not_hung(base_rows):
     assert "ingest_lane_restarted" in kinds(events)
 
 
-def test_lane_hang_heartbeat_stall_inplace_recovery(base_rows):
+def test_lane_hang_heartbeat_stall_inplace_recovery(base_rows, base_ckpt,
+                                                    tmp_path):
     inj = FaultInjector(FaultPoint("lane_worker_hang", at=2))
-    rows, events, _ = run_healed(inj, ingest_lanes=2,
+    rows, events, _ = run_healed(inj, ckdir=tmp_path, ingest_lanes=2,
                                  ingest_lane_stall_limit_ms=300.0)
     assert rows == base_rows
+    assert checkpoint_digest(tmp_path) == checkpoint_digest(base_ckpt)
     died = [e for e in events if e["kind"] == "ingest_lane_died"]
     assert died and died[0]["shape"] == "stall"
     assert died[0]["heartbeat_age_ms"] >= 300.0
     assert "ingest_lane_restarted" in kinds(events)
 
 
-def test_fold_out_ladder_degrades_to_inline(base_rows):
+def test_hang_escalates_to_watchdog_and_supervised_restart(base_rows,
+                                                           base_ckpt, tmp_path):
+    """Lane healing off: the hung lane stalls the merge, the watchdog
+    raises, and the supervisor restarts the job from its checkpoint,
+    exactly-once."""
+    inj = FaultInjector(FaultPoint("lane_worker_hang", at=2))
+    rows, events, _ = run_healed(
+        inj, ckdir=tmp_path, strategy=fixed_delay(3, 0.0), ingest_lanes=2,
+        ingest_lane_stall_limit_ms=0.0,  # lane-level healing off
+        extra={"ingest_watchdog_limit_ms": 700.0},
+    )
+    assert rows == base_rows
+    assert replay_state_digest(tmp_path) == replay_state_digest(base_ckpt)
+    k = kinds(events)
+    assert "watchdog_fired" in k
+    assert "job_failed" in k and "job_recovered" in k
+    restarting = [e for e in events if e["kind"] == "job_restarting"]
+    assert restarting and restarting[0]["cause"] == "ingest_stall"
+
+
+def test_fold_out_ladder_degrades_to_inline(base_rows, base_ckpt, tmp_path):
     inj = FaultInjector(
         FaultPoint("lane_worker_crash", at=0, exit_code=-9),
         FaultPoint("lane_worker_crash", at=1, exit_code=-9),
     )
-    rows, events, snap = run_healed(inj, ingest_lanes=2,
+    rows, events, snap = run_healed(inj, ckdir=tmp_path, ingest_lanes=2,
                                     ingest_lane_restarts=0)
     assert rows == base_rows
+    assert checkpoint_digest(tmp_path) == checkpoint_digest(base_ckpt)
     k = kinds(events)
     assert k.count("ingest_lane_folded") == 2
     assert "ingest_degraded" in k

@@ -4,10 +4,11 @@ package: staged uploads (``h2d_depth``), steps in flight
 compaction (``compaction_capacity``), the packed wire (``packed_wire``,
 ``h2d_compress``) and parse-ahead (``parse_ahead``).
 
-* Counterparts of tests/test_pipeline_parity.py's single-device cases
-  (its checkpoint case waits for checkpoints): the keyed rolling sum at
-  five settings and the chapter-3 event-time job at two, each equal to
-  the fully synchronous run and to the JAX package's; the compaction
+* Counterparts of tests/test_pipeline_parity.py's single-device cases:
+  the keyed rolling sum at five settings and the chapter-3 event-time
+  job at two, each equal to the fully synchronous run and to the JAX
+  package's; the final checkpoint of the synchronous and the deep
+  pipeline equal leaf for leaf, and equal to the JAX package's; the compaction
   spill, exact past the capacity and counted as the JAX package counts
   it; the compact fetch engaged below it; the staged ``h2d`` spans.
 * The single-stage ``sync_depth1``, ``no_compress``, ``grouped_fetch``
@@ -417,3 +418,33 @@ def test_resolved_config_records_each_clamp():
     assert [(e["knob"], e["requested"], e["effective"]) for e in notes] == [
         ("fetch_group", 8, 2)]
     assert env.config.fetch_group == 8  # the requested value stays
+
+
+def test_final_checkpoint_identical_sync_vs_deep(tmp_path):
+    """Same input at async_depth/h2d_depth 1 vs N: the final
+    checkpoint's state arrays (not just the sink output) match byte for
+    byte, and match the JAX package's: the pipeline may not smear state
+    across a snapshot barrier."""
+    import glob
+    import os
+
+    from tpustream_torch.runtime.checkpoint import _read_npz
+
+    lines = rolling_lines(48, 7)
+    ck = dict(checkpoint_interval_batches=1)
+    want, _ = run_rolling(lines, checkpoint_dir=str(tmp_path / "sync"), **ck, **SYNC)
+    got, _ = run_rolling(lines, checkpoint_dir=str(tmp_path / "deep"), **ck, **DEEP)
+    assert got == want
+    run_job("jax", rolling_build, lines, event_time=False, batch_size=4,
+            checkpoint_dir=str(tmp_path / "jax"), **ck, **SYNC)
+
+    def last_leaves(d):
+        path = sorted(glob.glob(os.path.join(str(d), "ckpt-*.npz")))[-1]
+        return _read_npz(path)[1]
+
+    a = last_leaves(tmp_path / "sync")
+    for other in ("deep", "jax"):
+        b = last_leaves(tmp_path / other)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and np.array_equal(x, y), other

@@ -64,6 +64,7 @@ if _os.environ.get("TPUSTREAM_LANE_WORKER") == "1":
         "MetricsServer": "obs", "TenantSLO": "obs",
         "JobServer": "tenancy", "TenantPlan": "tenancy",
         "TenantQuota": "tenancy",
+        "RestartStrategies": "runtime.supervisor",
     }
 
     def __getattr__(name):
@@ -105,6 +106,7 @@ else:
     from .config import StreamConfig  # noqa: E402
     from .obs import MetricsServer, TenantSLO  # noqa: E402
     from .tenancy import JobServer, TenantPlan, TenantQuota  # noqa: E402
+    from .runtime.supervisor import RestartStrategies  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -124,6 +126,7 @@ __all__ = [
     "PatternSelectFunction",
     "ProcessWindowFunction",
     "ReduceFunction",
+    "RestartStrategies",
     "RuleDescriptor",
     "RuleParam",
     "RuleSet",

@@ -24,6 +24,9 @@ class StreamExecutionEnvironment:
         self._sinks: list[Node] = []
         self.job_name: Optional[str] = None
         self.metrics = None        # populated by execute()
+        # a snapshot to resume from (restore_from_checkpoint); a
+        # supervised restart sets it to the newest valid checkpoint
+        self._checkpoint_restore_path: Optional[str] = None
         # dynamic-rules control stream (DataStream.broadcast): ONE
         # BroadcastStream per job; its RuleSet threads through every
         # program of the plan chain (tpustream_torch/broadcast)
@@ -31,9 +34,16 @@ class StreamExecutionEnvironment:
         # multi-tenant fleet root (tenancy/server.py JobServer.build_job
         # sets it): the executor attaches it to the job's obs root
         self._tenancy = None
-        # dead-letter output, (line, error) pairs; stays empty here (the
-        # port has no quarantine yet) but the fleet's obs reads it
+        # dead-letter output (StreamConfig.dead_letter): (line, error)
+        # pairs quarantined by the host parse stage instead of failing
+        # the job; survives supervised restarts (rolled back with the
+        # sinks on recovery so counts stay exactly-once)
         self.dead_letters: list = []
+        # savepoints (runtime/checkpoint.py save_savepoint): tags
+        # requested via savepoint(), consumed by the executor at the
+        # next batch boundary; written paths accumulate in savepoints
+        self._savepoint_requests: list = []
+        self.savepoints: list[str] = []
 
     # -- construction --------------------------------------------------------
     @staticmethod
@@ -54,6 +64,50 @@ class StreamExecutionEnvironment:
         self.config = self.config.replace(parallelism=n)
 
     setParallelism = set_parallelism
+
+    def enable_checkpointing(
+        self, interval_batches: int, directory: Optional[str] = None
+    ) -> None:
+        """Snapshot the job's state every ``interval_batches`` source
+        batches into ``directory`` (runtime/checkpoint.py), in the JAX
+        package's snapshot format."""
+        self.config = self.config.replace(
+            checkpoint_interval_batches=interval_batches,
+            checkpoint_dir=directory or self.config.checkpoint_dir,
+        )
+
+    enableCheckpointing = enable_checkpointing
+
+    def restore_from_checkpoint(self, path: str) -> None:
+        """Resume the next ``execute()`` from the snapshot at ``path`` (a
+        file, or a checkpoint directory's newest valid snapshot)."""
+        self._checkpoint_restore_path = path
+
+    def savepoint(self, tag: Optional[str] = None) -> None:
+        """Request a pinned, self-contained snapshot (Flink's savepoint:
+        the operator-triggered artifact for migration, distinct from the
+        periodic checkpoints retention may prune). The executor writes it
+        at the next batch boundary — requests registered before
+        ``execute()`` land after the first batch — into
+        ``config.checkpoint_dir`` as ``savepoint-<source_pos>[-<tag>]
+        .npz``; written paths accumulate in ``env.savepoints``. Restore
+        one explicitly via :meth:`restore_from_checkpoint` (savepoints
+        are never automatic recovery candidates)."""
+        if not self.config.checkpoint_dir:
+            raise RuntimeError(
+                "savepoint() needs config.checkpoint_dir — savepoints "
+                "are written next to the job's checkpoints"
+            )
+        self._savepoint_requests.append(tag)
+
+    def set_restart_strategy(self, strategy) -> None:
+        """Flink 1.8 parity (env.setRestartStrategy(
+        RestartStrategies.fixedDelayRestart(3, ...))): failures consult
+        ``strategy`` and restarts resume from the latest checkpoint —
+        see runtime/supervisor.py."""
+        self.config = self.config.replace(restart_strategy=strategy)
+
+    setRestartStrategy = set_restart_strategy
 
     # -- sources -------------------------------------------------------------
     def socket_text_stream(

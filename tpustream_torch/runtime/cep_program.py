@@ -56,7 +56,8 @@ from ..ops.segments import inverse_permutation, segment_ranks, sort_by_key
 from ..records import I64, NUMPY_DTYPES, STR
 from .device import TORCH_DTYPES, DeviceChain, as_tensor, wrap_record
 from .plan import JobPlan
-from .step import BaseProgram
+from ..utils.tree import to_host
+from .step import BaseProgram, host_leaves
 
 COUNTERS = ("cep_matches", "cep_timeouts", "cep_partials", "late_dropped",
             "alert_overflow", "exchange_overflow")
@@ -221,7 +222,15 @@ class CepProgram(BaseProgram):
                                        device=dev)
         state["wm"] = int(state_np["wm"])
         state["max_ts"] = int(state_np["max_ts"])
-        return self._with_rules(state)
+        return self._rules_from_jax_numpy(state, state_np)
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: the registers
+        without their sink row, ``wm`` and ``max_ts`` as int64 leaves."""
+        out = host_leaves(state, COUNTERS + ("wm", "max_ts"))
+        for name in self._keyed_names():
+            out[name] = to_host(state[name][:-1])
+        return self._rules_to_jax_numpy(state, out)
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """One device-to-host copy of a small tensor (one wait)."""

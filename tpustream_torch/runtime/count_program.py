@@ -47,7 +47,8 @@ from ..records import NUMPY_DTYPES
 from .device import TORCH_DTYPES, DeviceChain
 from .plan import JobPlan
 from .process_program import host_values
-from .step import BaseProgram
+from ..utils.tree import to_host
+from .step import BaseProgram, host_leaves, no_exchange
 from .window_program import WindowProgram
 
 
@@ -119,13 +120,28 @@ class CountWindowProgram(WindowProgram):
         tpustream/runtime/count_program.py init_state) into this
         program's state on its device."""
         dev = self.device
-        return {
+        return self._rules_from_jax_numpy({
             "acc": [_with_sink(a, NUMPY_DTYPES[kd], dev)
                     for a, kd in zip(state_np["acc"], self.acc_kinds)],
             "cnt": _with_sink(state_np["cnt"], np.int32, dev),
             "window_fires": torch.tensor(int(state_np["window_fires"]),
                                          dtype=torch.int64, device=dev),
-        }
+        }, state_np)
+
+    # the per-key leaves (a sink row each) and the scalar leaves
+    _ROW_KEYS, _SCALAR_KEYS = ("acc", "cnt"), ("window_fires",)
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: the per-key
+        leaves without their sink row, and the reference's
+        ``exchange_overflow``."""
+        out = host_leaves(state, self._SCALAR_KEYS)
+        for name in self._ROW_KEYS:
+            v = state[name]
+            out[name] = ([to_host(a[:-1]) for a in v] if isinstance(v, list)
+                         else to_host(v[:-1]))
+        out["exchange_overflow"] = no_exchange()
+        return self._rules_to_jax_numpy(state, out)
 
     def _sorted(self, keys, mask, kk: int):
         """The batch sorted by key (arrival order within a key), with the
@@ -225,6 +241,7 @@ def _grow_rows(program, state, key_capacity: int, keyed) -> dict:
 
 
 class _ElementLogMixin:
+    _ROW_KEYS = ("ebuf", "tot")
     """The count-window variants that need the last ``size`` elements
     per key (sliding reduce/aggregate, and process): a per-key circular
     element log ``[K + 1, size]`` plus a per-key total element count,
@@ -328,7 +345,7 @@ class SlidingCountWindowProgram(_ElementLogMixin, CountWindowProgram):
         state = self._log_from_jax_numpy(state_np)
         state["window_fires"] = torch.tensor(int(state_np["window_fires"]),
                                              dtype=torch.int64, device=self.device)
-        return state
+        return self._rules_from_jax_numpy(state, state_np)
 
     def step(self, state, cols, valid, ts=None, wm_lower=None):
         mid_cols, mask = self._apply_pre(cols, valid)
@@ -408,11 +425,13 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
         state["alert_overflow"] = torch.zeros((), dtype=torch.int64, device=self.device)
         return self._with_rules(state)
 
+    _SCALAR_KEYS = ("alert_overflow",)
+
     def state_from_jax_numpy(self, state_np: dict) -> dict:
         state = self._log_from_jax_numpy(state_np)
         state["alert_overflow"] = torch.tensor(int(state_np["alert_overflow"]),
                                                dtype=torch.int64, device=self.device)
-        return state
+        return self._rules_from_jax_numpy(state, state_np)
 
     def step(self, state, cols, valid, ts=None, wm_lower=None):
         """One batch. Returns ``(state, {"process_fire": fires})``:

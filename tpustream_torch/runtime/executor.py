@@ -87,8 +87,16 @@ self-healing); ``dead_letter`` quarantines the lines of a failed batch
 that fail alone into ``env.dead_letters``; ``ObsConfig.adaptive`` moves
 the pipeline depths at snapshot ticks (``runtime/controller.py``).
 
-Not ported here, and refused by :func:`execute_job` rather than ignored:
-checkpoints and restore, and supervised restarts.
+Checkpoints and recovery (the reference's executor.py:2568-3726): every
+``checkpoint_interval_batches`` source batches a barrier drains the
+pipeline down the chain and captures each stage's state in the JAX
+package's snapshot layout (``runtime/checkpoint.py``), which a
+background writer stores; savepoints are written on request and drills
+verify the newest snapshot. A restore rebuilds the chain from a
+snapshot and skips the lines it consumed. With a restart strategy each
+attempt runs under ``runtime/supervisor.py``, which restarts a failed
+attempt from the newest valid snapshot; an attempt's parse-ahead thread,
+ingest lanes and writer stop with it.
 """
 
 from __future__ import annotations
@@ -119,6 +127,7 @@ from ..records import (
 )
 from ..obs.compilation import (
     CAUSE_BATCH_SHAPE,
+    CAUSE_CONFIG,
     CAUSE_INITIAL,
     CAUSE_KEY_GROWTH,
     CAUSE_TENANT_GROWTH,
@@ -127,7 +136,7 @@ from ..obs.compilation import (
 from ..obs.registry import TwinCounter
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
-from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink
+from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink, RetryingSink
 from .step import RULE_VERSION_KEY, RULES_KEY, build_program, resolve_device
 
 
@@ -411,13 +420,28 @@ def _make_sinks(plan: JobPlan, cfg: StreamConfig):
     per side-output tag id; the ops run over the fetched emissions, as in
     the reference's stream fan-out."""
     pp = cfg.print_parallelism if cfg.print_parallelism is not None else cfg.parallelism
+    fault = _fault_hook(cfg)
 
     def build_sink(node):
         if node.op == "sink_print":
-            return PrintSink(parallelism=pp)
-        if node.op == "sink_collect":
-            return CollectSink(node.params["handle"])
-        return FnSink(node.params["fn"])
+            sink = PrintSink(parallelism=pp)
+        elif node.op == "sink_collect":
+            sink = CollectSink(node.params["handle"])
+        else:
+            sink = FnSink(node.params["fn"])
+        # transient-failure backoff (StreamConfig.sink_retries), and the
+        # mount point for injected sink_emit faults: wrapped even at
+        # retries=0 under injection, so the fault fires on the real emit
+        # path and escalates like a genuine sink error
+        if cfg.sink_retries > 0 or fault is not None:
+            sink = RetryingSink(
+                sink,
+                attempts=cfg.sink_retries,
+                base_ms=cfg.sink_retry_base_ms,
+                max_ms=cfg.sink_retry_max_ms,
+                fault=fault,
+            )
+        return sink
 
     main = [
         (_bind_ops(branch.ops), build_sink(branch.sink_node))
@@ -699,12 +723,17 @@ class Runner:
                     self.obs.scoped(sink=str(i)).counter(
                         "operator_sink_emitted"),
                 )
+                if isinstance(sink, RetryingSink):
+                    sink.retry_counter = self.obs.counter(f"sink{i}_retries")
             for tag, (_, sink) in self.side_sinks.items():
                 sink.obs_counter = TwinCounter(
                     self.obs.counter(f"side_sink{tag}_emitted"),
                     self.obs.scoped(sink=f"side:{tag}").counter(
                         "operator_sink_emitted"),
                 )
+                if isinstance(sink, RetryingSink):
+                    sink.retry_counter = self.obs.counter(
+                        f"side_sink{tag}_retries")
         # marker latency series: source -> this operator's edge, and
         # (terminal stage) source -> each sink; tenant-labelled ones are
         # minted per label the fleet's round-robin stamper emits
@@ -736,6 +765,12 @@ class Runner:
         self._chain_ts = False  # an event-time stage is downstream
         self._last_tick: Optional[int] = None
         self.count_input = True  # False for a stage fed by another
+        # a stage built from a process() stage's collected rows: its
+        # inferred schema rides each checkpoint (lazy_schemas)
+        self._lazy_schema = False
+        # device counters as restored from a checkpoint: finalize_metrics
+        # counts only what this run added
+        self._counter_baseline: Dict[str, int] = {}
         # flight breadcrumb: one a program build (no-op when obs is off)
         self._flight.record(
             "program_built",
@@ -783,6 +818,9 @@ class Runner:
             p2.record_kinds.append(STR)
             p2.tables.append(DerivedKeyTable())
         d = _make_runner_chain(self._lazy_plans, self.cfg, self.metrics)
+        # the inferred schema is snapshotted with checkpoints, so that a
+        # restored run can build this runner without re-inference
+        d._lazy_schema = True
         self._lazy_plans = []
         self.chain_to(d)
         _wire_chain_ts(self, d)
@@ -1026,26 +1064,52 @@ class Runner:
         table = self.program.key_table()
         if table is None or len(table) <= self.cfg.key_capacity:
             return
-        # a barrier: the staged uploads step and the steps in flight
-        # dispatch against the state they were computed on
-        self.drain_inflight()
         cap = self.cfg.key_capacity
         while cap < len(table):
             cap *= 2
+        self._grow_to(cap, CAUSE_KEY_GROWTH)
+
+    def _grow_to(self, cap: int, cause: str, grow=None) -> None:
+        """Re-shape the keyed state to ``cap`` keys: recorded in the
+        flight ring and the build registry with ``cause``.
+        ``grow`` returns the new state (default: the program's
+        ``grow_state`` of the current one); a restore passes the
+        snapshot's state, already at ``cap``."""
+        # a barrier: the staged uploads step and the steps in flight
+        # dispatch against the state they were computed on
+        self.drain_inflight()
         self._flight.record(
             "key_capacity_grown",
             operator=self.obs.name or self.program.operator_name,
             old_capacity=self.cfg.key_capacity,
             new_capacity=cap,
-            cause=CAUSE_KEY_GROWTH,
+            cause=cause,
         )
-
-        def grow():
-            return self.program.grow_state(self.state, cap)
+        if grow is None:
+            def grow():
+                return self.program.grow_state(self.state, cap)
 
         self.state = (grow() if self._compile_obs is None
-                      else self._compile_obs.build(CAUSE_KEY_GROWTH, grow))
+                      else self._compile_obs.build(cause, grow))
         self.cfg = dataclasses.replace(self.cfg, key_capacity=cap)
+
+    def snapshot_counter_baseline(self) -> None:
+        """Remember the device counters of a restored state, so that
+        :meth:`finalize_metrics` adds only this run's part to Metrics
+        (the snapshot's counts belong to the run that wrote it)."""
+        names = [n for n in self._COUNTER_NAMES if n in self.state]
+        if names:
+            vals = self._to_host([self.state[n] for n in names])
+            self._counter_baseline = {n: int(v) for n, v in zip(names, vals)}
+
+    def release(self) -> None:
+        """Drop this chain's device state, the steps in flight and the
+        pinned wire buffers (a failed attempt, before its restart builds
+        new ones)."""
+        for r in self.chain():
+            r.state = None
+            r._inflight, r._upload_q = [], []
+            r._wire = None
 
     def feed(self, batch: Batch, wm_lower: int = LONG_MIN + 1,
              t_batch: Optional[float] = None) -> None:
@@ -1809,9 +1873,10 @@ class Runner:
         if names:
             vals = self._to_host([self.state[n] for n in names])
             for n, v in zip(names, vals):
-                setattr(self.metrics, n, getattr(self.metrics, n) + int(v))
-                if int(v):
-                    self.obs.counter(n).inc(int(v))
+                delta = int(v) - self._counter_baseline.get(n, 0)
+                setattr(self.metrics, n, getattr(self.metrics, n) + delta)
+                if delta:
+                    self.obs.counter(n).inc(delta)
         if self.obs.enabled:
             self._finalize_obs_gauges()
 
@@ -1883,17 +1948,39 @@ def _wire_chain_ts(up: Runner, down: Runner) -> None:
         up.program.emit_ts = True
 
 
-def _make_runner_chain(plans, cfg, metrics) -> Runner:
+def _make_runner_chain(plans, cfg, metrics, lazy_schemas=None) -> Runner:
     """Build the runner for plans[0] plus downstream runners for any
     chained stages, wiring record schemas from each upstream program.
 
     A stage fed by a full-window process() stage resolves its schema
     from the user function's collected rows (the function may emit any
     shape), so its runner is built lazily, on the first pump that has
-    rows."""
+    rows, unless ``lazy_schemas`` (a checkpoint restore) supplies the
+    schema each such stage had inferred: the chain then builds at once
+    with the snapshot's kinds and tables."""
+    lazy_schemas = list(lazy_schemas or [])
     runner = Runner(plans[0], cfg, metrics)
     up = runner
     for i, p2 in enumerate(plans[1:], start=1):
+        if up.program.host_evaluated and lazy_schemas:
+            saved = lazy_schemas.pop(0)
+            p2.record_kinds.extend(saved["kinds"])
+            last = len(saved["tables"]) - 1
+            for ti, t in enumerate(saved["tables"]):
+                if t is None:
+                    p2.tables.append(None)
+                    continue
+                # a computed-key stage's trailing synthetic column
+                # restores as a DerivedKeyTable
+                table = (DerivedKeyTable() if p2.synthetic_key and ti == last
+                         else StringTable())
+                table.load_state_dict(t)
+                p2.tables.append(table)
+            r2 = Runner(p2, cfg, metrics)
+            r2._lazy_schema = True
+            up.chain_to(r2)
+            up = r2
+            continue
         if up.program.host_evaluated:
             up._lazy_plans = list(plans[i:])
             up._chain_ts = _chain_needs_event_ts(up._lazy_plans)
@@ -1919,19 +2006,107 @@ def _make_runner_chain(plans, cfg, metrics) -> Runner:
     return runner
 
 
-def _check_supported(env, cfg: StreamConfig) -> None:
-    """Refuse, by name, the knobs whose machinery is not ported yet
-    (rather than ignore them)."""
-    refused = {
-        "restart_strategy": cfg.restart_strategy is not None,
-        "checkpoint_interval_batches": cfg.checkpoint_interval_batches > 0,
-    }
-    names = [k for k, on in refused.items() if on]
-    if names:
-        raise NotImplementedError(
-            f"StreamConfig {', '.join(names)} not ported to the PyTorch "
-            f"runtime yet (checkpoints and supervised restarts)"
-        )
+def _skip_lines(sb, n: int):
+    """``(batch, taken)``: ``sb`` without its first ``min(n, len)``
+    lines (a resumed run skips what the snapshot consumed)."""
+    from .sources import SourceBatch
+
+    take = min(n, sb.n_records)
+    if sb.raw is not None:
+        rest = b""
+        if take < sb.n_raw:
+            off = 0
+            for _ in range(take):
+                off = sb.raw.index(b"\n", off) + 1
+            rest = sb.raw[off:]
+        return SourceBatch([], sb.proc_ts[take:], sb.advance_proc_to, sb.final,
+                           raw=rest, n_raw=sb.n_raw - take,
+                           markers=sb.markers), take
+    return SourceBatch(sb.lines[take:], sb.proc_ts[take:], sb.advance_proc_to,
+                       sb.final, markers=sb.markers), take
+
+
+def _restore(env, path, plans, cfg, metrics, job_obs, sink_nodes,
+             supervision, dead_letters):
+    """``(runner, checkpoint)``: the runner chain rebuilt from the
+    snapshot at ``path``, in the reference's order. The intern tables,
+    the host RuleSet and the fleet's tenant table come back before the
+    programs build (their initial rule leaves read the RuleSet); a
+    process()-fed stage builds from its snapshotted schema; each stage
+    restores at the key capacity it ran at, growing past the configured
+    one (cause ``config_change``) or growing the restored rows into a
+    larger configured one; a computed-key chain stage gets its key
+    table back; the device counters become the baseline. Under
+    supervision the collect sinks and dead letters roll back to the
+    snapshot, so the replayed suffix lands exactly once."""
+    from .checkpoint import load_checkpoint
+
+    plan = plans[0]
+    ck = load_checkpoint(path)
+    ck.restore_tables(plan)
+    if plan.rules is not None and ck.rule_values is not None:
+        # the control-feed cursor (= version) then skips the applied
+        # prefix of the schedule; tenant mode restores the vectors too
+        plan.rules.load(ck.rule_values, ck.rule_version)
+    if ck.tenancy is not None and getattr(env, "_tenancy", None) is not None:
+        env._tenancy.load_state_dict(ck.tenancy)
+    runner = _make_runner_chain(plans, cfg, metrics,
+                                lazy_schemas=ck.lazy_schemas)
+    stages = runner.chain()
+    # computed-KeySelector chain stages intern into tables built at run
+    # time: reload them so saved state rows keep their key ids
+    for r, t in zip(stages, ck.chain_key_tables or []):
+        if t is not None and r.plan.synthetic_key and r.plan.tables:
+            r.plan.tables[-1].load_state_dict(t)
+    saved_caps = list(ck.key_capacities or [])
+    caps = [saved_caps[i] if i < len(saved_caps) and saved_caps[i]
+            else r.cfg.key_capacity for i, r in enumerate(stages)]
+    states = ck.restore_chain([r.program for r in stages], caps)
+    for r, state, cap in zip(stages, states, caps):
+        if not hasattr(r.program, "grow_state") or cap == r.cfg.key_capacity:
+            r.state = state
+        elif cap > r.cfg.key_capacity:
+            # key growth had taken the stage past its configured
+            # capacity when the snapshot was written
+            r._grow_to(cap, CAUSE_CONFIG, lambda state=state: state)
+        else:
+            # a capacity configured above the snapshot's wins: the
+            # restored rows grow into it
+            r.state = r.program.grow_state(state, r.cfg.key_capacity)
+        r.snapshot_counter_baseline()
+    if supervision is not None:
+        # a snapshot of THIS supervised session records the collect
+        # sinks' absolute lengths; an older or manual one describes
+        # another process's handles, so those roll back to the
+        # supervisor's pre-job baselines. An unsupervised restore (a
+        # fresh env resuming by hand) never truncates.
+        handles = [n.params["handle"] for n in sink_nodes
+                   if n.op == "sink_collect"]
+        same_session = ck.session is not None and ck.session == supervision.nonce
+        counts = (list(ck.sink_counts)
+                  if same_session and ck.sink_counts is not None
+                  else list(supervision.base_counts))
+        for h, keep in zip(handles, counts):
+            del h.items[keep:]
+        if dead_letters is not None:
+            keep_dead = ck.quarantined if same_session else supervision.base_dead
+            del dead_letters[keep_dead:]
+            metrics.records_quarantined = len(dead_letters)
+        # recovery accounting: batches the resumed run skips to reach
+        # the snapshot, and wall time from the restart decision
+        # (including its delay) to the state back on the device
+        supervision.replay_batches_total += ck.batches
+        job_obs.counter("recovery_replay_batches").set_total(
+            supervision.replay_batches_total)
+        t0 = getattr(env, "_recovery_t0", None)
+        if t0 is not None:
+            job_obs.histogram("recovery_wall_ms").observe(
+                (time.perf_counter() - t0) * 1000.0)
+            env._recovery_t0 = None
+        job_obs.flight.record(
+            "job_restored", checkpoint=path, batches=ck.batches,
+            emitted=ck.emitted, source_pos=ck.source_pos)
+    return runner, ck
 
 
 def _raw_lines(sb) -> List[str]:
@@ -1960,10 +2135,14 @@ def _parse(host: HostStage, sb):
 
 def execute_job(env, sink_nodes) -> JobResult:
     """Plan the job and run it to source exhaustion on
-    ``env.config.device``. On any failure an obs-enabled job records the
-    exception in its flight recorder and writes the postmortem dump
-    before re-raising; either way its obs root closes (a final snapshot,
-    the scrape endpoint stopped) and its ingest lanes stop."""
+    ``env.config.device``, supervised when a restart strategy is
+    configured.
+
+    With ``StreamConfig.restart_strategy`` set, failures route through
+    runtime/supervisor.py: the strategy decides whether the job
+    restarts, and a restart rebuilds the chain and resumes exactly-once
+    from the latest valid checkpoint. Unset (the default), the first
+    failure propagates."""
     if env.config.ingest_lanes > 1 and env.config.obs.enabled:
         # lane recovery keeps the job running with no restart: it
         # surfaces through a built-in WARN health rule, installed before
@@ -1976,29 +2155,85 @@ def execute_job(env, sink_nodes) -> JobResult:
         _install_lane_restart_health_rule(env)
         if getattr(env.config.obs, "resources", False):
             _install_lane_contention_health_rule(env)
+    # restore drills (runtime/checkpoint.py restore_drill): a failed
+    # dry-restore of the nominal newest snapshot is a WARN, repeated
+    # failures CRIT; installed before the obs root reads the rules
+    if (env.config.restore_drill_interval_s > 0 and env.config.obs.enabled
+            and bool(env.config.checkpoint_dir)
+            and env.config.checkpoint_interval_batches > 0):
+        from .supervisor import _install_restore_drill_health_rules
+
+        _install_restore_drill_health_rules(env)
+    if env.config.restart_strategy is not None:
+        from .supervisor import supervise
+
+        return supervise(env, sink_nodes, _run_attempt)
+    return _run_attempt(env, sink_nodes)
+
+
+def _run_attempt(env, sink_nodes) -> JobResult:
+    """One execution attempt. On any failure an obs-enabled job records
+    the exception in its flight recorder (and, unsupervised, writes the
+    postmortem dump) before re-raising. Either way the attempt's
+    parse-ahead thread, ingest lanes and checkpoint writer stop, and a
+    failed attempt's device state and pinned buffers are released, so a
+    supervised restart builds all of them anew."""
     try:
         result = _execute_job(env, sink_nodes)
     except BaseException as e:
         job_obs = getattr(getattr(env, "metrics", None), "job_obs", None)
         if job_obs is not None:
-            job_obs.on_failure(e)
+            # a supervised attempt may restart: the postmortem dump is
+            # the supervisor's call, made only when it gives up
+            job_obs.on_failure(
+                e, dump=getattr(env, "_supervision", None) is None)
+        runner = env.__dict__.pop("_runner", None)
+        if runner is not None:
+            runner.release()
         raise
     finally:
-        # lane workers and their shared-memory rings die with the job,
-        # failed or not
+        # the parse-ahead thread first: it may still be reading the
+        # source, and a restart re-reads it from the start
+        ahead = env.__dict__.pop("_parse_ahead", None)
+        if ahead is not None:
+            ahead.close()
+        # lane workers and their shared-memory rings die with the
+        # attempt, failed or not
         plane = env.__dict__.pop("_ingest_plane", None)
         if plane is not None:
             plane.close()
+        # the checkpoint writer: an in-flight write may land (completed
+        # snapshots are consistent); its failure is not re-raised here,
+        # it crossed at a submit/flush or the attempt fails for its own
+        # reason
+        ck_plane = env.__dict__.pop("_checkpoint_plane", None)
+        if ck_plane is not None:
+            ck_plane.close(raise_error=False)
+    env.__dict__.pop("_runner", None)
     env.metrics.job_obs.close()
     return result
 
 
-def _prefetch_iter(it, depth: int, depth_gauge=None):
+class _ParseAhead:
+    """The parse-ahead thread of one attempt: :meth:`close` stops it and
+    waits for it, so that no thread of a failed attempt still reads the
+    source when its restart does."""
+
+    def __init__(self, stop, thread):
+        self.stop, self.thread = stop, thread
+
+    def close(self) -> None:
+        self.stop.set()
+        self.thread.join(timeout=30.0)
+
+
+def _prefetch_iter(it, depth: int, depth_gauge=None, handle=None):
     """Drain ``it`` on a daemon thread into a bounded queue (size
     ``depth``): the producer blocks when the consumer falls behind, and a
     producer exception re-raises at the consumer. Used for
     ``StreamConfig.parse_ahead``; ``depth_gauge`` (obs) reads the queue
-    depth at snapshot time. (A copy of the reference's.)"""
+    depth at snapshot time; ``handle(_ParseAhead)`` receives the thread's
+    stop handle. (A copy of the reference's.)"""
     import queue as queue_mod
     import threading
 
@@ -2021,13 +2256,17 @@ def _prefetch_iter(it, depth: int, depth_gauge=None):
     def run():
         try:
             for item in it:
-                if not put(("item", item)):
+                if not put(("item", item)) or stop.is_set():
                     return
             put(("done", None))
         except BaseException as e:  # surfaces in the consumer
             put(("err", e))
 
-    threading.Thread(target=run, daemon=True).start()
+    thread = threading.Thread(target=run, name="tpustream-parse-ahead",
+                              daemon=True)
+    thread.start()
+    if handle is not None:
+        handle(_ParseAhead(stop, thread))
     try:
         while True:
             kind, payload = q.get()
@@ -2040,19 +2279,24 @@ def _prefetch_iter(it, depth: int, depth_gauge=None):
         stop.set()
 
 
-def _make_job_obs(env, cfg: StreamConfig):
+def _make_job_obs(env, cfg: StreamConfig, supervision=None):
     """``(metrics, job_obs)``: the registry-backed Metrics facade and,
-    with ``cfg.obs.enabled``, the job's obs root (else its null twin)."""
+    with ``cfg.obs.enabled``, the job's obs root (else its null twin).
+    Under supervision every attempt records into the one flight ring,
+    and its registry starts from the cumulative restart counters."""
     if not cfg.obs.enabled:
         metrics = Metrics()
         return metrics, metrics.job_obs
     from ..obs.flightrecorder import jsonable_config
     from ..obs.runtime import JobObs
 
-    job_obs = JobObs(cfg.obs, job_name=env.job_name or "job",
-                     device=cfg.device)
+    job_obs = JobObs(
+        cfg.obs, job_name=env.job_name or "job", device=cfg.device,
+        flight=supervision.flight if supervision is not None else None)
     metrics = Metrics(registry=job_obs.registry, job_name=job_obs.job_name)
     metrics.job_obs = job_obs
+    if supervision is not None:
+        supervision.seed_metrics(job_obs)
     # fleet runs (tenancy/server.py): per-tenant gauges refresh at each
     # snapshot tick, tenant SLOs land as health rules, and /tenants.json
     # gets its provider
@@ -2077,13 +2321,16 @@ def _execute_job(env, sink_nodes) -> JobResult:
     # the effective config: cross-knob clamps applied once, here;
     # env.config keeps the requested values
     cfg, resolve_notes = env.config.resolve()
-    _check_supported(env, cfg)
     resolve_device(cfg.device)  # refuse a missing card before any work
     with Stopwatch() as setup:
         plans = build_plan_chain(env, sink_nodes)
         plan = plans[0]
         host = HostStage(plan, cfg)
-    metrics, job_obs = _make_job_obs(env, cfg)
+    # supervised execution (runtime/supervisor.py): cross-attempt state,
+    # the shared flight ring, the cumulative restart counters and the
+    # session nonce checkpoints are stamped with
+    supervision = getattr(env, "_supervision", None)
+    metrics, job_obs = _make_job_obs(env, cfg, supervision)
     env.metrics = metrics
     metrics.build_time_s = setup.elapsed
     # one breadcrumb a resolution clamp
@@ -2101,11 +2348,22 @@ def _execute_job(env, sink_nodes) -> JobResult:
     dead_letters = getattr(env, "dead_letters", None)
     if dead_letters is None and cfg.dead_letter:
         dead_letters = env.dead_letters = []
+    # the fault injector (testing/faults.py) outlives restart attempts,
+    # so its occurrence counters keep counting across rebuilds
     fault = _fault_hook(cfg)
     injector = cfg.extra.get("fault_injector") if cfg.extra else None
     runner: Optional[Runner] = None
     processing_time = plan.time_characteristic == TimeCharacteristic.ProcessingTime
     proc_now = 0
+    # a scratch restart (no checkpoint to restore): recovery ends when
+    # the rebuilt attempt starts; a checkpointed restart observes it in
+    # the restore block below, after the state is back on the device
+    if (supervision is not None
+            and getattr(env, "_recovery_t0", None) is not None
+            and not getattr(env, "_checkpoint_restore_path", None)):
+        job_obs.histogram("recovery_wall_ms").observe(
+            (time.perf_counter() - env._recovery_t0) * 1000.0)
+        env._recovery_t0 = None
     # host-side watermark gauges (obs on): fed per batch from the job's
     # periodic timestamp assigner; they stay nonzero during the run,
     # where the program's own clock reads 0 lag after the end-of-stream
@@ -2124,12 +2382,26 @@ def _execute_job(env, sink_nodes) -> JobResult:
     # 0, so the rule timeline replays with it: the RuleSet goes back to
     # its defaults at version 0 and the feed applies every update at its
     # record position
+    # -- checkpoint restore -------------------------------------------------
+    skip_lines = 0
+    restore_path = getattr(env, "_checkpoint_restore_path", None)
+    if restore_path:
+        runner, ck = _restore(env, restore_path, plans, cfg, metrics, job_obs,
+                              sink_nodes, supervision, dead_letters)
+        skip_lines, proc_now = ck.source_pos, ck.proc_now
+        env._runner = runner
+    lines_consumed = skip_lines
     ruleset = plan.rules
     control_feed = None
     if plan.broadcast is not None and ruleset is not None:
-        ruleset.reset()
+        if not restore_path:
+            # a run from the start replays the data from record 0, so
+            # the rule timeline replays with it: the RuleSet goes back
+            # to its defaults at version 0 and the feed applies every
+            # update at its record position (a restore resynced the
+            # RuleSet to the snapshot, and the feed skips what applied)
+            ruleset.reset()
         control_feed = plan.broadcast.feed(cfg.batch_size)
-    lines_consumed = 0
     # perf_counter at the last rule application; the next non-empty feed
     # closes the propagation window (rule_update_propagation_ms)
     rule_apply_t0: List[Optional[float]] = [None]
@@ -2225,11 +2497,18 @@ def _execute_job(env, sink_nodes) -> JobResult:
         return host.process(
             good, sb.proc_ts[np.asarray(good_idx, dtype=np.int64)])
 
+    skip_state = [skip_lines]
+
     def prepare(sb):
         """The host stage of one source batch: ``(sb, Batch or None,
         wm_hint, stopwatch)``. Runs inline, on the parse-ahead thread, or
         (for the frames the ingest lanes cannot take) at the lanes'
-        merge point."""
+        merge point; these calls come in sequence either way, so
+        ``skip_state`` has one writer."""
+        if skip_state[0] > 0 and sb.n_records:
+            # resume: drop the source lines the snapshot already consumed
+            sb, taken = _skip_lines(sb, skip_state[0])
+            skip_state[0] -= taken
         with job_obs.tracer.span("parse"), Stopwatch() as hw:
             if fault is not None:
                 fault("parse")
@@ -2242,6 +2521,170 @@ def _execute_job(env, sink_nodes) -> JobResult:
                     raise
                 batch, wm_hint = quarantine(sb, e)
         return sb, batch, wm_hint, hw
+
+    # -- checkpoints (runtime/checkpoint.py) --------------------------------
+    ckpt_every = cfg.checkpoint_interval_batches
+    ckpt_enabled = bool(cfg.checkpoint_dir) and ckpt_every > 0
+    # the async plane: the barrier pays the capture only; encode, write,
+    # prune and GC run on one background writer thread. _run_attempt
+    # closes it, so a failed attempt never leaks a writer thread
+    ckpt_plane = None
+    if ckpt_enabled and cfg.checkpoint_async:
+        from .checkpoint import CheckpointPlane
+
+        ckpt_plane = env._checkpoint_plane = CheckpointPlane(
+            cfg.checkpoint_dir,
+            keep=cfg.checkpoint_keep,
+            keep_every=cfg.checkpoint_keep_every,
+            inflight=cfg.checkpoint_async_inflight,
+            incremental=cfg.checkpoint_incremental,
+            fault=fault,
+        )
+
+    def note_checkpoint_report(rep: dict) -> None:
+        """One completed write's report to the metrics and the flight
+        ring (main thread only: async reports cross via drain_reports)."""
+        if "write_wall_ms" in rep:
+            job_obs.histogram("checkpoint_write_wall_ms").observe(
+                rep["write_wall_ms"])
+        job_obs.histogram("checkpoint_bytes").observe(rep["bytes_total"])
+        job_obs.histogram("checkpoint_bytes_delta").observe(rep["bytes_delta"])
+        job_obs.counter("checkpoint_chunks_reused_total").inc(
+            rep["chunks_reused"])
+        if rep["gc_deleted"]:
+            job_obs.counter("checkpoint_gc_deleted_total").inc(rep["gc_deleted"])
+        metrics.checkpoint_reports.append(rep)
+        job_obs.flight.record(
+            "checkpoint_saved",
+            path=rep["path"],
+            batches=rep["batches"],
+            source_pos=rep["source_pos"],
+            write_ms=round(rep.get("write_wall_ms", 0.0), 3),
+            bytes_delta=rep["bytes_delta"],
+            chunks_reused=rep["chunks_reused"],
+            env=job_obs.env_compact(),
+        )
+
+    def capture_cut():
+        """One consistent cut at the checkpoint barrier. A real barrier:
+        the staged uploads step and the steps in flight dispatch down
+        the whole chain first (their emissions belong to batches the
+        snapshot counts as consumed), so no copy or step writes a plane
+        while it is read; each stage's state then converts to the
+        reference layout on its device and copies to the host."""
+        from .checkpoint import capture_checkpoint
+
+        runner.drain_chain(proc_now)
+        stages = runner.chain()
+        jax_states = [r.program.state_to_jax_numpy(r.state) for r in stages]
+        return capture_checkpoint(
+            state=jax_states if len(stages) > 1 else jax_states[0],
+            plan=plan,
+            source_pos=lines_consumed,
+            proc_now=proc_now,
+            emitted=metrics.records_emitted,
+            batches=metrics.batches,
+            job_name=env.job_name,
+            parallelism=max(1, cfg.parallelism),
+            lazy_schemas=[
+                {"kinds": list(r.plan.record_kinds),
+                 "tables": [t.state_dict() if t is not None else None
+                            for t in r.plan.tables]}
+                for r in stages if r._lazy_schema
+            ],
+            key_capacities=[r.cfg.key_capacity for r in stages],
+            # only non-lazy CHAIN stages: stage 0's derived table rides
+            # meta["tables"], a lazy stage's its lazy schema
+            chain_key_tables=[
+                r.plan.tables[-1].state_dict()
+                if si > 0 and r.plan.synthetic_key and not r._lazy_schema
+                and r.plan.tables else None
+                for si, r in enumerate(stages)
+            ],
+            # supervised recovery: the collect sinks' lengths and the
+            # quarantine's at the cut, and the session that scopes them
+            sink_counts=[len(n.params["handle"].items) for n in sink_nodes
+                         if n.op == "sink_collect"],
+            quarantined=len(dead_letters) if dead_letters is not None else 0,
+            session=supervision.nonce if supervision is not None else None,
+            # dynamic rules: the host RuleSet at the cut (a restore
+            # resyncs the control-feed cursor from it)
+            rule_values=ruleset.values() if ruleset is not None else None,
+            rule_version=ruleset.version if ruleset is not None else 0,
+            tenancy=(env._tenancy.state_dict()
+                     if getattr(env, "_tenancy", None) is not None else None),
+            ingest=ingest_plane.cursor() if ingest_plane is not None else None,
+        )
+
+    def save_checkpoint_at_barrier() -> None:
+        with Stopwatch() as ck_sw:
+            with Stopwatch() as cap_sw:
+                pending = capture_cut()
+            if ckpt_plane is not None:
+                # a full queue makes this wait; a writer failure
+                # re-raises here with its original fault point
+                ckpt_plane.submit(pending)
+                job_obs.gauge("checkpoint_async_inflight").set(
+                    float(ckpt_plane.inflight()))
+            else:
+                from .checkpoint import write_snapshot
+
+                with Stopwatch() as wr_sw:
+                    rep = write_snapshot(
+                        cfg.checkpoint_dir, pending,
+                        keep=cfg.checkpoint_keep,
+                        keep_every=cfg.checkpoint_keep_every,
+                        incremental=cfg.checkpoint_incremental,
+                        fault=fault,
+                    )
+                rep["write_wall_ms"] = wr_sw.elapsed * 1000.0
+                note_checkpoint_report(rep)
+        # checkpoint_save_ms is the barrier's whole cost (capture plus
+        # the budget wait when async, plus the write when sync);
+        # checkpoint_capture_ms the capture alone
+        job_obs.histogram("checkpoint_capture_ms").observe(
+            cap_sw.elapsed * 1000.0)
+        job_obs.histogram("checkpoint_save_ms").observe(ck_sw.elapsed * 1000.0)
+        metrics.checkpoint_capture_ms.append(cap_sw.elapsed * 1000.0)
+
+    def write_savepoints() -> None:
+        """Pinned self-contained snapshots on request, written at the
+        batch boundary, exempt from retention and GC by name."""
+        from .checkpoint import save_savepoint
+
+        tags = list(env._savepoint_requests)
+        env._savepoint_requests.clear()
+        pending = capture_cut()
+        for tag in tags:
+            path = save_savepoint(cfg.checkpoint_dir, pending, tag=tag)
+            env.savepoints.append(path)
+            job_obs.flight.record(
+                "savepoint_written", path=path, tag=tag,
+                source_pos=lines_consumed, batches=metrics.batches)
+
+    # restore drills: a time-gated dry restore of the nominal newest
+    # snapshot (format and chunk-chain walk), so that rot is a health
+    # transition before a crash needs the snapshot
+    drill_interval = cfg.restore_drill_interval_s
+    drill_last = [time.monotonic()]
+
+    def maybe_restore_drill() -> None:
+        if (drill_interval <= 0 or not ckpt_enabled
+                or time.monotonic() - drill_last[0] < drill_interval):
+            return
+        drill_last[0] = time.monotonic()
+        from .checkpoint import restore_drill
+
+        with Stopwatch() as dr_sw:
+            res = restore_drill(cfg.checkpoint_dir)
+        if res["ok"] is None:
+            return  # nothing to drill yet
+        job_obs.histogram("restore_drill_ms").observe(dr_sw.elapsed * 1000.0)
+        job_obs.gauge("restore_drill_verdict").set(1.0 if res["ok"] else 0.0)
+        if not res["ok"]:
+            job_obs.counter("restore_drill_failures_total").inc()
+            job_obs.flight.record("restore_drill_failed", path=res["path"],
+                                  reason=res["reason"])
 
     source_batches = plan.source.batches(cfg.batch_size, cfg.max_batch_delay_ms)
     if injector is not None:
@@ -2274,7 +2717,8 @@ def _execute_job(env, sink_nodes) -> JobResult:
         from .ingest import build_ingest_plane
 
         ingest_plane = env._ingest_plane = build_ingest_plane(
-            host, cfg, plan, job_obs, single_process=True, fault=fault)
+            host, cfg, plan, job_obs, single_process=True, fault=fault,
+            skip_lines=skip_lines)
         if ingest_plane is not None:
             prepared = ingest_plane.frames(source_batches, prepare)
             resources = getattr(job_obs, "resources", None)
@@ -2287,7 +2731,8 @@ def _execute_job(env, sink_nodes) -> JobResult:
         prepared = _prefetch_iter(
             prepared, cfg.parse_ahead,
             depth_gauge=(job_obs.gauge("parse_ahead_queue_depth")
-                         if job_obs.enabled else None))
+                         if job_obs.enabled else None),
+            handle=lambda h: setattr(env, "_parse_ahead", h))
     # a paced source (idle gaps between batches) fetches synchronously:
     # results would otherwise wait in flight for async_depth batch
     # intervals. The gap is the wait inside the source, not parse time.
@@ -2342,7 +2787,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 # built on the first batch: an adaptive parse schema is
                 # known only then
                 with Stopwatch() as bw:
-                    runner = _make_runner_chain(plans, cfg, metrics)
+                    runner = env._runner = _make_runner_chain(plans, cfg, metrics)
                 metrics.build_time_s += bw.elapsed
             idle = t_iter_done is not None and src_gap > IDLE_GAP_S
             if marker_backlog:
@@ -2379,6 +2824,18 @@ def _execute_job(env, sink_nodes) -> JobResult:
             runner.flush(proc_now - 1)  # the processing-time clock ticked
         if runner is not None:
             runner.pump_chain(proc_now)
+            if ckpt_enabled and metrics.batches % ckpt_every == 0:
+                save_checkpoint_at_barrier()
+        if ckpt_plane is not None:
+            reports = ckpt_plane.drain_reports()
+            for rep in reports:
+                note_checkpoint_report(rep)
+            if reports:
+                job_obs.gauge("checkpoint_async_inflight").set(
+                    float(ckpt_plane.inflight()))
+        if env._savepoint_requests and runner is not None and cfg.checkpoint_dir:
+            write_savepoints()
+        maybe_restore_drill()
         t_iter_done = time.perf_counter()
         if sb.final:
             break
@@ -2417,4 +2874,11 @@ def _execute_job(env, sink_nodes) -> JobResult:
         for r in runner.chain():
             r.finalize_metrics()
             r.check_strict()
+    if ckpt_plane is not None:
+        # land every queued write before the job returns, and surface a
+        # writer failure even when no later barrier submitted
+        ckpt_plane.flush()
+        for rep in ckpt_plane.drain_reports():
+            note_checkpoint_report(rep)
+        job_obs.gauge("checkpoint_async_inflight").set(0.0)
     return JobResult(metrics)

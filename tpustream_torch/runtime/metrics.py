@@ -20,7 +20,7 @@ emit-latency sample lists mirror each appended sample into a job-scope
 Histogram. The port's own fields (``steps``, ``d2h_syncs``,
 ``d2h_bytes``, ``h2d_bytes``, ``compaction_spills``, the parse-path
 counts, the upload/fetch/emit stage
-lists, ``build_time_s``) stay plain attributes, so an obs-enabled job
+lists, ``build_time_s``, the checkpoint captures and write reports) stay plain attributes, so an obs-enabled job
 exposes the reference's series and no others. Callers that want
 per-operator series, spans or exposition go through ``metrics.job_obs``
 (a :class:`tpustream_torch.obs.runtime.JobObs`, the null twin unless
@@ -106,6 +106,10 @@ class Metrics:
         self.build_time_s = build_time_s  # set-up: plan, host stage, program, state
         self.native_parses = 0  # parse-plan evaluations by the native parser
         self.numpy_parses = 0   # ... and by the numpy path
+        # checkpoints: each barrier's capture (ms) and each completed
+        # write's report (runtime/checkpoint.py write_snapshot)
+        self.checkpoint_capture_ms: List[float] = []
+        self.checkpoint_reports: List[dict] = []
         # replaced with a live JobObs by execute_job when
         # StreamConfig.obs.enabled; every Runner hot-path obs call routes
         # through it (or its no-op null twin)

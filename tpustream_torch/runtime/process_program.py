@@ -33,6 +33,8 @@ from ..ops.panes import W0
 from ..ops.segments import segment_ranks, segment_tails, sort_by_key
 from ..records import BOOL, F64, NUMPY_DTYPES, STR
 from .device import TORCH_DTYPES
+from ..utils.tree import to_host
+from .step import host_leaves, no_exchange
 from .window_program import WindowProgram, _dirty
 
 COUNTERS = ("evicted_unfired", "buffer_overflow", "late_dropped")
@@ -152,7 +154,20 @@ class ProcessWindowProgram(WindowProgram):
                 "the reference state's buffers do not match this program's "
                 "ring and process_buffer_capacity"
             )
-        return state
+        return self._rules_from_jax_numpy(state, state_np)
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: ``buf`` as
+        ``[K, n_slots, cap]`` and ``cnt`` as ``[K, n_slots]`` (sink cells
+        dropped), the host ring metadata as int64 leaves, and the
+        reference's ``exchange_overflow``."""
+        n, cap = self.ring.n_slots, self.cfg.process_buffer_capacity
+        kk = self.key_capacity(state)
+        out = host_leaves(state, ("hi", "wm", "max_ts", "slot_pane") + COUNTERS)
+        out["buf"] = [to_host(b[:-1].view(kk, n, cap)) for b in state["buf"]]
+        out["cnt"] = to_host(state["cnt"][:-1].view(kk, n))
+        out["exchange_overflow"] = no_exchange()
+        return self._rules_to_jax_numpy(state, out)
 
     # ------------------------------------------------------------------
     # the step

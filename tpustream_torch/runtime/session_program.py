@@ -53,6 +53,8 @@ from ..records import NUMPY_DTYPES
 from .device import TORCH_DTYPES, dummy_leaf
 from .plan import JobPlan
 from .process_program import ProcessWindowProgram, host_values
+from ..utils.tree import to_host
+from .step import host_leaves, no_exchange
 from .window_program import WindowProgram
 
 COUNTERS = ("evicted_unfired", "alert_overflow", "window_fires", "late_dropped")
@@ -387,7 +389,23 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
             state[name] = torch.tensor(int(state_np[name]), dtype=torch.int64,
                                        device=dev)
         _check_ring(self, state)
-        return state
+        return self._rules_from_jax_numpy(state, state_np)
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: the cell planes
+        as ``[K, N]`` (sink cells dropped), the host ring metadata as
+        int64 leaves, and the reference's ``exchange_overflow``."""
+        n, kk = self.ring.n_slots, self.key_capacity(state)
+
+        def cells(t):
+            return to_host(t[:-1].view(kk, n))
+
+        out = host_leaves(state, ("hi", "wm", "max_ts", "slot_pane") + COUNTERS)
+        out["acc"] = [cells(a) for a in state["acc"]]
+        for name in self._CELL_KEYS:
+            out[name] = cells(state[name])
+        out["exchange_overflow"] = no_exchange()
+        return self._rules_to_jax_numpy(state, out)
 
     def _views(self, state):
         """``[K, N]`` views of the cell planes (sink cells left out)."""
@@ -645,6 +663,15 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
                                 or np.any(state_np["pending_clear"]))
         _check_ring(self, state)
         return state
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy` (the host
+        ``pending`` flag is derived, not stored)."""
+        out = ProcessWindowProgram.state_to_jax_numpy(self, state)
+        n, kk = self.ring.n_slots, self.key_capacity(state)
+        for name in self._CELL_KEYS:
+            out[name] = to_host(state[name][:-1].view(kk, n))
+        return out
 
     def _cell_views(self, state):
         n, kk = self.ring.n_slots, self.key_capacity(state)

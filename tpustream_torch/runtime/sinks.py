@@ -114,3 +114,60 @@ class FnSink:
     def emit(self, value, subtask: Optional[int] = None) -> None:
         self.fn(value)
         self.obs_counter.inc()
+
+
+class RetryingSink:
+    """Wraps any sink's ``emit`` with capped exponential backoff
+    (StreamConfig.sink_retries / sink_retry_base_ms / sink_retry_max_ms).
+    A transient sink failure (a flaky downstream system) retries
+    ``attempts`` times, delaying ``min(base * 2^i, max)`` ms between
+    tries, before escalating to the supervisor (runtime/supervisor.py).
+    ``fault`` is the optional fault-injection hook
+    (tpustream_torch/testing/faults.py, point ``sink_emit``), checked per
+    ATTEMPT so injected failures exercise the real retry path.
+
+    The executor assigns ``sink.obs_counter`` directly on its sinks, so
+    that attribute delegates to the wrapped sink; ``retry_counter``
+    counts performed retries.
+    """
+
+    retry_counter = NULL_COUNTER
+
+    def __init__(
+        self,
+        inner,
+        attempts: int = 0,
+        base_ms: float = 10.0,
+        max_ms: float = 1000.0,
+        fault: Optional[Callable] = None,
+    ):
+        self.inner = inner
+        self.attempts = max(0, int(attempts))
+        self.base_ms = float(base_ms)
+        self.max_ms = float(max_ms)
+        self.fault = fault
+
+    @property
+    def obs_counter(self):
+        return self.inner.obs_counter
+
+    @obs_counter.setter
+    def obs_counter(self, counter) -> None:
+        self.inner.obs_counter = counter
+
+    def emit(self, value, subtask: Optional[int] = None) -> None:
+        import time
+
+        for attempt in range(self.attempts + 1):
+            try:
+                if self.fault is not None:
+                    self.fault("sink_emit")
+                self.inner.emit(value, subtask=subtask)
+                return
+            except Exception:
+                if attempt >= self.attempts:
+                    raise
+                self.retry_counter.inc()
+                delay_ms = min(self.base_ms * (2.0 ** attempt), self.max_ms)
+                if delay_ms > 0:
+                    time.sleep(delay_ms / 1000.0)

@@ -36,6 +36,7 @@ from ..config import StreamConfig
 from ..ops import panes as pane_ops
 from ..ops import rolling as rolling_ops
 from ..records import I64, STR
+from ..utils.tree import to_host
 from .device import DeviceChain, record_combiner
 from .plan import JobPlan
 
@@ -43,6 +44,17 @@ from .plan import JobPlan
 # declares a RuleSet: rule-less jobs keep their exact state layout)
 RULES_KEY = "__rules__"
 RULE_VERSION_KEY = "__rule_version__"
+
+
+def host_leaves(state: dict, names) -> dict:
+    """``{name: state[name]}`` as owned host arrays (:func:`to_host`)."""
+    return {n: to_host(state[n]) for n in names}
+
+
+def no_exchange() -> np.ndarray:
+    """The reference's ``exchange_overflow`` counter: rows dropped by the
+    sharded keyBy exchange, always 0 on one device."""
+    return np.zeros((), dtype=np.int64)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -114,6 +126,47 @@ class BaseProgram:
             self.ruleset.version, dtype=torch.int64, device=self.device)
         return state
 
+    # -- snapshots (runtime/checkpoint.py) ---------------------------------
+    # A snapshot holds the state in the JAX package's layout, so that
+    # either package restores the other's: every family converts its live
+    # state with state_to_jax_numpy (on the device, then one copy to the
+    # host) and back with state_from_jax_numpy (onto the program's own
+    # device). The rule leaves ride both ways here.
+
+    def _rules_to_jax_numpy(self, state: dict, out: dict) -> dict:
+        if RULES_KEY in state:
+            out[RULES_KEY] = {k: to_host(v) for k, v in state[RULES_KEY].items()}
+            out[RULE_VERSION_KEY] = to_host(state[RULE_VERSION_KEY])
+        return out
+
+    def _rules_from_jax_numpy(self, state: dict, state_np: dict) -> dict:
+        """The rule leaves of ``state_np`` on this program's device, or,
+        for a state that carries none, the RuleSet's current ones."""
+        if self.ruleset is None:
+            return state
+        if RULES_KEY not in state_np:
+            return self._with_rules(state)
+        state[RULES_KEY] = {
+            k: torch.from_numpy(np.array(v)).to(self.device)
+            for k, v in state_np[RULES_KEY].items()
+        }
+        state[RULE_VERSION_KEY] = torch.tensor(
+            int(state_np[RULE_VERSION_KEY]), dtype=torch.int64,
+            device=self.device)
+        return state
+
+    def jax_state_spec(self, key_capacity: int = None) -> dict:
+        """The state's layout in the JAX package's form at
+        ``key_capacity``: the dict :meth:`state_to_jax_numpy` returns,
+        with every device leaf a zero-memory array of its shape and
+        dtype. Built on the ``meta`` device, so no state is allocated."""
+        dev = self.device
+        self.device = torch.device("meta")
+        try:
+            return self.state_to_jax_numpy(self.init_state(key_capacity))
+        finally:
+            self.device = dev
+
     def obs_state_scalars(self, state: dict) -> dict:
         """The OBS_STATE_SCALARS this program keeps in ``state`` as host
         ints (reading them never waits on the card)."""
@@ -184,6 +237,18 @@ class StatelessProgram(BaseProgram):
     def init_state(self, key_capacity: int = None) -> dict:
         return self._with_rules({"alert_overflow": torch.zeros(
             (), dtype=torch.int64, device=self.device)})
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        return self._rules_to_jax_numpy(
+            state, {"alert_overflow": to_host(state["alert_overflow"])})
+
+    def state_from_jax_numpy(self, state_np: dict) -> dict:
+        """The reference package's stateless state (the
+        ``alert_overflow`` counter, tpustream/runtime/step.py
+        StatelessProgram.init_state) on this program's device."""
+        return self._rules_from_jax_numpy({"alert_overflow": torch.tensor(
+            int(state_np["alert_overflow"]), dtype=torch.int64,
+            device=self.device)}, state_np)
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` the record's ``[B]`` tensors, ``valid``
@@ -273,6 +338,47 @@ class RollingProgram(BaseProgram):
             state, key_capacity, self.mid_kinds, self.layout_kind, self.pos,
             sentinel_leaf=self.sentinel_leaf,
         ))
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: on the kernel's
+        path a never-seen row's aggregate goes back to 0, an int64
+        aggregate back to its two int32 words (low, high), and with a
+        ``sentinel_leaf`` occupancy lives in the sentinel plane only
+        (``seen`` all False), as the reference keeps them."""
+        planes, seen = list(state["planes"]), state["seen"]
+        if self.kernel_path:
+            kinds, pos = self.mid_kinds, self.pos
+            slices = rolling_ops.plane_layout(kinds, self.kind, pos)[1]
+            agg = low = high = planes[slices[pos].start]
+            sentinel = self.sentinel_leaf
+            # a leaf spec (the meta device) needs the layout only: an
+            # arithmetic op there would load torch's Python meta kernels
+            if agg.device.type != "meta":
+                occupied = (planes[slices[sentinel].start] >= 0
+                            if sentinel is not None else seen)
+                agg = torch.where(occupied, agg, torch.zeros_like(agg))
+                if kinds[pos] == I64:
+                    low = ((agg & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+                    high = agg >> 32
+            if sentinel is not None:
+                seen = torch.zeros(seen.shape, dtype=torch.bool,
+                                   device=seen.device)
+            if kinds[pos] == I64:
+                planes[slices[pos]] = [low.to(torch.int32),
+                                       high.to(torch.int32)]
+            else:
+                planes[slices[pos].start] = agg
+        return self._rules_to_jax_numpy(state, {
+            "seen": to_host(seen), "planes": [to_host(p) for p in planes]})
+
+    def state_from_jax_numpy(self, state_np: dict) -> dict:
+        """The reference package's rolling state
+        (:func:`rolling_ops.state_from_jax_numpy`) on this program's
+        device."""
+        state = rolling_ops.state_from_jax_numpy(
+            state_np, self.mid_kinds, self.kind, self.pos,
+            self.sentinel_leaf, self.device)
+        return self._rules_from_jax_numpy(state, state_np)
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
         """One batch: ``cols`` are the record's ``[B]`` tensors, ``valid``

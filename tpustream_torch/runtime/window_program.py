@@ -70,6 +70,7 @@ from ..ops.segments import (
 )
 from ..ops.wordplanes import pack_words, plane_dtypes, unpack_words
 from ..arith import reference_arithmetic
+from ..utils.tree import to_host
 from .device import (
     TORCH_DTYPES,
     DeviceChain,
@@ -79,7 +80,7 @@ from .device import (
     wrap_record,
 )
 from .plan import JobPlan
-from .step import BaseProgram
+from .step import BaseProgram, host_leaves, no_exchange
 
 INF = 2**62
 COUNTERS = ("window_fires", "late_dropped", "alert_overflow", "evicted_unfired")
@@ -426,7 +427,19 @@ class WindowProgram(BaseProgram):
                 int(state_np[name]), dtype=torch.int64, device=dev
             )
         self._check_cells(self.key_capacity(state))
-        return state
+        return self._rules_from_jax_numpy(state, state_np)
+
+    SCALARS = ("hi", "wm", "max_ts", "fired_through", "pending_fires")
+
+    def state_to_jax_numpy(self, state: dict) -> dict:
+        """The inverse of :meth:`state_from_jax_numpy`: the planes and
+        ``cnt`` without their sink cell, the host ring metadata as
+        int64 leaves, and the reference's ``exchange_overflow``."""
+        out = host_leaves(state, self.SCALARS + COUNTERS + ("slot_pane",))
+        out["planes"] = [to_host(p[:-1]) for p in state["planes"]]
+        out["cnt"] = to_host(state["cnt"][:-1])
+        out["exchange_overflow"] = no_exchange()
+        return self._rules_to_jax_numpy(state, out)
 
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """One device-to-host copy of a small tensor (one wait)."""
