@@ -42,7 +42,7 @@ the kernel, which must launch), each against a host oracle and each
 program built once across the updates; the kernel is then held against
 its plain version on the inputs of the max's second call. Phase
 ``fleet`` drives the
-chapter-6 job server: 4096 tenants x 256 lines at B = 65536 with quotas,
+chapter-6 job server: 4096 tenants x 128 lines at B = 65536 with quotas,
 mid-stream threshold updates, removals and late admissions, every
 tenant's rows and quota side output against the chapter-6 oracle and
 one program build; the same fleet from half the tenant capacity, which
@@ -69,11 +69,27 @@ point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
 device, when the package is not beside this script, or when any phase
 fails.
 
+Phase ``acc32`` drives the 32-bit accumulator configurations: the
+fixed-order float32 merge's kernel (``ordered_scatter_add``) against its
+plain version at the flagship's plane (88 x 2^20 + 1 cells, B = 131072;
+uniform, skewed and one-key cells, twice for the same bits); the
+flagship under float32 (rows against the int32 oracle, then with obs on:
+every ledger residual 0, a savepoint restored in a fresh env whose
+ledger verifies its anchors, the state bytes beside the exact
+configuration's; then obs on with the ledger off and on in two
+interleaved pairs, its cost); the chapter-2 mean under float32 and int32, every row
+bitwise against a float32 arrival-order oracle (the merge's paths); a
+rolling float32 sum on the rolling kernel's float64 path; one session
+and one count-window job under float32.
+
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,small``,
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,acc32,small``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
-``--flagship-lines N`` (flagship, chain and obs input), ``--new-lines N`` (input of
-ch1, avg and median), ``--window-lines N`` (input of session and count),
+``--flagship-lines N`` (flagship, chain, recovery's flagship runs and
+acc32 input), ``--obs-lines N`` (obs, and acc32's ledger-cost pairs),
+``--pipeline-lines N`` (pipeline), ``--new-lines N`` (input of
+ch1, avg and median), ``--window-lines N`` (input of session, count and
+acc32's window jobs),
 ``--cep-lines N`` (input of cep and rules).
 """
 
@@ -1992,7 +2008,7 @@ def rules_phase(n_lines: int, reps: int) -> dict:
 # -- phases fleet and obs: chapter 6 (tenancy) and the observability layer --
 
 FLEET_TENANTS = 4096
-FLEET_RECORDS = 256  # a tenant's lines: 4096 x 256 = 1,048,576
+FLEET_RECORDS = 128  # a tenant's lines: 4096 x 128 = 524,288
 FLEET_B = 65536
 FLEET_LATE = 64      # tenants admitted after ingestion began
 FLEET_ROUNDS = 16    # round-robin ingestion blocks
@@ -2001,7 +2017,7 @@ FLEET_HOSTS = 16     # host names every tenant of the keyed fleet shares
 
 def fleet_schedule(seed: int = 11) -> dict:
     """The chapter-6 fleet's traffic, as data: per tenant its threshold,
-    its 256 lines (``c6.tenant_lines``), a quota of half its records for
+    its FLEET_RECORDS lines (``c6.tenant_lines``), a quota of half its records for
     64 of them, 256 mid-stream threshold updates (tenant, local record,
     value), 64 removals (tenant, round) and the 64 tenants admitted at
     round 4."""
@@ -2241,8 +2257,9 @@ def check_fleet_run(label: str, srv, res, builds, want, cap: int) -> None:
 
 
 def fleet_phase(reps: int) -> dict:
-    """Chapter 6 at a fleet size users run: 4096 tenants, 1,048,576
-    lines, B = 65536. Every tenant's demuxed rows and quota side output
+    """Chapter 6 at a fleet size users run: 4096 tenants, 524,288
+    lines (128 a tenant; cut from 256 to keep the script inside its
+    time limit), B = 65536. Every tenant's demuxed rows and quota side output
     against ``c6.expected``; one program build; the same fleet from half
     the tenant capacity grows once; a profiled rerun of the first fleet
     for warm steps 2-5; the keyed fleet's rolling max on the kernel
@@ -2496,7 +2513,7 @@ PIPELINE_SETTINGS = {
     "defaults": {},
     "deep": dict(async_depth=4, h2d_depth=3, fetch_group=2, parse_ahead=2),
 }
-LANE_FRAME = 32768  # lines a raw frame of the lanes' source: 32 frames a 1M
+LANE_FRAME = 16384  # lines a raw frame of the lanes' source: 31 frames a 500k
 PIPELINE_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
 
 
@@ -3031,6 +3048,547 @@ def recovery_phase(n_lines: int, flagship_lines: int) -> dict:
     return result
 
 
+# -- phase acc32: the 32-bit accumulators at full width ---------------------
+
+ACC32_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+ACC32_FLAGSHIP = {"acc_dtype": "float32", "max_fires_per_step": 4}
+# the flagship's pane ring: 60 panes a window, its slack and delay, 88
+# slots of K cells, plus the sink: the plane the float merge's kernel is
+# held at
+ACC32_PLANE_SLOTS = 88
+OSC_REPLACES = "tpustream/runtime/window_program.py:468-482"
+
+
+def capture_scatter_call(index: int = 1):
+    """Keep the inputs of the path's ``index``-th call (0-based) of the
+    fixed-order float merge, cloned before the call adds into them:
+    ``(box, undo)``, ``box["call"] = (plane, cells, vals)``."""
+    from tpustream_torch.runtime import window_program as W
+
+    plain = W.ordered_scatter_add
+    box = {"calls": 0}
+
+    def capture(plane, cells, vals):
+        if box["calls"] == index:
+            box["call"] = (plane.clone(), cells.clone(), vals.clone())
+        box["calls"] += 1
+        return plain(plane, cells, vals)
+
+    W.ordered_scatter_add = capture
+    return box, lambda: setattr(W, "ordered_scatter_add", plain)
+
+
+def scatter_case(label: str, plane0, cells, vals, reps: int,
+                 plain_reps: int) -> dict:
+    """The merge's kernel against its plain version on the card, bitwise,
+    and against a second launch (the same bits); its time (the stable
+    sort and the fold launch, as the path calls it), the fold launch
+    alone on sorted cells, the plain version's and ``index_add_``'s (the
+    library call that computes the same sums in no fixed order), and the
+    bound from these inputs' bytes: cells (8 B) and values (4 B) read
+    once a row, each touched cell read and written once (4 B each)."""
+    import torch
+
+    from tpustream_torch.ops import ordered_scatter as O
+
+    n = plane0.numel() - 1
+    pk, p2, pr = plane0.clone(), plane0.clone(), plane0.clone()
+    O.ordered_scatter_add(pk, cells, vals)
+    O.ordered_scatter_add(p2, cells, vals)
+    O.ordered_scatter_add_ref(pr, cells, vals)
+    torch.cuda.synchronize()
+    err = float((pk - pr).abs().nan_to_num().max())
+    if not torch.equal(pk.view(torch.int32), pr.view(torch.int32)):
+        raise AssertionError(f"ordered_scatter_add {label}: kernel != plain, "
+                             f"max |diff| {err}")
+    if not torch.equal(pk.view(torch.int32), p2.view(torch.int32)):
+        raise AssertionError(f"ordered_scatter_add {label}: two launches "
+                             f"differ in bits")
+    ms = time_ms(lambda: O.ordered_scatter_add(pk, cells, vals), reps)
+    sorted_cells, rows = torch.sort(cells, stable=True)
+    fold_ms = time_ms(lambda: O.launch(pk, sorted_cells, rows, vals), reps)
+    plain_ms = time_ms(lambda: O.ordered_scatter_add_ref(pr, cells, vals),
+                       plain_reps)
+    library_ms = time_ms(lambda: p2.index_add_(0, cells, vals), reps)
+    live = cells[cells < n]
+    touched = int(torch.unique(live).numel())
+    longest = int(torch.unique(live, return_counts=True)[1].max()) \
+        if live.numel() else 0
+    nbytes = cells.numel() * 12 + 8 * touched
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel ordered_scatter_add {label}: B={cells.numel()} "
+          f"cells={n}+1 touched={touched} longest_run={longest}: ok (bitwise "
+          f"against the plain version; two launches bitwise equal) "
+          f"max_abs_err={err} ms={ms} fold_launch_ms={fold_ms} "
+          f"plain_ms={plain_ms} library_ms={library_ms} (index_add_, atomics) "
+          f"bound_ms={bound_ms} bytes={nbytes}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=library_ms)
+
+
+def acc32_kernel_cases(reps: int) -> None:
+    """The merge's kernel at the flagship's plane (88 x 2^20 + 1 float32
+    cells) and batch (B = 131072): uniform, skewed (1024 hot cells take
+    90% of the rows) and one-key cells, values from ``torch.randn`` on a
+    seeded generator (not integers, so an add out of order shows)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    n = ACC32_PLANE_SLOTS * K_MAIN
+    plane0 = torch.randn(n + 1, generator=gen, device=dev)
+    uniform = torch.randint(0, n + 1, (B_MAIN,), generator=gen, device=dev)
+    hot = torch.rand(B_MAIN, generator=gen, device=dev) < 0.9
+    skewed = torch.where(hot, torch.randint(0, 1024, (B_MAIN,), generator=gen,
+                                            device=dev), uniform)
+    one_key = torch.full((B_MAIN,), 12345, dtype=torch.int64, device=dev)
+    vals = torch.randn(B_MAIN, generator=gen, device=dev)
+    for label, cells, plain_reps in (("uniform", uniform, 3),
+                                     ("skewed", skewed, 3),
+                                     ("one_key", one_key, 1)):
+        scatter_case(label, plane0, cells, vals, reps, plain_reps)
+
+
+def acc32_avg(n_lines: int, acc_dtype: str, reps: int,
+              per_minute: int = 100_000) -> dict:
+    """The chapter-2 windowed mean (``AvgAggregate``) on the job phase's
+    lines under a 32-bit ``acc_dtype``: the (count, sum) accumulator is
+    an int32 plane and a float32 plane on the scatter-reduce path, the
+    float sum through the fixed-order merge. The oracle adds each
+    (window, host) cell's usage as float32 in arrival order (``np.add.at``,
+    rounding after every add) and divides in float64, as the job does:
+    every row bitwise. Then the kernel against its plain version on the
+    path's second merge call."""
+    from tpustream_torch.jobs import chapter2_avg
+    from tpustream_torch.ops import ordered_scatter as O
+    from tpustream_torch.ops import seq_rolling as S
+
+    hosts = make_hosts(n_lines, K_MAIN, seed=7)
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    usage = np.array([float(l.rsplit(" ", 1)[1]) for l in lines])
+    order, starts = window_groups(hosts, per_minute)
+    group = np.empty(n_lines, np.int64)
+    group[order] = np.cumsum(starts) - 1
+    sums = np.zeros(int(starts.sum()), np.float32)
+    np.add.at(sums, group, usage.astype(np.float32))
+    counts = np.bincount(group)
+    want = sums.astype(np.float64) / counts
+    box, undo = capture_scatter_call()
+    O.reset_launches()
+    S.reset_launches()
+    try:
+        items, m, wall = run_job(chapter2_avg, with_minutes(lines, per_minute),
+                                 device=ACC32_DEVICE, batch_size=B_MAIN,
+                                 key_capacity=K_MAIN, alert_capacity=1 << 18,
+                                 name="ComputeCpuAvg", acc_dtype=acc_dtype)
+    finally:
+        undo()
+    launches = O.ordered_scatter_add.launches
+    got = np.array(items, dtype=np.float64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (int(np.flatnonzero(got != want)[0]) if got.shape == want.shape
+               else None)
+        raise AssertionError(f"acc32 avg {acc_dtype}: {got.size} rows vs "
+                             f"{want.size} from the float32 oracle, first "
+                             f"difference at row {bad}")
+    if ACC32_DEVICE == "cuda" and launches < m.steps // 2:
+        raise AssertionError(f"acc32 avg {acc_dtype}: ordered_scatter_add "
+                             f"launched {launches} times over {m.steps} steps")
+    losses = check_losses(f"acc32 avg {acc_dtype}", m,
+                          ("late_dropped", "alert_overflow", "evicted_unfired"))
+    print(f"acc32 avg {acc_dtype}: {n_lines} lines at B={B_MAIN}, K={K_MAIN}, "
+          f"{got.size} rows equal the float32 arrival-order oracle (bitwise; "
+          f"{int(np.sum(got != usage_means(usage, group, counts)))} of them "
+          f"differ from the float64 means); {losses}; ordered_scatter_add "
+          f"launches={launches}; seq_rolling_reduce launches="
+          f"{S.seq_rolling_reduce.launches}")
+    print(f"acc32 avg {acc_dtype} {wall_split(m, wall)}")
+    out = {"launches": launches}
+    if ACC32_DEVICE == "cuda":
+        out["case"] = scatter_case(f"on the acc32 avg {acc_dtype} path's call",
+                                   *box["call"], reps, 3)
+    return out
+
+
+def usage_means(usage, group, counts) -> np.ndarray:
+    """The exact (float64) means of the same cells, for contrast."""
+    s = np.zeros(counts.size)
+    np.add.at(s, group, usage)
+    return s / counts
+
+
+def rolling_sum_oracle(ids: np.ndarray, vals: np.ndarray, batch: int):
+    """The chapter-2 rolling sum under float32, as the JAX package
+    computes it: per batch, each key's prefix of the batch's values in
+    float64 (here in arrival order), added to the key's stored float32
+    value widened to float64; the key's last row rounds to float32 and
+    is stored. ``(emissions, error bound)``: the card folds the prefix
+    in the rolling kernel's tree order, which differs from arrival order
+    by at most 2(m-1)*eps*sum|v| for m terms, and a stored float32 value
+    may then round one float32 ulp apart (eps32 * |stored|)."""
+    n = ids.size
+    stored = np.zeros(int(ids.max()) + 1, np.float32)
+    seen = np.zeros(stored.size, bool)
+    emis = np.empty(n)
+    bound = np.empty(n)
+    for lo in range(0, n, batch):
+        k, v = ids[lo:lo + batch], vals[lo:lo + batch]
+        order = np.argsort(k, kind="stable")
+        sk, sv = k[order], v[order]
+        starts = np.r_[True, sk[1:] != sk[:-1]]
+        seg = np.cumsum(starts) - 1
+        first = np.flatnonzero(starts)
+        rank = np.arange(sk.size) - first[seg]
+        # each key's running sum in arrival order, one rank at a time
+        prefix, pabs = sv.copy(), np.abs(sv)
+        for r in range(1, int(rank.max()) + 1):
+            at = np.flatnonzero(rank == r)
+            prefix[at] = prefix[at - 1] + sv[at]
+            pabs[at] = pabs[at - 1] + np.abs(sv[at])
+        old = stored[sk].astype(np.float64)
+        old_seen = seen[sk]
+        e = np.where(old_seen, old + prefix, prefix)
+        emis[lo + order] = e
+        bound[lo + order] = (2 * rank * np.finfo(np.float64).eps * (np.abs(old) + pabs)
+                             + np.finfo(np.float32).eps * np.abs(old))
+        last = np.r_[first[1:] - 1, sk.size - 1]
+        stored[sk[last]] = e[last].astype(np.float32)
+        seen[sk[last]] = True
+    return emis, bound
+
+
+def path_sum_case(label: str, call, reps: int) -> dict:
+    """The rolling kernel's float64 sum against its plain version on one
+    call's inputs as the path gave them: two summation trees of each
+    key's values, so within 2(m-1)*eps*sum|v| of each other; two launches
+    bitwise equal; times and the bound from the call's bytes."""
+    import torch
+
+    from tpustream_torch.ops import seq_rolling as S
+
+    plane0, keys, vals, op = call
+    pk, pr, p2 = plane0.clone(), plane0.clone(), plane0.clone()
+    bad = torch.zeros(1, dtype=torch.int32, device=keys.device)
+    ek = S.seq_rolling_reduce(pk, keys, vals, op, bad_keys=bad)
+    e2 = S.seq_rolling_reduce(p2, keys, vals, op, bad_keys=bad)
+    er = S.seq_rolling_reduce_ref(pr, keys, vals, op, bad_keys=bad)
+    eps = torch.finfo(vals.dtype).eps
+    valid = keys >= 0
+    mult = torch.bincount(keys[valid].long(), minlength=plane0.numel()) + 1
+    abs_run = S.seq_rolling_reduce_ref(
+        plane0.abs().nan_to_num(posinf=0.0, neginf=0.0), keys, vals.abs(),
+        "sum", bad_keys=bad)
+    bound = 2 * (mult[keys.clamp(min=0).long()] - 1).double() * eps * abs_run
+    torch.cuda.synchronize()
+    err = float((ek - er).abs().max())
+    if not bool(((ek - er).abs() <= bound).all()) or int(bad[0]):
+        raise AssertionError(f"{label}: kernel sum outside 2(m-1)*eps*sum|v| "
+                             f"of the plain version, max |diff| {err}")
+    if not (torch.equal(ek.view(torch.int64), e2.view(torch.int64))
+            and torch.equal(pk.view(torch.int64), p2.view(torch.int64))):
+        raise AssertionError(f"{label}: two launches differ in bits")
+    emis = torch.empty_like(vals)
+    ms = time_ms(lambda: S.launch(pk, keys, vals, op, emis, bad), reps)
+    plain_ms = time_ms(
+        lambda: S.seq_rolling_reduce_ref(pr, keys, vals, op, bad), reps)
+    rows, size = keys.numel(), vals.element_size()
+    touched = int(torch.unique(keys[valid]).numel())
+    nbytes = rows * (keys.element_size() + 2 * size) + 2 * touched * size
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel seq_rolling_reduce float64 sum on the {label} path's "
+          f"call: B={rows} K={plane0.numel()} keys={touched}: ok (within "
+          f"2(m-1)*eps*sum|v| of the plain version; two launches bitwise "
+          f"equal) max_abs_err={err} ms={ms} plain_ms={plain_ms} "
+          f"bound_ms={bound_ms} bytes={nbytes}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def acc32_rolling(n_lines: int, reps: int) -> dict:
+    """A chapter-2 rolling ``sum`` over usage under ``acc_dtype="float32"``
+    at 1M keys: the seq_rolling kernel folds the batch in float64 over a
+    float64 widening of the stored float32 plane. Every row against
+    :func:`rolling_sum_oracle` within its bound."""
+    from tpustream_torch import Tuple2
+    from tpustream_torch.javacompat import Double
+    from tpustream_torch.ops import ordered_scatter as O
+    from tpustream_torch.ops import seq_rolling as S
+
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    hosts = make_hosts(n_lines, K_MAIN, seed=7)
+    ids = interned_ids(hosts)
+    usage = np.array([float(l.rsplit(" ", 1)[1]) for l in lines])
+    want, bound = rolling_sum_oracle(ids, usage, B_MAIN)
+
+    def build(text):
+        return (text.map(lambda l: Tuple2(l.split(" ")[1],
+                                          Double.parseDouble(l.split(" ")[3])))
+                .key_by(0).sum(1))
+
+    box, undo = capture_kernel_call()
+    S.reset_launches()
+    O.reset_launches()
+    try:
+        items, m, wall = run_env(build, lines, device=ACC32_DEVICE,
+                                 name="rolling sum float32", batch_size=B_MAIN,
+                                 key_capacity=K_MAIN, acc_dtype="float32")
+    finally:
+        undo()
+    launches = S.seq_rolling_reduce.launches
+    got = np.array([t.f1 for t in items])
+    err = np.abs(got - want)
+    if got.shape != want.shape or not np.all(err <= bound):
+        bad = int(np.flatnonzero(err > bound)[0]) if got.shape == want.shape else None
+        raise AssertionError(f"acc32 rolling: {got.size} rows vs {want.size}, "
+                             f"row {bad} outside its bound")
+    if ACC32_DEVICE == "cuda" and launches < m.steps:
+        raise AssertionError(f"acc32 rolling: kernel launched {launches} times "
+                             f"over {m.steps} steps")
+    print(f"acc32 rolling sum float32: {n_lines} lines, {ids.max() + 1} keys at "
+          f"B={B_MAIN}, every row within its bound of the oracle "
+          f"({int(np.sum(err == 0))} bit-equal, max |diff| {err.max()}); "
+          f"seq_rolling_reduce launches={launches} (float64: "
+          f"{S.seq_rolling_reduce.launches_by_dtype.get('float64', 0)}); "
+          f"ordered_scatter_add launches={O.ordered_scatter_add.launches}")
+    print(f"acc32 rolling {wall_split(m, wall)}")
+    out = {"launches": launches}
+    if ACC32_DEVICE == "cuda":
+        out["case"] = path_sum_case("acc32 rolling", box["call"], reps)
+    return out
+
+
+def acc32_windows(n_lines: int) -> None:
+    """One session job and one count-window job under float32: both
+    packages keep these accumulators at their kinds' dtypes, so the rows
+    are the exact configuration's; the session mean within the session
+    phase's bound of its oracle, the count sums exact."""
+    from tpustream_torch.runtime.session_program import SessionWindowProgram
+
+    ts, keys, longs, floats = session_input(n_lines)
+    names = np.array([f"k{k}" for k in keys.tolist()])
+    ids = interned_ids(names)
+    order, first, ends, counts, sums, abs_sums, _ = session_oracle(
+        ts, keys, floats, ids, SESSION_B)
+    lines = [f"{t} k{k} {v}" for t, k, v in
+             zip(ts.tolist(), keys.tolist(), floats.tolist())]
+    read_ends, undo = session_ends(SessionWindowProgram)
+    try:
+        items, m, wall = run_env(session_build("mean"), lines,
+                                 device=ACC32_DEVICE, event_time=True,
+                                 name="session mean float32",
+                                 acc_dtype="float32", batch_size=SESSION_B,
+                                 key_capacity=SESSION_K, alert_capacity=1 << 14,
+                                 fire_capacity=1 << 14, session_extra_panes=16)
+    finally:
+        undo()
+    got_keys = np.array([t.f0 for t in items])
+    got_n = np.array([t.f1 for t in items], dtype=np.int64)
+    got_mean = np.array([t.f2 for t in items], dtype=np.float64)
+    want = sums / counts
+    err = np.abs(got_mean - want) if got_mean.shape == want.shape else None
+    if (err is None or not np.array_equal(got_keys, names[order][first])
+            or not np.array_equal(got_n, counts)
+            or not np.array_equal(read_ends(), ends)
+            or not np.all(err <= 2 * (counts - 1) * np.finfo(np.float64).eps
+                          * abs_sums)):
+        raise AssertionError("acc32 session mean float32: a row differs from "
+                             "the oracle")
+    losses = check_losses("acc32 session", m, ("late_dropped", "evicted_unfired",
+                                               "alert_overflow"))
+    print(f"acc32 session mean float32: {n_lines} lines, {len(items)} sessions "
+          f"equal the oracle (keys, ends, counts exact; means within "
+          f"2(m-1)*eps*sum|v|, {int(np.sum(err == 0))} bit-equal); {losses}")
+    print(f"acc32 session {run_summary(m, wall)}")
+
+    rng = np.random.default_rng(17)
+    hosts = rng.integers(0, 1 << 14, n_lines)
+    vals = rng.integers(0, 10**6, n_lines)
+    c_lines = [f"{i} h{h} {v}" for i, (h, v) in
+               enumerate(zip(hosts.tolist(), vals.tolist()))]
+    arrival, window = count_oracle(hosts, vals, 50, 10)
+    want_keys = np.array([f"h{x}" for x in hosts[arrival].tolist()])
+    want = np.nansum(window, axis=1).astype(np.int64)
+    items, m, wall = run_env(count_build(50, 10), c_lines, device=ACC32_DEVICE,
+                             name="count float32", batch_size=B_MAIN,
+                             key_capacity=131072, alert_capacity=1 << 16,
+                             acc_dtype="float32")
+    got = np.array([t.f1 for t in items], dtype=np.int64)
+    if (got.shape != want.shape or not np.array_equal(got, want)
+            or not np.array_equal(np.array([t.f0 for t in items]), want_keys)):
+        raise AssertionError("acc32 count (50, 10) float32: a row differs from "
+                             "the oracle")
+    losses = check_losses("acc32 count", m, ("alert_overflow",))
+    print(f"acc32 count (50, 10) reduce float32: {n_lines} lines, {got.size} "
+          f"rows equal the oracle (bitwise); {losses}")
+    print(f"acc32 count {run_summary(m, wall)}")
+
+
+def ledger_line(label: str, led) -> None:
+    """Every ledger edge's residual (each must be 0) and the violation
+    count (0)."""
+    state = led.state()
+    edges = {e["edge"]: e["residual"] for e in state["edges"]}
+    bad = {k: v for k, v in edges.items() if v not in (0, None)}
+    if bad or state["violations"]["total"]:
+        raise AssertionError(f"{label}: ledger residuals {bad}, violations "
+                             f"{state['violations']}")
+    print(f"{label}: ledger residuals {edges}; ledger_violations_total="
+          f"{state['violations']['total']}")
+
+
+def acc32_flagship(n_lines: int) -> None:
+    """The flagship under float32 (the flow, a Long, is stored as wrapped
+    int32 as under int32, so the oracle is the int32 one): obs off, then
+    with obs on, a savepoint after its third batch and a restore of that
+    savepoint in a fresh env whose collect handle already holds the rows
+    emitted before it: every ledger residual 0 in both runs, the
+    savepoint's anchors verified by the fresh env's ledger, and the state
+    bytes beside the exact configuration's."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.checkpoint import load_checkpoint
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want = [f"({c},{v!r})" for c, v in
+            flagship_oracle(ts, ch, flow, int32_panes=True)]
+    rows, m, wall = run_flagship(lines, ACC32_DEVICE, **ACC32_FLAGSHIP)
+    if rows != want:
+        raise AssertionError(f"acc32 flagship float32: {len(rows)} rows vs "
+                             f"{len(want)} from the oracle")
+    losses = check_losses("acc32 flagship", m, ("late_dropped", "alert_overflow",
+                                                "evicted_unfired"))
+    print(f"acc32 flagship float32: {len(rows)} rows equal the oracle; "
+          f"{losses}; {check_native('acc32 flagship', m)}")
+    print(f"acc32 flagship float32 {run_summary(m, wall)}")
+
+    class SavepointAt(ReplaySource):
+        def __init__(self, items, env):
+            super().__init__(items)
+            self.env = env
+
+        def batches(self, batch_size, max_delay_ms):
+            for i, sb in enumerate(super().batches(batch_size, max_delay_ms)):
+                if i == 2:
+                    self.env.savepoint("acc32")
+                yield sb
+
+    def run(items, directory, restore=None, seed_rows=(), **config):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=ACC32_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            alert_capacity=1 << 16, checkpoint_dir=directory, parse_ahead=0,
+            obs=ObsConfig(enabled=True), **config))
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        if restore is not None:
+            env.restore_from_checkpoint(restore)
+        src = ReplaySource(items) if restore is not None else SavepointAt(items, env)
+        h = chapter3_bandwidth_eventtime.build(env, env.add_source(src)).collect()
+        h.items.extend(seed_rows)
+        t0 = time.perf_counter()
+        env.execute("BandwidthMonitorWithEventTime")
+        return h.items, env, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        # the exact configuration's state bytes, from one batch at K
+        _, env_x, _ = run(lines[:B_MAIN], d + "/exact")
+        exact_bytes = series_value(env_x.metrics, "operator_hbm_state_bytes")
+        full, env, wall_on = run(lines, d + "/f32", **ACC32_FLAGSHIP)
+        if [repr(t) for t in full] != want or len(env.savepoints) != 1:
+            raise AssertionError(f"acc32 flagship obs on: rows equal the "
+                                 f"oracle: {[repr(t) for t in full] == want}; "
+                                 f"savepoints {env.savepoints}")
+        f32_bytes = series_value(env.metrics, "operator_hbm_state_bytes")
+        led = env.metrics.job_obs.ledger
+        ledger_line("acc32 flagship obs on", led)
+        sp = env.savepoints[0]
+        ck = load_checkpoint(sp)
+        anchors = ck.ledger
+        if anchors is None or anchors["sink0"]["count"] != ck.emitted:
+            raise AssertionError(f"acc32 savepoint anchors {anchors}, emitted "
+                                 f"{ck.emitted}")
+        if led.verify_anchors(anchors) is not None:
+            raise AssertionError("acc32 savepoint: the run's own ledger refuses "
+                                 "its anchors")
+        got, env2, wall_r = run(lines, d + "/f32", restore=sp,
+                                seed_rows=full[:ck.emitted], **ACC32_FLAGSHIP)
+        if [repr(t) for t in got] != want:
+            raise AssertionError("acc32 savepoint: the restored rows differ")
+        led2 = env2.metrics.job_obs.ledger
+        ledger_line("acc32 flagship restored", led2)
+        reason = led2.verify_anchors(anchors)
+        if reason is not None:
+            raise AssertionError(f"acc32 savepoint anchors: {reason}")
+    print(f"acc32 flagship obs on: events_per_s_end_to_end={n_lines / wall_on} "
+          f"wall_s={wall_on}; operator_hbm_state_bytes float32={f32_bytes} "
+          f"exact={exact_bytes} (ratio {f32_bytes / exact_bytes}); savepoint "
+          f"{sp.rsplit('/', 1)[-1]} after batch 3 (emitted={ck.emitted}, "
+          f"anchor digest {anchors['sink0']['digest'][:16]}...); the fresh "
+          f"env's rows equal the oracle and its ledger verifies the "
+          f"anchors; restored wall_s={wall_r}")
+
+
+def acc32_ledger_cost(n_lines: int) -> None:
+    """The ledger's cost: the flagship under float32 with obs on, the
+    ledger off and on (auto), in two interleaved pairs (off, on, on,
+    off); equal rows, every residual 0 in the on runs."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs import chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines, _, _, _ = make_flagship_input(n_lines, K_MAIN, seed=3)
+    rows0 = None
+    for ledger in (False, None, None, False):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=ACC32_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            alert_capacity=1 << 16, obs=ObsConfig(enabled=True, ledger=ledger),
+            **ACC32_FLAGSHIP))
+        env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        h = chapter3_bandwidth_eventtime.build(
+            env, env.add_source(ReplaySource(lines))).collect()
+        t0 = time.perf_counter()
+        env.execute("BandwidthMonitorWithEventTime")
+        wall = time.perf_counter() - t0
+        rows = [repr(t) for t in h.items]
+        if rows0 is None:
+            rows0 = rows
+        elif rows != rows0:
+            raise AssertionError("acc32 ledger cost: rows differ between runs")
+        label = "ledger off" if ledger is False else "ledger on"
+        led = env.metrics.job_obs.ledger
+        if (led is None) != (ledger is False):
+            raise AssertionError(f"acc32 ledger cost: {label} but ledger {led}")
+        if led is not None:
+            ledger_line(f"acc32 ledger cost {label}", led)
+        print(f"acc32 ledger cost {label}: {run_summary(env.metrics, wall)}")
+
+
+def acc32_phase(n_lines: int, window_lines: int, ledger_lines: int,
+                reps: int) -> dict:
+    """The 32-bit accumulator configurations at full width: the merge's
+    kernel cases, the flagship under float32 (with obs, a savepoint and
+    a restore; then the ledger off and on in interleaved pairs), the
+    chapter-2 mean under float32 and int32 (the merge's
+    path), a rolling float32 sum (the rolling kernel's float64 path),
+    a session job and a count-window job. Returns the paths' kernel
+    entries."""
+    out = {}
+    for name, fn, args in (
+            ("kernel cases", acc32_kernel_cases, (reps,)),
+            ("flagship", acc32_flagship, (n_lines,)),
+            ("ledger cost", acc32_ledger_cost, (ledger_lines,)),
+            ("avg float32", acc32_avg, (n_lines, "float32", reps)),
+            ("avg int32", acc32_avg, (n_lines, "int32", reps)),
+            ("rolling", acc32_rolling, (n_lines, reps)),
+            ("windows", acc32_windows, (window_lines,))):
+        if name == "kernel cases" and ACC32_DEVICE != "cuda":
+            continue
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        print(f"acc32 {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 AVG_LINES = [
     "1563452056 10.8.22.1 cpu0 80.5",
     "1563452050 10.8.22.1 cpu0 78.4",
@@ -3520,7 +4078,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "cep,rules,fleet,obs,pipeline,recovery,small")
+                            "cep,rules,fleet,obs,pipeline,recovery,acc32,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -3531,6 +4089,12 @@ def main() -> int:
                     help="input of the session and count phases")
     ap.add_argument("--cep-lines", type=int, default=1_000_000,
                     help="input of the cep phase's two runs and the rules phase")
+    ap.add_argument("--obs-lines", type=int, default=500_000,
+                    help="input of the obs phase's runs and of the acc32 "
+                         "phase's ledger-cost pairs")
+    ap.add_argument("--pipeline-lines", type=int, default=500_000,
+                    help="input of the pipeline phase's chapter-2, flagship "
+                         "and chapter-4 runs")
     ap.add_argument("--dead-letter-lines", type=int, default=200_000,
                     help="chapter-1 input of the pipeline phase's dead "
                          "letters (one line in 10,000 malformed)")
@@ -3579,13 +4143,16 @@ def main() -> int:
              if "rules" in phases else {})
     fleet = timed("fleet", fleet_phase, args.reps) if "fleet" in phases else {}
     if "obs" in phases:
-        timed("obs", obs_phase, args.flagship_lines)
-    pipeline = (timed("pipeline", pipeline_phase, args.lines,
-                      args.flagship_lines, args.dead_letter_lines, args.reps)
+        timed("obs", obs_phase, args.obs_lines)
+    pipeline = (timed("pipeline", pipeline_phase, args.pipeline_lines,
+                      args.pipeline_lines, args.dead_letter_lines, args.reps)
                 if "pipeline" in phases else {})
     recovery = (timed("recovery", recovery_phase, args.lines,
                       args.flagship_lines)
                 if "recovery" in phases else {})
+    acc32 = (timed("acc32", acc32_phase, args.flagship_lines,
+                   args.window_lines, args.obs_lines, args.reps)
+             if "acc32" in phases else {})
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -3608,7 +4175,10 @@ def main() -> int:
             ("pipeline", "float64", "max", pipeline.get("launches"),
              pipeline.get("case")),
             ("recovery", "float64", "max", recovery.get("launches"),
-             recovery.get("case"))):
+             recovery.get("case")),
+            ("acc32_rolling", "float64", "sum",
+             acc32.get("rolling", {}).get("launches"),
+             acc32.get("rolling", {}).get("case"))):
         if case is None:
             continue
         entries.append({
@@ -3626,6 +4196,30 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "device_launches_per_call": case.get("device_launches_per_call"),
+        })
+    # the fixed-order float merge: one entry a path it launches on, the
+    # chapter-2 mean under float32 and under int32 (each path's own
+    # second call)
+    for path, key in (("acc32_avg_float32", "avg float32"),
+                      ("acc32_avg_int32", "avg int32")):
+        got = acc32.get(key) or {}
+        case = got.get("case")
+        if case is None:
+            continue
+        entries.append({
+            "name": "ordered_scatter_add",
+            "path": path,
+            "dtype": "float32",
+            "route": "cuda",
+            "source": "tpustream_torch/kernels/ordered_scatter.cu",
+            "replaces": OSC_REPLACES,
+            "launches": got["launches"],
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": case["library_ms"],
         })
     if entries:
         print(json.dumps({"kernels": entries}))

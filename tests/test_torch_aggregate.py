@@ -125,10 +125,20 @@ def test_accumulator_layout_and_liveness_match_the_jax_package(name):
 
 
 def test_int32_mean_refuses_a_float_scatter_add():
-    # the 32-bit configuration of the mean sums a float leaf by
-    # scatter-add, which has no fixed order on the card: refused by name
-    with pytest.raises(NotImplementedError, match="float"):
-        _program(tpustream_torch, torch_job.AvgAggregate(), acc_dtype="int32")
+    """The 32-bit configuration of the mean sums a float leaf by a
+    scatter-add. The port no longer refuses it: it builds the JAX
+    package's layout (an int32 count plane and a float32 sum plane on the
+    scatter-reduce path), and the float sum goes through the fixed-order
+    merge (ops/ordered_scatter.py) rather than an atomic scatter-add."""
+    for dtype in ("int32", "float32"):
+        want = _program(tpustream, jax_job.AvgAggregate(), acc_dtype=dtype)
+        got = _program(tpustream_torch, torch_job.AvgAggregate(), acc_dtype=dtype)
+        for attr in ("stored_ops", "compact32", "fast_reduce"):
+            assert getattr(got, attr) == getattr(want, attr), attr
+        assert got.fast_reduce and got.stored_ops == ["add", "add"]
+        import torch
+        assert got.plane_dtypes == [torch.int32, torch.float32]
+        assert [str(d) for d in want.plane_dtypes] == ["int32", "float32"]
 
 
 # -- side by side with the JAX package ----------------------------------

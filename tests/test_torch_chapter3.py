@@ -319,42 +319,55 @@ def test_key_capacity_growth_equals_the_jax_package(config):
 # -- what this slice leaves out refuses by name ---------------------------
 
 def test_unported_window_features_raise():
+    """``acc_dtype="float32"`` runs since the 32-bit accumulators are
+    ported: the flagship and a session job give the JAX package's rows.
+    ``parallelism > 1`` still refuses by name (roadmap queue item 12)."""
     T = tpustream_torch
+    import tpustream.api.windows as jax_windows
+    import tpustream_torch.api.windows as torch_windows
 
     def job(**cfg):
         env = _env(T.TimeCharacteristic.EventTime, **cfg)
         return env, env.add_source(ReplaySource(ET_LINES))
 
+    def jax_env(**cfg):
+        jenv = tpustream.StreamExecutionEnvironment(tpustream.StreamConfig(**cfg))
+        jenv.set_stream_time_characteristic(tpustream.TimeCharacteristic.EventTime)
+        return jenv, jenv.add_source(jax_sources.ReplaySource(ET_LINES))
+
     env, text = job(acc_dtype="float32")
-    torch_et.build(env, text).collect()
-    with pytest.raises(NotImplementedError, match="float32"):
-        env.execute("x")
+    h = torch_et.build(env, text).collect()
+    env.execute("x")
+    jenv, jtext = jax_env(acc_dtype="float32")
+    jh = jax_et.build(jenv, jtext).collect()
+    jenv.execute("x")
+    assert h.items and [repr(t) for t in h.items] == [repr(t) for t in jh.items]
 
-    # float32 session windows refuse by name too; parallelism > 1 waits
-    # for roadmap queue item 12
-    from tpustream_torch.api.windows import EventTimeSessionWindows
-
-    def sessions(text):
+    def sessions(pkg, et, windows, text):
         return (text.assign_timestamps_and_watermarks(
-                    torch_et.IsoTimestampExtractor(T.Time.minutes(1)))
-                .map(torch_et.parse).key_by(1)
-                .window(EventTimeSessionWindows.with_gap(T.Time.minutes(5)))
-                .reduce(lambda a, b: T.Tuple3(a.f0, a.f1, a.f2 + b.f2)))
+                    et.IsoTimestampExtractor(pkg.Time.minutes(1)))
+                .map(et.parse).key_by(1)
+                .window(windows.EventTimeSessionWindows.with_gap(pkg.Time.minutes(5)))
+                .reduce(lambda a, b: pkg.Tuple3(a.f0, a.f1, a.f2 + b.f2)))
 
     env, text = job(acc_dtype="float32")
-    sessions(text).collect()
-    with pytest.raises(NotImplementedError, match="float32"):
-        env.execute("x")
+    h = sessions(T, torch_et, torch_windows, text).collect()
+    env.execute("x")
+    jenv, jtext = jax_env(acc_dtype="float32")
+    jh = sessions(tpustream, jax_et, jax_windows, jtext).collect()
+    jenv.execute("x")
+    assert h.items and [repr(t) for t in h.items] == [repr(t) for t in jh.items]
+
+    def sessions_port(text):
+        return sessions(T, torch_et, torch_windows, text)
 
     env, text = job(parallelism=2)
-    sessions(text).collect()
+    sessions_port(text).collect()
     with pytest.raises(NotImplementedError, match="parallelism"):
         env.execute("x")
 
     # chained stages run since the chain glue is ported: the same
     # two-stage job gives the JAX package's rows
-    import tpustream.api.windows as jax_windows
-    import tpustream_torch.api.windows as torch_windows
 
     def chained(pkg, et, windows, env, sources):
         text = env.add_source(sources.ReplaySource(ET_LINES))

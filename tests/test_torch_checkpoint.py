@@ -184,10 +184,12 @@ def test_restore_rejects_config_mismatch(tmp_path):
     ckdir = tmp_path / "ck"
     run_job(build, lines, tmpdir=ckdir)
     snap = checkpoints(ckdir)[0]
-    # a config that changes leaf DTYPES is a real mismatch. The JAX case
-    # restores this rolling snapshot with acc_dtype="float32", which the
-    # port refuses for a rolling aggregate (ROADMAP item 10); the window
-    # job's int32 accumulator is the leaf-layout change it runs instead
+    # a config that changes leaf DTYPES is a real mismatch: the JAX
+    # case's rolling snapshot restored with acc_dtype="float32" (its
+    # aggregated plane is then float32), and the window job's int32
+    # accumulator
+    with pytest.raises(ValueError, match="does not match|state arrays"):
+        run_job(build, lines, restore=snap, acc_dtype="float32")
     iso = ["2019-08-28T09:00:00 www.163.com 1000",
            "2019-08-28T09:02:00 www.163.com 2000"]
     ckdir3 = tmp_path / "ck3"

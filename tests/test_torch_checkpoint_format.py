@@ -5,7 +5,9 @@ restores in the JAX package.
 For each program family (rolling f64, rolling i64, ``max_by``, stateless,
 window exact, window int32, full-window ``process()``, session ``reduce``,
 session ``process()``, count tumbling, count sliding, count
-``process()``, CEP, a rule-bearing job and a two-stage chain), the same
+``process()``, CEP, a rule-bearing job, a two-stage chain, and the
+32-bit accumulator layouts: rolling f64 under float32 and i64 under
+int32, the flagship window and the chapter-2 mean under float32), the same
 seeded input goes through both packages with a checkpoint after every
 batch. Then, for one mid-stream snapshot of each:
 
@@ -119,6 +121,10 @@ def _process(ns, env, text):
     return [_job(ns, "chapter2_median").build(env, text)]
 
 
+def _avg(ns, env, text):
+    return [_job(ns, "chapter2_avg").build(env, text)]
+
+
 def _session_reduce(ns, env, text):
     w = ns.windows.EventTimeSessionWindows.with_gap(ns.pkg.Time.milliseconds(2500))
     return [text.assign_timestamps_and_watermarks(_ts(ns)).map(_kv(ns))
@@ -180,6 +186,10 @@ FAMILIES = {
     "cep": (_cep, CEP, True, {}),
     "rules": (_rules, CH1, False, {}),
     "chain": (_chain, KV, True, {}),
+    "rolling_f64_float32": (_rolling_f64, CH1, False, {"acc_dtype": "float32"}),
+    "rolling_i64_int32": (_rolling_i64, KV, False, {"acc_dtype": "int32"}),
+    "window_float32": (_window, ISO, True, {"acc_dtype": "float32"}),
+    "avg_float32": (_avg, _ticked, False, {"acc_dtype": "float32"}),
 }
 
 

@@ -6,9 +6,8 @@ pinned savepoints, restore drills, and writer/GC fault recovery.
 The unit half drives ``write_snapshot`` directly with hand-built
 ``PendingSnapshot`` cuts (no device needed), pinning the byte-level
 contracts; the job half runs supervised chapter-2 jobs through the
-port's executor (``device="cpu"``). The JAX case's check of the
-conservation ledger's digest anchors has no counterpart: the ledger is
-ROADMAP item 13.
+port's executor (``device="cpu"``), the conservation ledger's digest
+anchors verified after a restore among them.
 """
 
 import glob
@@ -395,6 +394,9 @@ def test_device_fault_recovers_from_incremental_chain(tmp_path):
         if e["kind"] == "job_restored"
     )
     assert _read_meta(restored["checkpoint"]).get("chunks")
+    # the ledger's digest anchors verified the restore's sink rollback
+    rst = res.metrics.obs_snapshot()["ledger"].get("restore")
+    assert rst and rst["verified"] >= 1 and rst["mismatches"] == 0
 
 
 def test_restore_drill_passes_on_intact_store(tmp_path):

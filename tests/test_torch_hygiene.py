@@ -42,6 +42,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import tpustream_torch.runtime.supervisor\n"
         "import tpustream_torch.runtime.checkpoint, tpustream_torch.utils.tree\n"
         "import tpustream_torch.parallel.lanes, tpustream_torch.testing\n"
+        "import tpustream_torch.ops.ordered_scatter\n"
+        "import tpustream_torch.obs.ledger, tpustream_torch.obs.memory\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -58,6 +60,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert "tpustream_torch.jobs.chapter6_tenant_fleet" in out
     assert "tpustream_torch.runtime.ingest" in out
     assert "tpustream_torch.parallel.lanes" in out
+    assert "tpustream_torch.ops.ordered_scatter" in out
+    assert "tpustream_torch.obs.ledger" in out
+    assert "tpustream_torch.obs.memory" in out
     assert [m for m in out if _forbidden(m)] == []
 
 

@@ -3,7 +3,7 @@ over both packages (fixture ``pk``): the live scrape endpoint's
 ``/metrics`` (hostile label values escaped over a real socket),
 ``/snapshot.json``, ``/healthz``, 404/405/500 replies, clean shutdown,
 and a chapter-3 job scraped while it runs (the port's executor in the
-``torch`` cases; the device-memory series are the JAX package's only).
+``torch`` cases; both packages mint the state-memory series).
 """
 
 import json
@@ -224,18 +224,14 @@ def test_live_scrape_end_to_end(pk):
         assert float(line.rsplit(" ", 1)[1]) >= 1
     assert 'operator="window"' in "".join(compile_lines)
 
-    # (b) HBM state accounting: nonzero total for the window program
-    # (the JAX package's obs/memory.py; the port has no device-memory
-    # accounting yet)
+    # (b) state-memory accounting (obs/memory.py in both packages):
+    # a nonzero total for the window program
     hbm = [
         l for l in metrics.splitlines()
         if l.startswith("tpustream_operator_hbm_state_bytes{")
         and "shard=" not in l
     ]
-    if pk.side == "jax":
-        assert hbm and all(float(l.rsplit(" ", 1)[1]) > 0 for l in hbm)
-    else:
-        assert hbm == []
+    assert hbm and all(float(l.rsplit(" ", 1)[1]) > 0 for l in hbm)
 
     # (c) /healthz reflects the engine: the 1-minute OOO delay keeps
     # watermark lag at 60000 ms, breaching the 30000 crit rule
@@ -249,7 +245,7 @@ def test_live_scrape_end_to_end(pk):
     snap = json.loads(body)
     names = {s["name"] for s in snap["metrics"]["series"]}
     assert "operator_compile_count" in names
-    assert ("operator_key_table_load_factor" in names) == (pk.side == "jax")
+    assert "operator_key_table_load_factor" in names
 
     # the server is torn down with the job: socket refused afterwards
     srv = env.metrics.job_obs.server

@@ -149,19 +149,34 @@ def test_state_without_sentinel_uses_seen_bitmap():
 
 
 def test_general_rolling_path_not_ported():
-    # the general path runs with the exact float64 accumulator only: its
-    # 32-bit modes refuse by name (roadmap queue item 4)
+    """The general path under the 32-bit ``acc_dtype`` modes: they no
+    longer refuse. As in the JAX package, 32-bit storage covers only the
+    aggregated field of max/min/sum, so ``max_by`` keeps its exact state
+    and gives the JAX package's rows, equal to the float64 run's."""
+    import tpustream
+    import tpustream.jobs.chapter2_max as jax_ch2
+    import tpustream.runtime.sources as jax_sources
     import tpustream_torch
-    from tpustream_torch.jobs.chapter2_max import parse
-    from tpustream_torch.runtime.sources import ReplaySource
+    import tpustream_torch.jobs.chapter2_max as torch_ch2
+    import tpustream_torch.runtime.sources as torch_sources
 
+    lines = [f"{i} h{i % 3} cpu{i % 2} {(i * 37) % 100 + 0.125}"
+             for i in range(12)]
+
+    def run(pkg, job, sources, **cfg):
+        env = pkg.StreamExecutionEnvironment(pkg.StreamConfig(
+            batch_size=4, **cfg))
+        h = (env.add_source(sources.ReplaySource(lines)).map(job.parse)
+             .key_by(0).max_by(2).collect())
+        env.execute("k")
+        return [repr(t) for t in h.items]
+
+    exact = run(tpustream_torch, torch_ch2, torch_sources, device="cpu")
     for acc in ("int32", "float32"):
-        env = tpustream_torch.StreamExecutionEnvironment(
-            tpustream_torch.StreamConfig(device="cpu", acc_dtype=acc))
-        (env.add_source(ReplaySource(["1 h1 cpu0 5.0"])).map(parse).key_by(0)
-         .max_by(2).collect())
-        with pytest.raises(NotImplementedError, match="queue item 4"):
-            env.execute("k")
+        got = run(tpustream_torch, torch_ch2, torch_sources, device="cpu",
+                  acc_dtype=acc)
+        want = run(tpustream, jax_ch2, jax_sources, acc_dtype=acc)
+        assert got == want == exact
 
 
 # -- the general path (max_by, min_by, a user reduce) ----------------------

@@ -221,7 +221,9 @@ class StreamConfig:
 
     # -- numerics -----------------------------------------------------------
     # float64 reproduces the reference's Java-double golden outputs exactly
-    # (chapter2/README.md:162). TPU benchmark configs use float32/int32.
+    # (chapter2/README.md:162). acc_dtype "int32"/"float32" store the
+    # leaves a combiner sums, takes the min or the max of in 32 bits
+    # (an int64 wraps, a float64 rounds), as the reference does.
     value_dtype: str = "float64"
     acc_dtype: str = "float64"
     ts_dtype: str = "int64"
@@ -421,12 +423,10 @@ class StreamConfig:
 
     # -- pre-flight analysis (tpustream/analysis) ---------------------------
     strict_analysis: bool = False
-    # True: execute() runs the static plan analyzer BEFORE planning or
-    # compiling anything, and any ERROR finding raises PlanAnalysisError
-    # (the job never traces). False (default): analysis still runs when
-    # obs is enabled — findings become flight breadcrumbs and
-    # analysis_findings_total{code=...} counters — but never blocks.
-    # docs/analysis.md catalogs the TSM0xx rules.
+    # In the reference, True runs the static plan analyzer before planning
+    # and any ERROR finding raises PlanAnalysisError. The analyzer is not
+    # ported (ROADMAP item 13b): here True makes execute() raise
+    # NotImplementedError, and False (default) runs no analysis.
 
     # -- observability ------------------------------------------------------
     obs: ObsConfig = field(default_factory=ObsConfig)

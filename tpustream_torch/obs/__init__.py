@@ -2,7 +2,7 @@
 and snapshot/exposition (Prometheus text + JSON).
 
 Counterpart of tpustream/obs for the PyTorch port: the host-side modules
-are the port's own copies, and two are ported. The reference tutorial
+are the port's own copies. The reference tutorial
 has no observability beyond the print sink; a production Flink-class
 runtime ships per-operator metric groups, watermark-lag and
 backpressure gauges, and a reporter surface (Flink's ``MetricGroup`` /
@@ -34,6 +34,15 @@ Prometheus reporter). This package provides:
 * :mod:`tpustream_torch.obs.compilation` — the build registry: every
   device-program build and every state reshape (key-capacity growth,
   tenant-capacity growth) counted with its cause.
+* :mod:`tpustream_torch.obs.memory` — state-memory accounting: the
+  state's device bytes (``hbm_state_bytes``, the reference's name), its
+  bytes by component, key-table capacity/occupancy/load factor, and the
+  key-cardinality and hot-key-skew gauges.
+* :mod:`tpustream_torch.obs.ledger` — the conservation ledger: per-edge
+  record accounting (source, chain hand-offs, sink and side-output
+  fan-out, retained contents) with latched violations behind a CRIT
+  health rule, and per-sink digest anchors that checkpoints carry and
+  restores verify.
 * :mod:`tpustream_torch.obs.resources` — the resource plane: a
   ``/proc`` sampler and the ``EnvFingerprint`` (usable cores, NUMA
   nodes, the job's device, a hostname hash).
@@ -43,8 +52,7 @@ Prometheus reporter). This package provides:
 * :mod:`tpustream_torch.obs.slo` — per-tenant SLOs compiled into health
   rules.
 
-Not ported yet: device-memory accounting (``obs/memory.py``), the
-``dump`` CLI and the conservation ledger.
+Not ported yet: the ``dump`` CLI (ROADMAP item 13d).
 
 Design stance: instruments update **per batch/step only** — never per
 record — and every hot-path hook has a null twin
@@ -94,6 +102,7 @@ from .runtime import (  # noqa: F401
     OperatorObs,
 )
 from .compilation import CompileObs  # noqa: F401
+from .memory import StateMemoryTracker, leaf_nbytes  # noqa: F401
 from .serve import MetricsServer  # noqa: F401
 from .slo import (  # noqa: F401
     OTHER_TENANT,

@@ -36,6 +36,14 @@ keeps ONE native int64 plane where the reference keeps two int32 words,
 so the kernel folds it in place (:func:`plane_layout`);
 :func:`state_from_jax_numpy` converts. The general path's state is the
 reference's layout as it is.
+
+``compact32`` (``StreamConfig.acc_dtype`` ``"int32"``/``"float32"``) stores
+the aggregated leaf in ONE 32-bit plane, exactly as the reference does
+(a float64 field rounds to float32, an int64 field wraps to int32, a
+never-seen key holds 0). Each step widens that plane to float64 or
+int64 (never-seen keys at the identity), runs the same kernel on the
+wide plane, so the stored value and the batch's prefix combine in 64
+bits as in the reference, and stores the plane back in 32 bits.
 """
 
 from __future__ import annotations
@@ -76,13 +84,23 @@ def _check_kind(kinds: Sequence[str], kind: str, pos: int) -> None:
         )
 
 
-def plane_layout(kinds: Sequence[str], kind: str, pos: Optional[int]):
+def _compact_leaves(kinds: Sequence[str], pos: Optional[int],
+                    compact32: bool) -> List[bool]:
+    """The per-leaf 32-bit flags: only the aggregated leaf, and only when
+    ``compact32``."""
+    return [compact32 and i == pos for i in range(len(kinds))]
+
+
+def plane_layout(kinds: Sequence[str], kind: str, pos: Optional[int],
+                 compact32: bool = False):
     """``(plane dtypes, per-leaf plane slices)`` of a rolling state: the
     reference's word planes (ops/wordplanes.py), except that the kernel
     path's int64 aggregated leaf keeps one native int64 plane in place
-    of its two int32 words."""
-    dtypes, slices = plane_dtypes(kinds), leaf_plane_slices(kinds)
-    if not (kind in COMMUTATIVE and kinds[pos] == I64):
+    of its two int32 words. With ``compact32`` the aggregated leaf is
+    one 32-bit plane, the reference's layout as it is."""
+    c32 = _compact_leaves(kinds, pos, compact32)
+    dtypes, slices = plane_dtypes(kinds, c32), leaf_plane_slices(kinds, c32)
+    if compact32 or not (kind in COMMUTATIVE and kinds[pos] == I64):
         return dtypes, slices
     agg = slices[pos]
     dtypes = dtypes[:agg.start] + [torch.int64] + dtypes[agg.stop:]
@@ -139,14 +157,15 @@ def init_rolling_state(
     pos: int,
     sentinel_leaf: Optional[int] = None,
     device: torch.device = torch.device("cpu"),
+    compact32: bool = False,
 ) -> dict:
     """Fresh state for ``key_capacity`` keys. A commutative ``kind`` of
     a float64 or int64 leaf (the kernel path) starts the aggregated
-    leaf's plane at its identity and a ``sentinel_leaf`` (a keep-first
-    STR leaf whose plane doubles as the occupancy test; interned ids are
-    >= 0) at -1; every other plane, and every plane of the general path,
-    starts at 0."""
-    dtypes, slices = plane_layout(kinds, kind, pos)
+    leaf's plane at its identity (at 0 when ``compact32`` stores it in 32
+    bits) and a ``sentinel_leaf`` (a keep-first STR leaf whose plane
+    doubles as the occupancy test; interned ids are >= 0) at -1; every
+    other plane, and every plane of the general path, starts at 0."""
+    dtypes, slices = plane_layout(kinds, kind, pos, compact32)
     planes = [
         torch.zeros((key_capacity,), dtype=dt, device=device)
         for dt in dtypes
@@ -156,8 +175,9 @@ def init_rolling_state(
             "seen": torch.zeros((key_capacity,), dtype=torch.bool, device=device),
             "planes": planes,
         }
-    agg = planes[slices[pos].start]
-    agg.fill_(IDENTITY[agg.dtype][kind])
+    if not compact32:
+        agg = planes[slices[pos].start]
+        agg.fill_(IDENTITY[agg.dtype][kind])
     if sentinel_leaf is not None:
         if kinds[sentinel_leaf] != STR:
             raise ValueError(
@@ -178,12 +198,14 @@ def grow_rolling_state(
     kind: str,
     pos: int,
     sentinel_leaf: Optional[int] = None,
+    compact32: bool = False,
 ) -> dict:
     """The same state at a larger ``key_capacity``: interned key ids are
     stable, so every old row is copied to the head of its new plane and
     the new rows start fresh."""
     device = state["seen"].device
-    new = init_rolling_state(key_capacity, kinds, kind, pos, sentinel_leaf, device)
+    new = init_rolling_state(key_capacity, kinds, kind, pos, sentinel_leaf,
+                             device, compact32)
     k = state["seen"].shape[0]
     new["seen"][:k] = state["seen"]
     for dst, src in zip(new["planes"], state["planes"]):
@@ -198,6 +220,7 @@ def state_from_jax_numpy(
     rolling_pos: int,
     sentinel_leaf: Optional[int],
     device: torch.device,
+    compact32: bool = False,
 ) -> dict:
     """Turn the reference package's rolling state (``{"seen": bool[K],
     "planes": [...]}`` as numpy arrays, tpustream/ops/rolling.py
@@ -213,9 +236,11 @@ def state_from_jax_numpy(
     become one int64 plane. With a ``sentinel_leaf`` the reference never
     updates ``seen`` (the sentinel plane is the occupancy test), so
     occupancy is read from that plane (``>= 0``) and ``seen`` is rebuilt
-    from it.
+    from it. With ``compact32`` the aggregated leaf's 32-bit plane is the
+    reference's as it is.
     """
-    slices = leaf_plane_slices(kinds)
+    slices = leaf_plane_slices(kinds, _compact_leaves(kinds, rolling_pos,
+                                                      compact32))
     planes = [np.array(p) for p in state_np["planes"]]
     if not kernel_path(kinds, kind, rolling_pos):
         seen = np.array(state_np["seen"], dtype=bool)
@@ -223,7 +248,7 @@ def state_from_jax_numpy(
         seen = planes[slices[sentinel_leaf].start] >= 0
     else:
         seen = np.array(state_np["seen"], dtype=bool)
-    if kernel_path(kinds, kind, rolling_pos):
+    if kernel_path(kinds, kind, rolling_pos) and not compact32:
         words = slices[rolling_pos]
         if kinds[rolling_pos] == I64:
             lo, hi = planes[words.start], planes[words.start + 1]
@@ -250,6 +275,7 @@ def rolling_step(
     key_emit: Optional[Callable] = None,
     sentinel_leaf: Optional[int] = None,
     bad_keys: Optional[torch.Tensor] = None,
+    compact32: bool = False,
 ) -> Tuple[dict, Tuple[torch.Tensor, ...]]:
     """One batch through a rolling max/min/sum of leaf ``rolling_pos``.
 
@@ -266,12 +292,13 @@ def rolling_step(
     number of valid rows whose key is ``>= K`` (see
     :func:`seq_rolling.seq_rolling_reduce`; required on CUDA). A step
     that counts any has void emissions and state: the caller must fail
-    it.
+    it. ``compact32``: the aggregated leaf's plane is 32-bit (see the
+    module's note).
     """
     kind, pos = rolling_kind, rolling_pos
     _check_kind(kinds, kind, pos)
     planes = state["planes"]
-    slices = plane_layout(kinds, kind, pos)[1]
+    slices = plane_layout(kinds, kind, pos, compact32)[1]
     if key_col is not None and (key_emit is None or key_col == pos):
         key_col = None  # aggregating the keyed column: not key-invariant
     if sentinel_leaf is not None and (
@@ -297,7 +324,16 @@ def rolling_step(
 
     # the aggregated column: one kernel launch folds the batch into its
     # plane in arrival order and returns every row's running aggregate
-    agg_plane = planes[slices[pos].start]
+    agg_plane = stored_plane = planes[slices[pos].start]
+    if compact32:
+        # the 32-bit words widened to 64 bits, never-seen keys at the
+        # identity: the kernel combines stored value and prefix in 64
+        # bits, as the reference does
+        wide = TORCH_DTYPES[kinds[pos]]
+        occupied = (planes[slices[sentinel_leaf].start] >= 0
+                    if sentinel_leaf is not None else state["seen"])
+        agg_plane = torch.where(occupied, stored_plane.to(wide),
+                                IDENTITY[wide][kind])
     emis_agg = seq_rolling_reduce(
         agg_plane, kid, cols[pos].to(agg_plane.dtype).contiguous(), kind,
         bad_keys=bad_keys,
@@ -325,6 +361,12 @@ def rolling_step(
                 p[new_keys] = w[is_first_new]
         if sentinel_leaf is None:
             state["seen"][new_keys] = True
+    if compact32:
+        # back to 32 bits (float64 rounds, int64 wraps); a key still
+        # never seen keeps 0, the reference's value
+        occupied = (planes[slices[sentinel_leaf].start] >= 0
+                    if sentinel_leaf is not None else state["seen"])
+        stored_plane.copy_(torch.where(occupied, agg_plane, 0))
 
     emis = []
     kj = 0

@@ -10,11 +10,10 @@ layout lets state move between the two packages plane by plane
 ``runtime/window_program.py::state_from_jax_numpy``).
 
 ``compact32`` is the lossy 32-bit accumulator mode
-(``StreamConfig.acc_dtype`` ``"int32"``): a 64-bit leaf keeps ONE
-32-bit plane (int64 wraps mod 2^32, float64 rounds to float32). A
-per-leaf sequence restricts it to the leaves a combiner aggregates. The
-window program takes it; the rolling program accepts only the exact
-float64 accumulator.
+(``StreamConfig.acc_dtype`` ``"int32"`` or ``"float32"``): a 64-bit leaf
+keeps ONE 32-bit plane (int64 wraps mod 2^32, float64 rounds to
+float32). A per-leaf sequence restricts it to the leaves a combiner
+aggregates (the window programs' and the rolling program's layouts).
 """
 
 from __future__ import annotations

@@ -78,6 +78,11 @@ class CepProgram(BaseProgram):
         self.key_pos = plan.key_pos
         self.L = cp.length
         self.R = cp.length - 1
+        self.STATE_COMPONENT_KEYS = {
+            "nfa_registers": ("occ", "start_ts"),
+            "nfa_captures": tuple(f"cap{i}"
+                                  for i in range(len(self.mid_kinds))),
+        }
         self.within_ms = cp.within_ms
         # only within() gives clock ticks (the end-of-stream flush)
         # anything to emit

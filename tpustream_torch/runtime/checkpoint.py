@@ -212,11 +212,12 @@ class Checkpoint:
     # tests assert against it. Optional key — older snapshots load as
     # None, no format bump.
     ingest: Optional[dict] = None
-    # conservation ledger: per-sink output anchors at snapshot time,
-    # written by the reference's ledger. This package has no ledger
-    # (ROADMAP item 13): it writes None and its restore ignores the
-    # anchors, as the reference's replay does (output bytes are
-    # governed by sink_counts truncation).
+    # conservation ledger (obs/ledger.py): per-sink output anchors
+    # {sink: {count, digest, verifiable}} at snapshot time, None when
+    # the ledger is off. A supervised restore re-derives and verifies
+    # them over the truncated sinks; replay never consumes them (output
+    # bytes are governed by sink_counts truncation). Optional key, no
+    # format bump.
     ledger: Optional[dict] = None
 
     def _check_parallelism(self) -> None:
@@ -352,9 +353,8 @@ def capture_checkpoint(
     """The cheap barrier-side half of a snapshot: ``state`` is already
     in the reference layout on the host (each stage's
     ``state_to_jax_numpy``); this freezes its leaves and the meta dict.
-    ``ledger`` stays None in this package: the conservation ledger is
-    not ported (ROADMAP item 13), and the reference writes None when
-    its ledger is off."""
+    ``ledger``: the conservation ledger's per-sink anchors at the
+    barrier (None when the ledger is off)."""
     leaves = _leaves(state)
     meta = {
         "version": FORMAT_VERSION,
@@ -892,7 +892,7 @@ def latest_checkpoint(directory: str, flight=None, audit=None) -> Optional[str]:
     AFTER basic validation passes, returning a reason string when the
     snapshot cannot restore into the current job graph; None lets the
     snapshot through. (The reference's state-layout auditor is ROADMAP
-    item 13; the supervisor here passes None.)"""
+    item 13b; the supervisor here passes None.)"""
     if not os.path.isdir(directory):
         return None
     candidates: List[str] = []

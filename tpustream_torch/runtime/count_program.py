@@ -58,6 +58,8 @@ class CountWindowProgram(WindowProgram):
     machinery."""
 
     operator_name = "count_window"
+    # no pane ring: count state is per-key accumulators + open counts
+    STATE_COMPONENT_KEYS = {"count_acc": ("acc", "cnt")}
 
     fires_on_clock = False
     main_emission_prefix = False  # a mask selects the rows
@@ -66,12 +68,9 @@ class CountWindowProgram(WindowProgram):
         BaseProgram.__init__(self, plan, cfg)
         st = plan.stateful
         self.key_pos = plan.key_pos
+        # acc_dtype does not apply: the reference's count programs keep
+        # every accumulator leaf at its kind's dtype under any acc_dtype
         self.apply_kind = st.apply_kind
-        if self.apply_kind != "process" and str(cfg.acc_dtype) not in ("float64", "int32"):
-            raise NotImplementedError(
-                f"acc_dtype={cfg.acc_dtype!r} is not ported to the PyTorch "
-                f"runtime: use 'float64' or 'int32'"
-            )
         self.count_n = int(st.window.count)
         if self.count_n < 1:
             raise ValueError(f"count_window size must be >= 1, got {st.window.count}")
@@ -242,6 +241,8 @@ def _grow_rows(program, state, key_capacity: int, keyed) -> dict:
 
 class _ElementLogMixin:
     _ROW_KEYS = ("ebuf", "tot")
+    # the circular element log dominates these variants' footprint
+    STATE_COMPONENT_KEYS = {"element_log": ("ebuf", "tot")}
     """The count-window variants that need the last ``size`` elements
     per key (sliding reduce/aggregate, and process): a per-key circular
     element log ``[K + 1, size]`` plus a per-key total element count,

@@ -55,7 +55,12 @@ build and state reshape (key growth, tenant-capacity growth) lands in
 the build registry (``obs/compilation.py``) with its cause; latency
 markers stamped at the source ride the steps to each operator edge and
 sink; snapshots tick from the batch loop; a fleet (``tenancy/``)
-attaches its per-tenant series and SLOs to the root.
+attaches its per-tenant series and SLOs to the root. Each runner counts
+its state's device bytes and its key skew (``obs/memory.py``), and the
+conservation ledger (``obs/ledger.py``, on with obs unless
+``ObsConfig.ledger`` is False) accounts every source, chain, sink and
+side-output edge, anchors each snapshot's sinks by digest and verifies
+the anchors after a supervised restore and in each restore drill.
 
 The pipeline (``Runner``; the reference's executor.py:979-2230):
 each step's rows are packed into a narrow wire format on the host
@@ -136,7 +141,14 @@ from ..obs.compilation import (
 from ..obs.registry import TwinCounter
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
-from .sinks import CollectSink, EmissionFormatter, FnSink, PrintSink, RetryingSink
+from .sinks import (
+    CollectSink,
+    EmissionFormatter,
+    FnSink,
+    LedgerSink,
+    PrintSink,
+    RetryingSink,
+)
 from .step import RULE_VERSION_KEY, RULES_KEY, build_program, resolve_device
 
 
@@ -151,6 +163,12 @@ class HostStage:
         self._raw_eval: Optional[PlanEvaluator] = None  # [ts?] + outputs
         self._raw_eval_built = False
         self._raw_has_ts = False
+        # conservation-ledger source terms (obs/ledger.py): when the
+        # executor arms this dict, process() commits its filter drops and
+        # flat_map fan counts here on success (an aborted parse commits
+        # nothing, so a quarantine re-parse cannot count twice);
+        # account_source drains it a batch. None: the ledger is off.
+        self.ledger_counts: Optional[Dict[str, int]] = None
         if plan.ts_expr is not None:
             self._ts_eval = PlanEvaluator([plan.ts_expr], [None])
 
@@ -249,6 +267,13 @@ class HostStage:
                 wm = w.timestamp if wm is None else max(wm, w.timestamp)
         return wm
 
+    def _ledger_commit(self, dropped: int, fm_in: int, fm_out: int) -> None:
+        c = self.ledger_counts
+        if c is not None:
+            c["dropped"] += dropped
+            c["fm_in"] += fm_in
+            c["fm_out"] += fm_out
+
     def process(self, lines: List[str], proc_ts: np.ndarray):
         """``(Batch, wm_hint)``: the parsed Batch (None for empty input)
         and the batch's punctuated watermark, if any."""
@@ -257,21 +282,27 @@ class HostStage:
             return None, None
         ts = self._timestamps(lines)
         wm_hint = self._punctuated_wm(lines, ts) if ts is not None else None
+        # ledger source-edge deltas, committed only on a successful
+        # return
+        l_dropped = l_fm_in = l_fm_out = 0
         cols: Optional[List[np.ndarray]] = None
         for i, hop in enumerate(plan.host_ops):
             if hop.op == "filter":
                 fn = as_callable(hop.fn, "filter")
                 keep = [bool(fn(l)) for l in lines]
                 lines = [l for l, k in zip(lines, keep) if k]
+                l_dropped += len(keep) - len(lines)
                 sel = np.asarray(keep, dtype=bool)
                 proc_ts = proc_ts[sel]
                 if ts is not None:
                     ts = ts[sel]
                 if not lines:
+                    self._ledger_commit(l_dropped, l_fm_in, l_fm_out)
                     return None, wm_hint
                 continue
             if hop.op == "flat_map":
                 fn = as_callable(hop.fn, "flat_map")
+                l_fm_in += len(lines)
                 new_lines, new_proc, new_ts = [], [], []
                 for j, l in enumerate(lines):
                     outs = list(fn(l))
@@ -280,9 +311,11 @@ class HostStage:
                     if ts is not None:
                         new_ts.extend([ts[j]] * len(outs))
                 lines = new_lines
+                l_fm_out += len(lines)
                 proc_ts = np.asarray(new_proc, dtype=np.int64)
                 ts = np.asarray(new_ts, dtype=np.int64) if ts is not None else None
                 if not lines:
+                    self._ledger_commit(l_dropped, l_fm_in, l_fm_out)
                     return None, wm_hint
                 continue
             # map: symbolic fast path or per-record fallback
@@ -319,6 +352,7 @@ class HostStage:
             Column(k, c, t)
             for k, c, t in zip(plan.record_kinds, cols, plan.tables)
         ]
+        self._ledger_commit(l_dropped, l_fm_in, l_fm_out)
         return Batch(len(lines), columns, ts=ts, proc_ts=proc_ts), wm_hint
 
 
@@ -452,6 +486,22 @@ def _make_sinks(plan: JobPlan, cfg: StreamConfig):
         for so in plan.side_outputs
     }
     return main, side
+
+
+def _ledger_contents(sink):
+    """``(contents_fn, persistent)`` for a sink's conservation-ledger
+    account (obs/ledger.py): ``contents_fn`` exposes the retained row
+    list a digest can be re-derived from; ``persistent`` marks contents
+    that outlive a restart attempt (a collect handle, owned by the env),
+    the only ones verified against restored checkpoint anchors (a
+    PrintSink's line buffer is rebuilt empty each attempt)."""
+    if isinstance(sink, RetryingSink):
+        sink = sink.inner
+    if isinstance(sink, CollectSink):
+        return (lambda s=sink: s.handle.items), True
+    if isinstance(sink, PrintSink):
+        return (lambda s=sink: s.lines), False
+    return None, False
 
 
 def _fault_hook(cfg: StreamConfig):
@@ -743,6 +793,40 @@ class Runner:
             for i in range(len(self.sinks))
         ]
         self._tenant_e2e: Dict[str, object] = {}
+        # state-memory accounting and key-skew gauges (obs/memory.py)
+        self._state_mem = None
+        if self.obs.enabled:
+            from ..obs.memory import StateMemoryTracker
+
+            self._state_mem = StateMemoryTracker(self)
+        # conservation ledger (obs/ledger.py): every sink gets a digest
+        # account and an emit-edge invariant (in == emitted + filtered),
+        # and chained hand-offs count handed and received rows. The wrap
+        # comes AFTER the obs wiring above, so its RetryingSink checks
+        # saw the raw sink; LedgerSink folds a row only after every
+        # retry resolved.
+        self._ledger = getattr(metrics.job_obs, "ledger", None)
+        self._ledger_handed = 0    # rows appended to the chain hand-off
+        self._ledger_received = 0  # rows fed to THIS runner by upstream
+        self._ledger_edges: Optional[list] = None
+        self._ledger_side: Optional[dict] = None
+        if self._ledger is not None:
+            led = self._ledger
+            edges = []
+            for i, (ops, sink) in enumerate(self.sinks):
+                contents_fn, persistent = _ledger_contents(sink)
+                acct = led.register_sink(f"sink{i}", contents_fn, persistent)
+                self.sinks[i] = (ops, LedgerSink(sink, acct))
+                edges.append(led.emit_edge(acct.name))
+            self._ledger_edges = edges
+            side = {}
+            for tag in list(self.side_sinks):
+                ops, sink = self.side_sinks[tag]
+                contents_fn, persistent = _ledger_contents(sink)
+                acct = led.register_sink(f"side:{tag}", contents_fn, persistent)
+                self.side_sinks[tag] = (ops, LedgerSink(sink, acct))
+                side[tag] = led.emit_edge(acct.name)
+            self._ledger_side = side
         # a host-evaluated window's post map/filter tail
         self.post_ops = _bind_ops(plan.device_post)
         self.formatter = EmissionFormatter(
@@ -787,6 +871,25 @@ class Runner:
     def chain_to(self, downstream: "Runner") -> None:
         self.downstream = downstream
         downstream.count_input = False
+        if self._ledger is not None:
+            # conservation on the hand-off: rows this runner handed ==
+            # rows the downstream received + rows still parked in the
+            # hand-off buffers (closures: the evaluator reads them live)
+            self._ledger.register_chain_edge(
+                "chain:" + (downstream.obs.name
+                            or downstream.program.operator_name),
+                lambda u=self, d=downstream: (
+                    u._ledger_handed, d._ledger_received,
+                    u._ledger_buffered()),
+            )
+
+    def _ledger_buffered(self) -> int:
+        """Rows handed to the chain but not yet pumped downstream: the
+        buffered term of the chain conservation edge."""
+        n = len(self._chain_rows)
+        for cols, _ in self._chain_buf:
+            n += len(cols[0]) if len(cols) else 0
+        return n
 
     def chain(self) -> List["Runner"]:
         out, r = [], self
@@ -923,6 +1026,10 @@ class Runner:
             wl = (LONG_MIN + 1 if self._downstream_is_event_time(d)
                   else proc_now - 1)
             d.feed(batch, wl)
+            if self._ledger is not None:
+                # the downstream side of the chain edge, counted here so
+                # that feed() stays ledger-free for source-fed runners
+                d._ledger_received += n
             d._last_tick = proc_now
             fed = True
         if (not fed and d._last_tick != proc_now
@@ -1122,6 +1229,8 @@ class Runner:
         if t_batch is None:
             t_batch = time.perf_counter()
         self._check_capacity()
+        if self._state_mem is not None:
+            self._state_mem.observe_batch(batch)
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
@@ -1742,6 +1851,7 @@ class Runner:
                         wend = main.get("window_end")
                         ts_rows = wend - 1 if wend is not None else main["ts"]
                     self._chain_buf.append((out, ts_rows))
+                    self._ledger_handed += len(out[0])
                 else:
                     subtask = main.get("subtask")
                     if subtask is None and main.get("key") is not None:
@@ -1820,10 +1930,11 @@ class Runner:
             self.obs.counter("window_fires").inc(fired)
 
     def _late_sinks(self) -> list:
-        """The late-data side outputs: every side sink but the CEP
-        timeout tag's, which receives only the timeout stream."""
+        """The late-data side outputs, ``(tag id, (ops, sink))`` each:
+        every side sink but the CEP timeout tag's, which receives only
+        the timeout stream."""
         tt = getattr(self.program, "timeout_tag", None)
-        return [entry for tag_id, entry in self.side_sinks.items()
+        return [(tag_id, entry) for tag_id, entry in self.side_sinks.items()
                 if tt is None or tag_id != tt.id]
 
     def _timeout_sink(self):
@@ -1832,15 +1943,31 @@ class Runner:
         tt = getattr(self.program, "timeout_tag", None)
         return self.side_sinks.get(tt.id) if tt is not None else None
 
+    def _side_edge(self, tag_id):
+        """The ledger's emit edge of one side output (None: ledger off)."""
+        return (self._ledger_side.get(tag_id)
+                if self._ledger_side is not None else None)
+
+    @staticmethod
+    def _emit_side(ops, sink, rows, edge) -> None:
+        """One side output's rows through its host-side ops to its sink,
+        accounting the emit edge (in == emitted + filtered)."""
+        for row in rows:
+            item, keep = _apply_ops(ops, row)
+            if keep:
+                sink.emit(item)
+            elif edge is not None:
+                edge["filtered"] += 1
+            if edge is not None:
+                edge["in"] += 1
+
     def _dispatch_late(self, cols) -> None:
         """Rows late past the allowed lateness, to every late-data side
         output (after its host-side ops). (The device counts drops
         itself, in ``late_dropped``, for jobs with no side output.)"""
-        for ops, sink in self._late_sinks():
-            for row in self.late_formatter.rows(cols):
-                item, keep = _apply_ops(ops, row)
-                if keep:
-                    sink.emit(item)
+        for tag_id, (ops, sink) in self._late_sinks():
+            self._emit_side(ops, sink, self.late_formatter.rows(cols),
+                            self._side_edge(tag_id))
 
     def _dispatch_timeout(self, cols) -> None:
         """CEP partial matches whose ``within`` expired, to the pattern's
@@ -1848,10 +1975,8 @@ class Runner:
         ops, sink = self._timeout_sink()
         fmt = EmissionFormatter(self.program.timeout_kinds,
                                 self.program.timeout_tables)
-        for row in fmt.rows(cols):
-            item, keep = _apply_ops(ops, row)
-            if keep:
-                sink.emit(item)
+        self._emit_side(ops, sink, fmt.rows(cols),
+                        self._side_edge(self.program.timeout_tag.id))
 
     def _emit_row(self, row, subtask: Optional[int], ts=None, order=None) -> None:
         """Fan one emitted record out to every branch: the branch's
@@ -1860,11 +1985,25 @@ class Runner:
         in the evaluation order, for the downstream runner."""
         if self._chained:
             self._chain_rows.append((row, ts, order))
+            self._ledger_handed += 1
             return
-        for ops, sink in self.sinks:
+        if self._ledger_edges is None:
+            for ops, sink in self.sinks:
+                item, keep = _apply_ops(ops, row)
+                if keep:
+                    sink.emit(item, subtask=subtask)
+            return
+        # ledger on: account each branch's fan-out (in == emitted +
+        # filtered); "in" counts after the emit resolved, so a sink that
+        # raises (the attempt is abandoned and replayed) latches no false
+        # violation
+        for (ops, sink), edge in zip(self.sinks, self._ledger_edges):
             item, keep = _apply_ops(ops, row)
             if keep:
                 sink.emit(item, subtask=subtask)
+            else:
+                edge["filtered"] += 1
+            edge["in"] += 1
 
     def finalize_metrics(self) -> None:
         """Fold the device-side counters into Metrics (one read a job;
@@ -2027,7 +2166,7 @@ def _skip_lines(sb, n: int):
 
 
 def _restore(env, path, plans, cfg, metrics, job_obs, sink_nodes,
-             supervision, dead_letters):
+             supervision, dead_letters, ledger=None):
     """``(runner, checkpoint)``: the runner chain rebuilt from the
     snapshot at ``path``, in the reference's order. The intern tables,
     the host RuleSet and the fleet's tenant table come back before the
@@ -2038,7 +2177,9 @@ def _restore(env, path, plans, cfg, metrics, job_obs, sink_nodes,
     larger configured one; a computed-key chain stage gets its key
     table back; the device counters become the baseline. Under
     supervision the collect sinks and dead letters roll back to the
-    snapshot, so the replayed suffix lands exactly once."""
+    snapshot, so the replayed suffix lands exactly once, and the
+    ``ledger`` (if on) verifies the rolled-back sinks against the
+    snapshot's digest anchors."""
     from .checkpoint import load_checkpoint
 
     plan = plans[0]
@@ -2092,6 +2233,13 @@ def _restore(env, path, plans, cfg, metrics, job_obs, sink_nodes,
             keep_dead = ck.quarantined if same_session else supervision.base_dead
             del dead_letters[keep_dead:]
             metrics.records_quarantined = len(dead_letters)
+        if ledger is not None:
+            # the truncated persistent sinks must now match the
+            # snapshot's anchors: re-derive each digest over the rolled-
+            # back contents and verify (same-session anchors only: an
+            # older session's describe another process's contents), then
+            # re-anchor every account
+            ledger.on_restore(ck.ledger, verify=same_session)
         # recovery accounting: batches the resumed run skips to reach
         # the snapshot, and wall time from the restart decision
         # (including its delay) to the state back on the device
@@ -2142,7 +2290,17 @@ def execute_job(env, sink_nodes) -> JobResult:
     runtime/supervisor.py: the strategy decides whether the job
     restarts, and a restart rebuilds the chain and resumes exactly-once
     from the latest valid checkpoint. Unset (the default), the first
-    failure propagates."""
+    failure propagates.
+
+    ``StreamConfig(strict_analysis=True)`` raises ``NotImplementedError``:
+    the reference's pre-flight plan analyzer (tpustream/analysis) is not
+    ported yet (ROADMAP item 13b). Obs alone does not refuse: there the
+    reference's analysis only mints counters and never blocks."""
+    if getattr(env.config, "strict_analysis", False):
+        raise NotImplementedError(
+            "StreamConfig(strict_analysis=True) is not ported to the "
+            "PyTorch runtime: the static plan analyzer is ROADMAP item 13b"
+        )
     if env.config.ingest_lanes > 1 and env.config.obs.enabled:
         # lane recovery keeps the job running with no restart: it
         # surfaces through a built-in WARN health rule, installed before
@@ -2155,6 +2313,15 @@ def execute_job(env, sink_nodes) -> JobResult:
         _install_lane_restart_health_rule(env)
         if getattr(env.config.obs, "resources", False):
             _install_lane_contention_health_rule(env)
+    # conservation ledger (obs/ledger.py): a latched invariant violation
+    # is a correctness event, so its built-in rule is CRIT; installed
+    # before the obs root reads the rules, supervised or not
+    from ..obs.ledger import ledger_effective
+
+    if ledger_effective(env.config.obs):
+        from .supervisor import _install_ledger_health_rule
+
+        _install_ledger_health_rule(env)
     # restore drills (runtime/checkpoint.py restore_drill): a failed
     # dry-restore of the nominal newest snapshot is a WARN, repeated
     # failures CRIT; installed before the obs root reads the rules
@@ -2348,6 +2515,34 @@ def _execute_job(env, sink_nodes) -> JobResult:
     dead_letters = getattr(env, "dead_letters", None)
     if dead_letters is None and cfg.dead_letter:
         dead_letters = env.dead_letters = []
+    # conservation ledger (obs/ledger.py): per-edge record accounting
+    # and per-sink digest anchors, one per attempt beside the obs root.
+    # Its refresh rides the snapshotter's pre-hooks, so the residual
+    # gauges are evaluated at the snapshot cadence (and once at close).
+    ledger = None
+    from ..obs.ledger import ledger_effective
+
+    if ledger_effective(cfg.obs):
+        from ..obs.ledger import ConservationLedger
+
+        ledger = ConservationLedger(
+            job_obs, digests=getattr(cfg.obs, "ledger_digests", True))
+        job_obs.ledger = ledger
+        job_obs.snapshotter.ledger = ledger
+        job_obs.snapshotter.pre_hooks.append(ledger.refresh)
+        if dead_letters is not None:
+            ledger.register_dead_letters(dead_letters)
+        if cfg.ingest_lanes > 1:
+            # lane workers parse in processes whose host-op counts this
+            # ledger cannot see: the source edge is informational; the
+            # sink, chain and contents edges stay exact
+            ledger.source_exact = False
+            ledger.source_note = (
+                "sharded ingestion: host-side terms are partial, "
+                "residual not evaluated")
+        else:
+            host.ledger_counts = {
+                "dropped": 0, "fm_in": 0, "fm_out": 0, "quarantined": 0}
     # the fault injector (testing/faults.py) outlives restart attempts,
     # so its occurrence counters keep counting across rebuilds
     fault = _fault_hook(cfg)
@@ -2387,7 +2582,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
     restore_path = getattr(env, "_checkpoint_restore_path", None)
     if restore_path:
         runner, ck = _restore(env, restore_path, plans, cfg, metrics, job_obs,
-                              sink_nodes, supervision, dead_letters)
+                              sink_nodes, supervision, dead_letters, ledger)
         skip_lines, proc_now = ck.source_pos, ck.proc_now
         env._runner = runner
     lines_consumed = skip_lines
@@ -2472,21 +2667,38 @@ def _execute_job(env, sink_nodes) -> JobResult:
         good_idx: List[int] = []
         bad = 0
         first_err = None
-        for i, line in enumerate(lines):
-            try:
-                host.process([line], sb.proc_ts[i:i + 1])
-            except Exception as line_err:
-                bad += 1
-                first_err = first_err if first_err is not None else line_err
-                if len(dead_letters) < cfg.dead_letter_capacity:
-                    dead_letters.append(
-                        (line, f"{type(line_err).__name__}: {line_err}"))
-            else:
-                good.append(line)
-                good_idx.append(i)
+        # the per-line probe parses commit no host-op ledger terms: the
+        # probe AND the final re-parse of the good lines would count
+        # every filter and flat_map twice
+        saved_counts, host.ledger_counts = host.ledger_counts, None
+        try:
+            for i, line in enumerate(lines):
+                try:
+                    host.process([line], sb.proc_ts[i:i + 1])
+                except Exception as line_err:
+                    bad += 1
+                    first_err = first_err if first_err is not None else line_err
+                    if len(dead_letters) < cfg.dead_letter_capacity:
+                        entry = (line,
+                                 f"{type(line_err).__name__}: {line_err}")
+                        if ledger is not None:
+                            # append and digest-fold together (this may
+                            # run on the parse-ahead thread)
+                            ledger.note_dead_letter(dead_letters, entry)
+                        else:
+                            dead_letters.append(entry)
+                else:
+                    good.append(line)
+                    good_idx.append(i)
+        finally:
+            host.ledger_counts = saved_counts
         if not bad:
             # every line parses alone: a batch-level error, not bad data
             raise err
+        if saved_counts is not None:
+            # every bad line leaves the stream here, counted even past
+            # dead_letter_capacity, like records_quarantined
+            saved_counts["quarantined"] += bad
         metrics.records_quarantined += bad
         job_obs.flight.record(
             "records_quarantined",
@@ -2520,6 +2732,14 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 if dead_letters is None or getattr(e, "fault_injection", False):
                     raise
                 batch, wm_hint = quarantine(sb, e)
+        if ledger is not None:
+            # ONE commit a batch (offered is after the resume trim): the
+            # parse-ahead thread owns these terms and the evaluator reads
+            # under the same lock, so it never sees a torn cut
+            ledger.account_source(
+                offered=sb.n_records,
+                admitted=batch.n if batch is not None else 0,
+                host=host.ledger_counts)
         return sb, batch, wm_hint, hw
 
     # -- checkpoints (runtime/checkpoint.py) --------------------------------
@@ -2614,6 +2834,9 @@ def _execute_job(env, sink_nodes) -> JobResult:
             tenancy=(env._tenancy.state_dict()
                      if getattr(env, "_tenancy", None) is not None else None),
             ingest=ingest_plane.cursor() if ingest_plane is not None else None,
+            # the ledger's per-sink (count, digest) anchors at this
+            # barrier: the drain above makes them exact
+            ledger=ledger.anchors() if ledger is not None else None,
         )
 
     def save_checkpoint_at_barrier() -> None:
@@ -2663,8 +2886,9 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 source_pos=lines_consumed, batches=metrics.batches)
 
     # restore drills: a time-gated dry restore of the nominal newest
-    # snapshot (format and chunk-chain walk), so that rot is a health
-    # transition before a crash needs the snapshot
+    # snapshot (format and chunk-chain walk, the ledger's anchors
+    # re-derived), so that rot is a health transition before a crash
+    # needs the snapshot
     drill_interval = cfg.restore_drill_interval_s
     drill_last = [time.monotonic()]
 
@@ -2676,7 +2900,10 @@ def _execute_job(env, sink_nodes) -> JobResult:
         from .checkpoint import restore_drill
 
         with Stopwatch() as dr_sw:
-            res = restore_drill(cfg.checkpoint_dir)
+            res = restore_drill(
+                cfg.checkpoint_dir,
+                verify_anchors=(ledger.verify_anchors
+                                if ledger is not None else None))
         if res["ok"] is None:
             return  # nothing to drill yet
         job_obs.histogram("restore_drill_ms").observe(dr_sw.elapsed * 1000.0)

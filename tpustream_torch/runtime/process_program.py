@@ -60,6 +60,10 @@ class ProcessWindowProgram(WindowProgram):
     before the next step."""
 
     operator_name = "process_window"
+    STATE_COMPONENT_KEYS = {
+        "process_buffers": ("buf", "cnt"),
+        "pane_ring": ("slot_pane",),
+    }
 
     host_evaluated = True
     # evaluate_fires reads the window buffers the step left

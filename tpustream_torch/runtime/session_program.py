@@ -203,6 +203,11 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
     post chain and compacted again into ``alert_capacity``."""
 
     operator_name = "session_window"
+    STATE_COMPONENT_KEYS = {
+        "session_cells": ("acc", "cnt", "cell_min", "cell_max",
+                          "cell_fired", "pending_mark", "pending_clear"),
+        "pane_ring": ("slot_pane",),
+    }
 
     accepted_kinds = ("session",)
 
@@ -619,6 +624,12 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
     fires before the next step)."""
 
     operator_name = "session_process"
+    STATE_COMPONENT_KEYS = {
+        "process_buffers": ("buf", "cnt"),
+        "pane_ring": ("slot_pane",),
+        "session_cells": ("cell_min", "cell_max", "cell_fired",
+                          "pending_mark", "pending_clear"),
+    }
 
     accepted_kinds = ("session",)
     _CELL_KEYS = ("cell_min", "cell_max", "cell_fired", "pending_mark",

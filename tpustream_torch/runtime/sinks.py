@@ -171,3 +171,37 @@ class RetryingSink:
                 delay_ms = min(self.base_ms * (2.0 ** attempt), self.max_ms)
                 if delay_ms > 0:
                     time.sleep(delay_ms / 1000.0)
+
+
+class LedgerSink:
+    """Conservation-ledger shim (obs/ledger.py): delegates ``emit`` and
+    folds each row that actually landed into the sink's ledger account.
+    Wraps OUTSIDE RetryingSink, so a row is folded exactly once, after
+    every retry resolved; a raising emit folds nothing, which is what
+    the emit-edge invariant needs.
+
+    For a sink with retained contents the fold reads the appended tail
+    element (PrintSink keeps the prefixed line, not the raw value), so
+    the rolling digest can be re-derived from the contents alone."""
+
+    def __init__(self, inner, acct):
+        self.inner = inner
+        self.acct = acct
+
+    @property
+    def obs_counter(self):
+        return self.inner.obs_counter
+
+    @obs_counter.setter
+    def obs_counter(self, counter) -> None:
+        self.inner.obs_counter = counter
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def emit(self, value, subtask: Optional[int] = None) -> None:
+        self.inner.emit(value, subtask=subtask)
+        if self.acct.contents_fn is not None:
+            self.acct.fold_tail()
+        else:
+            self.acct.fold_value(value)

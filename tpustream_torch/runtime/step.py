@@ -12,9 +12,8 @@ tumbling/sliding window ``reduce`` and ``aggregate``
 count windows (``count_program.CountWindowProgram``,
 ``SlidingCountWindowProgram``, ``CountProcessProgram``) and CEP
 (``cep_program.CepProgram``). ``parallelism > 1`` raises
-``NotImplementedError`` from :func:`build_program`, and so do
-``acc_dtype="float32"`` windows. A step takes ``(state, cols, valid, ts,
-wm_lower)``, as in the reference.
+``NotImplementedError`` from :func:`build_program`. A step takes
+``(state, cols, valid, ts, wm_lower)``, as in the reference.
 
 Dynamic rules (``tpustream_torch.broadcast``): every family's
 ``init_state`` attaches the job's rule tensors to its state
@@ -97,6 +96,16 @@ class BaseProgram:
     # host-side scalar clocks the obs layer exposes as state_<name>
     # gauges at the end of a job
     OBS_STATE_SCALARS = ("wm", "max_ts", "hi", "pending_fires")
+    # component name -> the state keys it holds, for the obs layer's
+    # per-component state bytes (obs/memory.py); keys absent from a
+    # family's state count nothing, other keys count as "scalars"
+    STATE_COMPONENT_KEYS: dict = {}
+
+    def state_components(self) -> dict:
+        """Flat ``state key -> component name`` map derived from
+        :data:`STATE_COMPONENT_KEYS`."""
+        return {k: comp for comp, keys in self.STATE_COMPONENT_KEYS.items()
+                for k in keys}
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         self.plan = plan
@@ -272,23 +281,21 @@ class RollingProgram(BaseProgram):
     (reference chapter2/.../ComputeCpuMax.java:26). max/min/sum of a
     float64 or int64 field take the kernel's path; max_by, min_by, a user
     reduce and max/min/sum of a string or boolean field take the general
-    path (:func:`rolling_ops.rolling_step_general`).
+    path (:func:`rolling_ops.rolling_step_general`). Under ``acc_dtype``
+    ``"int32"``/``"float32"`` the aggregated field of max/min/sum is
+    stored in 32 bits (the reference's ``_compact32``); pass-through
+    fields and every other combiner stay exact.
 
     ``emit_ts`` (set by ``_make_runner_chain`` when an event-time stage is
     downstream): the step's ``main`` stream also carries ``ts``, each
     row's input timestamp, which the rolling aggregate forwards."""
 
     operator_name = "rolling"
+    STATE_COMPONENT_KEYS = {"rolling_planes": ("seen", "planes")}
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         super().__init__(plan, cfg)
         st = plan.stateful
-        if str(cfg.acc_dtype) != "float64":
-            raise NotImplementedError(
-                f"rolling acc_dtype={cfg.acc_dtype!r} is not ported to the "
-                f"PyTorch runtime yet (roadmap queue item 4): only the exact "
-                f"float64 accumulator is"
-            )
         if st.kind == "rolling":
             self.kind, self.pos = st.rolling_kind, st.rolling_pos
         else:
@@ -299,6 +306,12 @@ class RollingProgram(BaseProgram):
         # the state layout's kind: the general path's for every combiner
         # the kernel does not fold
         self.layout_kind = self.kind if self.kernel_path else "general"
+        # the lossy 32-bit opt-in covers the aggregated field of max/min/
+        # sum only (the reference's RollingProgram._compact32); a string
+        # or boolean field is 32-bit anyway, so only the kernel's path
+        # changes layout
+        self.compact32 = bool(self.kernel_path and str(cfg.acc_dtype) in (
+            "int32", "float32"))
         if self.kind == "reduce":
             self.combine = record_combiner(
                 as_callable(st.rolling_fn, "reduce"), self.mid_kinds,
@@ -330,13 +343,13 @@ class RollingProgram(BaseProgram):
         return self._with_rules(rolling_ops.init_rolling_state(
             key_capacity or self.cfg.key_capacity, self.mid_kinds,
             self.layout_kind, self.pos, sentinel_leaf=self.sentinel_leaf,
-            device=self.device,
+            device=self.device, compact32=self.compact32,
         ))
 
     def grow_state(self, state: dict, key_capacity: int) -> dict:
         return self._with_rules(rolling_ops.grow_rolling_state(
             state, key_capacity, self.mid_kinds, self.layout_kind, self.pos,
-            sentinel_leaf=self.sentinel_leaf,
+            sentinel_leaf=self.sentinel_leaf, compact32=self.compact32,
         ))
 
     def state_to_jax_numpy(self, state: dict) -> dict:
@@ -344,25 +357,28 @@ class RollingProgram(BaseProgram):
         path a never-seen row's aggregate goes back to 0, an int64
         aggregate back to its two int32 words (low, high), and with a
         ``sentinel_leaf`` occupancy lives in the sentinel plane only
-        (``seen`` all False), as the reference keeps them."""
+        (``seen`` all False), as the reference keeps them. A 32-bit
+        aggregated plane is the reference's already."""
         planes, seen = list(state["planes"]), state["seen"]
         if self.kernel_path:
             kinds, pos = self.mid_kinds, self.pos
-            slices = rolling_ops.plane_layout(kinds, self.kind, pos)[1]
-            agg = low = high = planes[slices[pos].start]
+            slices = rolling_ops.plane_layout(kinds, self.kind, pos,
+                                              self.compact32)[1]
             sentinel = self.sentinel_leaf
+            if sentinel is not None:
+                seen = torch.zeros(seen.shape, dtype=torch.bool,
+                                   device=seen.device)
+        if self.kernel_path and not self.compact32:
+            agg = low = high = planes[slices[pos].start]
             # a leaf spec (the meta device) needs the layout only: an
             # arithmetic op there would load torch's Python meta kernels
             if agg.device.type != "meta":
                 occupied = (planes[slices[sentinel].start] >= 0
-                            if sentinel is not None else seen)
+                            if sentinel is not None else state["seen"])
                 agg = torch.where(occupied, agg, torch.zeros_like(agg))
                 if kinds[pos] == I64:
                     low = ((agg & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
                     high = agg >> 32
-            if sentinel is not None:
-                seen = torch.zeros(seen.shape, dtype=torch.bool,
-                                   device=seen.device)
             if kinds[pos] == I64:
                 planes[slices[pos]] = [low.to(torch.int32),
                                        high.to(torch.int32)]
@@ -377,7 +393,7 @@ class RollingProgram(BaseProgram):
         device."""
         state = rolling_ops.state_from_jax_numpy(
             state_np, self.mid_kinds, self.kind, self.pos,
-            self.sentinel_leaf, self.device)
+            self.sentinel_leaf, self.device, compact32=self.compact32)
         return self._rules_from_jax_numpy(state, state_np)
 
     def step(self, state: dict, cols, valid, ts=None, wm_lower=None) -> tuple:
@@ -399,7 +415,8 @@ class RollingProgram(BaseProgram):
             )
             return state, {"main": self._main(emitted, mask, keys, ts)}
         kwargs: Dict = {"sentinel_leaf": self.sentinel_leaf,
-                        "bad_keys": self.bad_keys}
+                        "bad_keys": self.bad_keys,
+                        "compact32": self.compact32}
         key_kind = None if self.plan.synthetic_key else self.mid_kinds[self.key_pos]
         if self.key_pos != self.pos and key_kind in (STR, I64):
             # key column is key-invariant: emit it straight from the key

@@ -31,7 +31,7 @@ fault that poisons the CUDA context (a sticky error) cannot be recovered
 this way; the faults this module handles are host-side.
 
 The reference's state-layout audit of each candidate snapshot
-(``_layout_audit``) needs its static analyzer, which is ROADMAP item 13:
+(``_layout_audit``) needs its static analyzer, which is ROADMAP item 13b:
 here ``latest_checkpoint`` runs with ``audit=None``, and a snapshot that
 cannot restore into the job graph fails its restore attempt instead.
 """
@@ -136,6 +136,7 @@ class RestartStrategies:
 RESTART_HEALTH_RULE_NAME = "job_restarted"
 LANE_RESTART_HEALTH_RULE_NAME = "ingest_lane_restarted"
 LANE_CONTENTION_HEALTH_RULE_NAME = "lane_core_contention"
+LEDGER_HEALTH_RULE_NAME = "ledger_conservation"
 DRILL_WARN_HEALTH_RULE_NAME = "restore_drill_failed"
 DRILL_CRIT_HEALTH_RULE_NAME = "restore_drill_failing"
 
@@ -238,6 +239,18 @@ def _install_lane_contention_health_rule(env) -> None:
     )
 
 
+def _install_ledger_health_rule(env) -> None:
+    """Built-in CRIT rule for the conservation ledger (obs/ledger.py):
+    trips on the first latched invariant violation (a record lost or
+    duplicated on an accounted edge, or a restored sink whose contents
+    no longer match its checkpoint digest anchor). CRIT: output
+    correctness is no longer proven, and /healthz answers 503."""
+    _install_builtin_health_rule(
+        env, LEDGER_HEALTH_RULE_NAME, "ledger_violations_total",
+        severity="crit",
+    )
+
+
 def _install_restore_drill_health_rules(env) -> None:
     """Built-in WARN→CRIT pair for restore drills (runtime/checkpoint.py
     restore_drill): WARN on the first failed drill — the snapshot a
@@ -326,7 +339,7 @@ def supervise(env, sink_nodes, run_attempt):
                 if env.config.checkpoint_dir:
                     from .checkpoint import latest_checkpoint
 
-                    # no layout audit: the analyzer is ROADMAP item 13
+                    # no layout audit: the analyzer is ROADMAP item 13b
                     ckpt = latest_checkpoint(
                         env.config.checkpoint_dir, flight=flight, audit=None
                     )

@@ -44,9 +44,15 @@ a scatter write to.
 (``session_program``) keep typed key-major cells and reuse the lift,
 combine and finalize here and the typed cell merge
 :meth:`WindowProgram._scatter_cells`; count windows (``count_program``)
-reuse the lift, combine and finalize only. Not ported
-(``NotImplementedError``): ``acc_dtype="float32"``, as a float
-scatter-add through atomics has no fixed order on the card.
+reuse the lift, combine and finalize only.
+
+Under ``acc_dtype`` ``"int32"`` or ``"float32"`` the leaves the
+combiner sums, takes the min or the max of are stored in 32 bits
+(``ops/wordplanes.py``), as the reference stores them. On the
+scatter-reduce path an integer add, a min and a max are exact in any
+order, and a float sum goes through ``ops/ordered_scatter.py``, which
+adds each cell's values in arrival order as the reference's CPU
+scatter does.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from ..api.timeapi import TimeCharacteristic
 from ..records import F64, STR
 from ..ops import liveness
 from ..ops import panes as pane_ops
+from ..ops.ordered_scatter import ordered_scatter_add
 from ..ops.panes import W0
 from ..ops.segments import (
     segment_ranks,
@@ -119,6 +126,7 @@ class _Emission:
 
 class WindowProgram(BaseProgram):
     operator_name = "window"
+    STATE_COMPONENT_KEYS = {"pane_ring": ("planes", "cnt", "slot_pane")}
     accepted_kinds = ("tumbling", "sliding")
     fires_on_clock = True
     main_emission_prefix = True  # append-compacted alert buffer
@@ -133,12 +141,6 @@ class WindowProgram(BaseProgram):
                 f"windows, not {spec.kind} windows"
             )
         self.apply_kind = st.apply_kind
-        if self.apply_kind != "process" and str(cfg.acc_dtype) not in ("float64", "int32"):
-            raise NotImplementedError(
-                f"acc_dtype={cfg.acc_dtype!r} is not ported to the PyTorch "
-                f"runtime: a float scatter-add through atomics has no fixed "
-                f"order on the card; use 'float64' or 'int32'"
-            )
         self.key_pos = plan.key_pos
         if (
             spec.time_domain == TimeCharacteristic.EventTime
@@ -285,7 +287,10 @@ class WindowProgram(BaseProgram):
         self.stored_kinds = [self.acc_kinds[i] for i in self.stored_idx]
         ops = liveness.leaf_algebraic_ops(combine_probe, dummies, arity)
         self.stored_ops = [ops[i] for i in self.stored_idx]
-        wants32 = str(self.cfg.acc_dtype) == "int32"
+        # 32-bit storage (StreamConfig.acc_dtype int32/float32) only for
+        # the leaves the combiner aggregates: pass-through fields stay
+        # exact, as in the reference
+        wants32 = str(self.cfg.acc_dtype) in ("int32", "float32")
         self.compact32 = [
             wants32 and op in ("add", "min", "max") for op in self.stored_ops
         ]
@@ -295,15 +300,6 @@ class WindowProgram(BaseProgram):
             and all(op in ("add", "min", "max") for op in self.stored_ops)
             and len(self.plane_dtypes) == len(self.stored_idx)
         )
-        if self.fast_reduce and any(
-            dt.is_floating_point and op == "add"
-            for dt, op in zip(self.plane_dtypes, self.stored_ops)
-        ):
-            raise NotImplementedError(
-                "acc_dtype='int32' over a float leaf summed by the combiner "
-                "is not ported: a float scatter-add through atomics has no "
-                "fixed order on the card; use acc_dtype='float64'"
-            )
 
     def _check_cells(self, key_capacity: int) -> None:
         n = self.ring.n_slots
@@ -475,7 +471,8 @@ class WindowProgram(BaseProgram):
 
         Scatter-reduce path (commutative combiner, 32-bit planes): one
         non-unique scatter-add/min/max per plane straight into the
-        identity-initialized state. Exact path: stable sort by cell,
+        identity-initialized state; a float32 sum adds in arrival order
+        (:func:`ordered_scatter_add`). Exact path: stable sort by cell,
         combine same-cell records with a segmented scan over live leaves,
         merge each segment with the cell's old value, set-scatter at
         segment tails."""
@@ -500,7 +497,10 @@ class WindowProgram(BaseProgram):
                     [lifted[i]], [self.acc_kinds[i]], [self.compact32[s]]
                 )
                 val = val.to(p.dtype)
-                if op == "add":
+                if op == "add" and p.is_floating_point():
+                    # a float sum depends on its order: arrival order
+                    ordered_scatter_add(p, idx, val.contiguous())
+                elif op == "add":
                     p.index_add_(0, idx, val)
                 else:
                     p.scatter_reduce_(0, idx, val, "a" + op)

@@ -773,8 +773,7 @@ class JobServer:
             self._dead_by_slot[slot] = self._dead_by_slot.get(slot, 0) + 1
         self._dead_scan = len(dead)
         # keyed-state attribution from every runner's key namespace
-        # (state trackers are the device-memory accounting, not ported
-        # yet: the list stays empty and these gauges read 0)
+        # (obs/memory.py's state trackers)
         state: Dict[int, Dict[str, int]] = {}
         for tracker in getattr(obs, "state_trackers", ()):
             for slot, entry in tracker.tenant_breakdown().items():
