@@ -58,8 +58,10 @@ the card, one build, parsed scrapes, health at OK; then a short run
 under ``torch.profiler`` with the profiler bridge. Phase ``small`` holds the
 goldens of the new jobs, ``max_by``, the allowed-lateness cases (main
 and side-output rows), the session and count goldens, integer rolling
-goldens, the chained-stage goldens, a punctuated-watermark job and the
-chapter-4 and chapter-5 goldens on the card against the CPU. Each phase
+goldens, the chained-stage goldens, a punctuated-watermark job, the
+chapter-4 and chapter-5 goldens and the subnormal probes (XLA's flush:
+the chapter-2 mean, rolling max and median, a float32 rolling sum and a
+filter over subnormal usages) on the card against the CPU. Each phase
 prints its wall
 time. Prints the card's name and power limit, one line per
 kernel case (with a per-launch device-time split from ``torch.profiler``
@@ -70,15 +72,20 @@ device, when the package is not beside this script, or when any phase
 fails.
 
 Phase ``acc32`` drives the 32-bit accumulator configurations: the
-fixed-order float32 merge's kernel (``ordered_scatter_add``) against its
-plain version at the flagship's plane (88 x 2^20 + 1 cells, B = 131072;
-uniform, skewed and one-key cells, twice for the same bits); the
+fixed-order float32 merge's kernels (``ordered_scatter_add``) against
+their plain version at the flagship's plane (88 x 2^20 + 1 cells, B =
+131072; uniform, skewed and one-key cells, subnormal values and values
+that cancel into the subnormal range, twice for the same bits; each
+case's bytes bound and chain bound, and a stable sort of the batch's
+cells alone, which a sort-based merge would pay); the
 flagship under float32 (rows against the int32 oracle, then with obs on:
 every ledger residual 0, a savepoint restored in a fresh env whose
 ledger verifies its anchors, the state bytes beside the exact
 configuration's; then obs on with the ledger off and on in two
 interleaved pairs, its cost); the chapter-2 mean under float32 and int32, every row
-bitwise against a float32 arrival-order oracle (the merge's paths); a
+bitwise against a float32 arrival-order oracle (the merge's paths), and
+under float32 at half the lines with one host sending half of them and
+usages below float32's normal range (the long-run fold and the flush); a
 rolling float32 sum on the rolling kernel's float64 path; one session
 and one count-window job under float32.
 
@@ -105,6 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -120,6 +128,21 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+# a dependent float32 add's latency on Hopper, in cycles: a run of m
+# values folded in arrival order takes at least m of them
+ADD_LATENCY_CYCLES = 4
 
 
 def build_kernels() -> None:
@@ -181,6 +204,33 @@ def device_split(fn, calls: int):
                 e.device_time_total / calls / 1e3
             launches += e.count
     return split, launches / calls
+
+
+def graph_launches(fn) -> int:
+    """The device launches (kernels and memsets) one call of ``fn``
+    enqueues, counted as the nodes of a CUDA graph captured from the
+    call (its DOT dump). The capture runs nothing; unlike
+    :func:`device_split` it does not depend on the profiler, which late
+    in a long process drops kernel records."""
+    import torch
+
+    torch.cuda.synchronize()
+    # kept, not instantiated, so that its nodes can be dumped
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        fn()
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the dump's notes
+        path = f"{d}/graph.dot"
+        g.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    g.reset()
+    nodes = set(re.findall(r"graph_\d+_node_\d+", dot))
+    if not nodes:
+        raise AssertionError(f"no node in the captured graph's dump: "
+                             f"{dot[:400]!r}")
+    return len(nodes)
 
 
 def same_bits(a, b) -> bool:
@@ -3056,7 +3106,7 @@ ACC32_FLAGSHIP = {"acc_dtype": "float32", "max_fires_per_step": 4}
 # slots of K cells, plus the sink: the plane the float merge's kernel is
 # held at
 ACC32_PLANE_SLOTS = 88
-OSC_REPLACES = "tpustream/runtime/window_program.py:468-482"
+OSC_REPLACES = "tpustream/runtime/window_program.py:477-480"
 
 
 def capture_scatter_call(index: int = 1):
@@ -3080,23 +3130,35 @@ def capture_scatter_call(index: int = 1):
 
 def scatter_case(label: str, plane0, cells, vals, reps: int,
                  plain_reps: int) -> dict:
-    """The merge's kernel against its plain version on the card, bitwise,
-    and against a second launch (the same bits); its time (the stable
-    sort and the fold launch, as the path calls it), the fold launch
-    alone on sorted cells, the plain version's and ``index_add_``'s (the
-    library call that computes the same sums in no fixed order), and the
-    bound from these inputs' bytes: cells (8 B) and values (4 B) read
-    once a row, each touched cell read and written once (4 B each)."""
+    """The merge's kernels against their plain version on the card,
+    bitwise, and against a second call (the same bits); the call's time
+    (all its launches, on int32 cells as the path passes them), the
+    plain version's and ``index_add_``'s (the library call that computes
+    the same sums in no fixed order), and, as a reference point, the
+    stable ``torch.sort`` of the int64 cells alone (what a sort-based
+    merge pays before it adds anything). Two bounds from these inputs:
+    bytes (cells and values, 4 B each, read once a row; each touched
+    cell read and written once, 4 B each way) and the chain (the longest
+    run's adds in arrival order, ``ADD_LATENCY_CYCLES`` each at the
+    card's maximum SM clock, an operations bound above the adds' time at
+    the peak rate); ``bound_ms`` is the larger. The launches a call
+    makes are counted from a CUDA graph of the call and held equal to
+    ``device_launches``; the profiler's count is printed beside them."""
     import torch
 
     from tpustream_torch.ops import ordered_scatter as O
 
     n = plane0.numel() - 1
+    cells = cells.to(torch.int32)
     pk, p2, pr = plane0.clone(), plane0.clone(), plane0.clone()
     O.ordered_scatter_add(pk, cells, vals)
     O.ordered_scatter_add(p2, cells, vals)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     O.ordered_scatter_add_ref(pr, cells, vals)
+    end.record()
     torch.cuda.synchronize()
+    first_plain_ms = start.elapsed_time(end)
     err = float((pk - pr).abs().nan_to_num().max())
     if not torch.equal(pk.view(torch.int32), pr.view(torch.int32)):
         raise AssertionError(f"ordered_scatter_add {label}: kernel != plain, "
@@ -3104,33 +3166,63 @@ def scatter_case(label: str, plane0, cells, vals, reps: int,
     if not torch.equal(pk.view(torch.int32), p2.view(torch.int32)):
         raise AssertionError(f"ordered_scatter_add {label}: two launches "
                              f"differ in bits")
+    # every cell the call adds into is flushed; the others keep their
+    # bits (a copy)
+    live = cells[(cells >= 0) & (cells < n)]
+    got = pk[live.to(torch.int64)]
+    subnormal = int(((got != 0) & (got.abs() < torch.finfo(torch.float32).tiny)
+                     ).sum())
+    if subnormal:
+        raise AssertionError(f"ordered_scatter_add {label}: {subnormal} "
+                             f"rows' cells left subnormal")
     ms = time_ms(lambda: O.ordered_scatter_add(pk, cells, vals), reps)
-    sorted_cells, rows = torch.sort(cells, stable=True)
-    fold_ms = time_ms(lambda: O.launch(pk, sorted_cells, rows, vals), reps)
-    plain_ms = time_ms(lambda: O.ordered_scatter_add_ref(pr, cells, vals),
-                       plain_reps)
+    split, measured = device_split(lambda: O.launch(pk, cells, vals), 5)
+    cells64 = cells.to(torch.int64)
+    sort_ms = time_ms(lambda: torch.sort(cells64, stable=True), reps)
+    # the plain version is one round a rank: a hot cell's run makes it
+    # take seconds, so with plain_reps 1 its time is the comparison's call
+    plain_ms = (first_plain_ms if plain_reps == 1 else
+                time_ms(lambda: O.ordered_scatter_add_ref(pr, cells, vals),
+                        plain_reps))
     library_ms = time_ms(lambda: p2.index_add_(0, cells, vals), reps)
-    live = cells[cells < n]
     touched = int(torch.unique(live).numel())
     longest = int(torch.unique(live, return_counts=True)[1].max()) \
         if live.numel() else 0
-    nbytes = cells.numel() * 12 + 8 * touched
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = cells.numel() * 8 + 8 * touched
+    bytes_bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_bound_ms = longest * ADD_LATENCY_CYCLES / sm_clock_hz() * 1e3
+    bound_ms = max(bytes_bound_ms, chain_bound_ms)
+    bound_by = "bytes" if bytes_bound_ms >= chain_bound_ms else "operations"
+    launches = graph_launches(lambda: O.launch(pk, cells, vals))
+    if launches != O.device_launches(cells.numel()):
+        raise AssertionError(
+            f"ordered_scatter_add {label}: a call enqueued {launches} "
+            f"launches, device_launches says "
+            f"{O.device_launches(cells.numel())}")
     print(f"kernel ordered_scatter_add {label}: B={cells.numel()} "
           f"cells={n}+1 touched={touched} longest_run={longest}: ok (bitwise "
-          f"against the plain version; two launches bitwise equal) "
-          f"max_abs_err={err} ms={ms} fold_launch_ms={fold_ms} "
-          f"plain_ms={plain_ms} library_ms={library_ms} (index_add_, atomics) "
-          f"bound_ms={bound_ms} bytes={nbytes}")
+          f"against the plain version; two launches bitwise equal; no "
+          f"subnormal left) max_abs_err={err} ms={ms} plain_ms={plain_ms} "
+          f"library_ms={library_ms} (index_add_, atomics) "
+          f"ratio_to_library={ms / library_ms} sort_int64_ms={sort_ms} "
+          f"(torch.sort, stable, alone) bound_ms={bound_ms} "
+          f"bytes_bound_ms={bytes_bound_ms} bytes={nbytes} "
+          f"chain_bound_ms={chain_bound_ms} bound_by={bound_by} "
+          f"device_launches_per_call={launches} (a captured graph's nodes; "
+          f"the profiler counted {measured}) device_ms_by_kernel={split}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                library_ms=library_ms)
+                bytes_bound_ms=bytes_bound_ms, chain_bound_ms=chain_bound_ms,
+                bound_by=bound_by, library_ms=library_ms, sort_ms=sort_ms,
+                device_launches_per_call=launches)
 
 
 def acc32_kernel_cases(reps: int) -> None:
-    """The merge's kernel at the flagship's plane (88 x 2^20 + 1 float32
+    """The merge's kernels at the flagship's plane (88 x 2^20 + 1 float32
     cells) and batch (B = 131072): uniform, skewed (1024 hot cells take
     90% of the rows) and one-key cells, values from ``torch.randn`` on a
-    seeded generator (not integers, so an add out of order shows)."""
+    seeded generator (not integers, so an add out of order shows); then
+    the flush: subnormal values into subnormal cells, and values that
+    cancel into the subnormal range, on the skewed cells."""
     import torch
 
     dev = torch.device("cuda")
@@ -3147,6 +3239,19 @@ def acc32_kernel_cases(reps: int) -> None:
                                      ("skewed", skewed, 3),
                                      ("one_key", one_key, 1)):
         scatter_case(label, plane0, cells, vals, reps, plain_reps)
+    # XLA's flush: subnormal values into a plane of subnormals, and
+    # normal values that cancel into the subnormal range (+1.5e-38 then
+    # -1.4e-38 on a cell), both on the skewed cells so runs form
+    tiny = torch.finfo(torch.float32).tiny
+    sub_plane = (torch.rand(n + 1, generator=gen, device=dev) - 0.5) * 4 * tiny
+    sub_vals = (torch.rand(B_MAIN, generator=gen, device=dev) - 0.5) * 4 * tiny
+    scatter_case("subnormal", sub_plane, skewed, sub_vals, reps, 3)
+    del sub_plane
+    sign = torch.where(torch.arange(B_MAIN, device=dev) % 2 == 0, 1.5, -1.4)
+    cancel_vals = (sign * 1e-38 * (1 + 0.01 * torch.rand(
+        B_MAIN, generator=gen, device=dev))).to(torch.float32)
+    scatter_case("cancel", torch.zeros_like(plane0), skewed, cancel_vals,
+                 reps, 3)
 
 
 def acc32_avg(n_lines: int, acc_dtype: str, reps: int,
@@ -3207,6 +3312,73 @@ def acc32_avg(n_lines: int, acc_dtype: str, reps: int,
     if ACC32_DEVICE == "cuda":
         out["case"] = scatter_case(f"on the acc32 avg {acc_dtype} path's call",
                                    *box["call"], reps, 3)
+    return out
+
+
+def acc32_hot_host(n_lines: int, reps: int, per_minute: int = 100_000) -> dict:
+    """The chapter-2 mean under float32 with a hot key, as a monitoring
+    fleet sees one: one host sends half of the lines (a seeded random
+    half), so each batch's minute holds a run of tens of thousands of
+    rows on one cell, the merge's long-run fold; and one line in a
+    hundred carries a usage below float32's normal range (k * 1e-39),
+    which the float32 plane stores as a zero. Every row bitwise against
+    a float32 oracle: each (minute, host) cell's usages rounded to
+    float32 and flushed as XLA flushes them, added in arrival order
+    (``np.add.at``), divided in float64. Then the kernels against their
+    plain version on the path's second merge call."""
+    from tpustream_torch.jobs import chapter2_avg
+    from tpustream_torch.ops import ordered_scatter as O
+
+    rng = np.random.default_rng(8)
+    hosts = make_hosts(n_lines, K_MAIN, seed=8)
+    hosts[rng.random(n_lines) < 0.5] = K_MAIN  # 10.16.0.0, no other host's
+    cpus = rng.integers(0, 8, n_lines)
+    tiny_rows = rng.random(n_lines) < 0.01
+    usage = np.where(tiny_rows, rng.integers(1, 9, n_lines) * 1e-39,
+                     rng.integers(0, 10000, n_lines) / 100)
+    lines = [f"{1563452000 + i} 10.{h >> 16}.{(h >> 8) & 255}.{h & 255} "
+             f"cpu{c} {u!r}" for i, (h, c, u) in
+             enumerate(zip(hosts.tolist(), cpus.tolist(), usage.tolist()))]
+    order, starts = window_groups(hosts, per_minute)
+    group = np.empty(n_lines, np.int64)
+    group[order] = np.cumsum(starts) - 1
+    u32 = usage.astype(np.float32)
+    u32[np.abs(u32) < np.finfo(np.float32).tiny] = 0.0  # usages are >= 0
+    sums = np.zeros(int(starts.sum()), np.float32)
+    np.add.at(sums, group, u32)  # nonnegative: no sum is subnormal
+    want = sums.astype(np.float64) / np.bincount(group)
+    box, undo = capture_scatter_call()
+    O.reset_launches()
+    try:
+        items, m, wall = run_job(chapter2_avg, with_minutes(lines, per_minute),
+                                 device=ACC32_DEVICE, batch_size=B_MAIN,
+                                 key_capacity=K_MAIN, alert_capacity=1 << 18,
+                                 name="ComputeCpuAvg", acc_dtype="float32")
+    finally:
+        undo()
+    launches = O.ordered_scatter_add.launches
+    got = np.array(items, dtype=np.float64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (int(np.flatnonzero(got != want)[0]) if got.shape == want.shape
+               else None)
+        raise AssertionError(f"acc32 hot host: {got.size} rows vs {want.size} "
+                             f"from the flushed float32 oracle, first "
+                             f"difference at row {bad}")
+    if ACC32_DEVICE == "cuda" and launches < m.steps // 2:
+        raise AssertionError(f"acc32 hot host: ordered_scatter_add launched "
+                             f"{launches} times over {m.steps} steps")
+    losses = check_losses("acc32 hot host", m,
+                          ("late_dropped", "alert_overflow", "evicted_unfired"))
+    hot = int(np.sum(hosts == K_MAIN))
+    print(f"acc32 hot host float32: {n_lines} lines, {hot} of them from one "
+          f"host, {int(tiny_rows.sum())} usages below float32's normal range; "
+          f"{got.size} rows equal the flushed float32 oracle (bitwise); "
+          f"{losses}; ordered_scatter_add launches={launches}")
+    print(f"acc32 hot host {wall_split(m, wall)}")
+    out = {"launches": launches}
+    if ACC32_DEVICE == "cuda":
+        out["case"] = scatter_case("on the acc32 hot-host path's call",
+                                   *box["call"], reps, 1)
     return out
 
 
@@ -3569,7 +3741,8 @@ def acc32_phase(n_lines: int, window_lines: int, ledger_lines: int,
     kernel cases, the flagship under float32 (with obs, a savepoint and
     a restore; then the ledger off and on in interleaved pairs), the
     chapter-2 mean under float32 and int32 (the merge's
-    path), a rolling float32 sum (the rolling kernel's float64 path),
+    path) and under float32 with a hot host (its long-run fold, and
+    XLA's flush), a rolling float32 sum (the rolling kernel's float64 path),
     a session job and a count-window job. Returns the paths' kernel
     entries."""
     out = {}
@@ -3579,6 +3752,7 @@ def acc32_phase(n_lines: int, window_lines: int, ledger_lines: int,
             ("ledger cost", acc32_ledger_cost, (ledger_lines,)),
             ("avg float32", acc32_avg, (n_lines, "float32", reps)),
             ("avg int32", acc32_avg, (n_lines, "int32", reps)),
+            ("hot host", acc32_hot_host, (n_lines // 2, reps)),
             ("rolling", acc32_rolling, (n_lines, reps)),
             ("windows", acc32_windows, (window_lines,))):
         if name == "kernel cases" and ACC32_DEVICE != "cuda":
@@ -3714,6 +3888,78 @@ def small_phase() -> None:
             raise AssertionError(f"lateness {label}: card {card}, CPU {cpu}")
         print(f"small run lateness {label}: main {card[0]}, side {card[1]}, "
               f"late_dropped {card[2]}; card equals CPU")
+
+
+def subnormal_items(scale: float, n: int = 200, minute: bool = True):
+    """The chapter-2 lines of the subnormal probes: 3 hosts, ``usage =
+    rng.random() * scale``, and a processing-time minute at the end."""
+    from tpustream_torch.runtime.sources import AdvanceProcessingTime
+
+    rng = np.random.default_rng(0)
+    out = [f"{1563452000 + i} 10.8.0.{int(rng.integers(0, 3))} cpu{i % 2} "
+           f"{float(rng.random() * scale)!r}" for i in range(n)]
+    return out + ([AdvanceProcessingTime(n * 400 + 120_000)] if minute else [])
+
+
+def small_subnormal() -> None:
+    """XLA's flush of subnormal floats on the card: the probes of
+    ``tests/test_torch_subnormal.py`` (where the CPU rows equal the JAX
+    package's), each on the card equal to the same run on the CPU. The
+    chapter-2 mean (float32 at 1e-39, exact at 1e-309: every row 0.0),
+    the rolling max at 1e-309 (every max 0.0; ``seq_rolling.cu``'s
+    explicit flush), a float32 rolling sum near 1e-39 (its stored
+    float32 words flushed), a user filter ``usage > 0`` (a comparison),
+    and the median at 1e-39 and 1e-309, a copy path that keeps them."""
+    from tpustream_torch import Tuple2, Tuple3
+    from tpustream_torch.jobs import chapter2_avg, chapter2_max, chapter2_median
+
+    class RollingSum:
+        @staticmethod
+        def build(env, text):
+            return text.map(lambda l: Tuple3(l.split(" ")[1], l.split(" ")[2],
+                                             float(l.split(" ")[3]))
+                            ).key_by(0).sum(2)
+
+    class Positive:
+        @staticmethod
+        def build(env, text):
+            return text.map(lambda l: Tuple2(l.split(" ")[1],
+                                             float(l.split(" ")[3]))
+                            ).filter(lambda t: t.f1 > 0.0)
+
+    rng = np.random.default_rng(0)
+    exact_sums = [f"{1563452000 + i} 10.8.0.{int(rng.integers(0, 3))} "
+                  f"cpu{i % 2} {int(rng.integers(1, 4)) * 2.0 ** -130!r}"
+                  for i in range(200)]
+    signs = [f"{1563452000 + i} 10.8.0.{i % 3} cpu0 {v!r}" for i, v in
+             enumerate([1e-309, -1e-309, 5e-324, 1.0, 2e-308, 3e-308, 0.5])]
+    cases = [
+        ("mean float32 at 1e-39", chapter2_avg, subnormal_items(1e-39),
+         {"acc_dtype": "float32"}, lambda r: set(r) == {"0.0"}),
+        ("mean exact at 1e-309", chapter2_avg, subnormal_items(1e-309), {},
+         lambda r: set(r) == {"0.0"}),
+        ("rolling max at 1e-309", chapter2_max,
+         subnormal_items(1e-309, minute=False), {},
+         lambda r: len(r) == 200 and all(x.endswith(",0.0)") for x in r)),
+        ("rolling sum float32 near 1e-39", RollingSum, exact_sums,
+         {"acc_dtype": "float32", "batch_size": 16}, lambda r: len(r) == 200),
+        ("filter usage > 0", Positive, signs, {"batch_size": 4},
+         lambda r: len(r) == 3),
+        ("median at 1e-39", chapter2_median, subnormal_items(1e-39), {},
+         lambda r: r and all(0.0 < float(x) < 1e-39 for x in r)),
+        ("median at 1e-309", chapter2_median, subnormal_items(1e-309), {},
+         lambda r: r and all(0.0 < float(x) < 1e-309 for x in r)),
+    ]
+    for label, module, items, cfg, check in cases:
+        cfg = {"batch_size": 64, **cfg}
+        card, _, _ = run_job(module, items, "cuda", **cfg)
+        cpu, _, _ = run_job(module, items, "cpu", **cfg)
+        card, cpu = [repr(t) for t in card], [repr(t) for t in cpu]
+        if card != cpu or not check(card):
+            raise AssertionError(f"small subnormal {label}: card {card[:4]}, "
+                                 f"CPU {cpu[:4]}")
+        print(f"small run subnormal {label}: {len(card)} rows, card equals "
+              f"CPU (first {card[:2]})")
 
 
 def small_windows() -> None:
@@ -4158,6 +4404,7 @@ def main() -> int:
         small_windows()
         small_chains()
         small_cep_rules()
+        small_subnormal()
     print(f"phases: {time.perf_counter() - t_all:.1f} s")
     # one entry a main path and dtype instantiation: float64 on the
     # chapter-2 job's and int64 on the chain's (the kernel phase's
@@ -4194,14 +4441,17 @@ def main() -> int:
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"],
             "bound_by": "bytes",
+            # the fold is a parallel scan, not a chain of adds
+            "chain_bound_ms": None,
             "library_ms": None,
             "device_launches_per_call": case.get("device_launches_per_call"),
         })
     # the fixed-order float merge: one entry a path it launches on, the
-    # chapter-2 mean under float32 and under int32 (each path's own
-    # second call)
+    # chapter-2 mean under float32, under int32 and under float32 with a
+    # hot host (each path's own second call)
     for path, key in (("acc32_avg_float32", "avg float32"),
-                      ("acc32_avg_int32", "avg int32")):
+                      ("acc32_avg_int32", "avg int32"),
+                      ("acc32_hot_host", "hot host")):
         got = acc32.get(key) or {}
         case = got.get("case")
         if case is None:
@@ -4218,8 +4468,11 @@ def main() -> int:
             "ms": case["ms"],
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": case["bound_by"],
+            "bytes_bound_ms": case["bytes_bound_ms"],
+            "chain_bound_ms": case["chain_bound_ms"],
             "library_ms": case["library_ms"],
+            "device_launches_per_call": case["device_launches_per_call"],
         })
     if entries:
         print(json.dumps({"kernels": entries}))

@@ -12,7 +12,8 @@ JAX package.
   bytes equal; the fast path agrees with the exact one at rtol=1e-5.
 * Session windows and the three count-window programs under float32.
 * The fixed-order merge itself (``ops/ordered_scatter.py``) against
-  ``np.add.at``, bitwise.
+  ``np.add.at``, bitwise, with int64 cells and with the int32 cells the
+  window merge passes.
 
 Tolerance: bitwise everywhere, except the one comparison of the 32-bit
 fast path with the exact float64 path (rtol=1e-5, float32 rounding).
@@ -429,8 +430,70 @@ def test_acc32_ordered_scatter_checks_its_arguments():
     with pytest.raises(TypeError, match="float32"):
         ordered_scatter_add(plane.double(), cells, vals)
     with pytest.raises(TypeError, match="int64"):
-        ordered_scatter_add(plane, cells.int(), vals)
+        ordered_scatter_add(plane, cells.to(torch.int16), vals)
     with pytest.raises(ValueError, match="one length"):
         ordered_scatter_add(plane, cells[:2], vals)
     with pytest.raises(RuntimeError, match="no ordered_scatter_add kernel"):
         ordered_scatter_add(plane.to("meta"), cells.to("meta"), vals.to("meta"))
+
+
+def test_acc32_ordered_scatter_refuses_a_plane_past_int32_cells():
+    """The kernels take int32 cells: a plane of 2^31 cells or more is
+    refused before any device is asked (a meta plane holds no memory)."""
+    plane = torch.empty(2**31, dtype=torch.float32, device="meta")
+    cells = torch.zeros(3, dtype=torch.int32, device="meta")
+    vals = torch.zeros(3, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        ordered_scatter_add(plane, cells, vals)
+    ordered_scatter_add(torch.zeros(5), torch.zeros(3, dtype=torch.int32),
+                        torch.zeros(3))
+
+
+@settings(max_examples=40, deadline=None)
+@given(
+    n_cells=st.integers(1, 9),
+    cells=st.lists(st.integers(-2, 11), min_size=0, max_size=200),
+    seed=st.integers(0, 2**31 - 1),
+)
+def test_acc32_ordered_scatter_ref_takes_int32_cells(n_cells, cells, seed):
+    """int32 cells, as the window merge passes them, negative and past
+    the sink among them: the plain version gives ``np.add.at``'s bits
+    and the int64 cells' bits."""
+    rng = np.random.default_rng(seed)
+    c = np.asarray(cells, dtype=np.int64)
+    vals = (rng.standard_normal(c.size)
+            * 10.0 ** rng.integers(-3, 4, c.size)).astype(np.float32)
+    plane = rng.standard_normal(n_cells + 1).astype(np.float32)
+    want = _np_add_at(plane, c, vals)
+    got = ordered_scatter_add_ref(torch.from_numpy(plane.copy()),
+                                  torch.from_numpy(c.astype(np.int32)),
+                                  torch.from_numpy(vals))
+    wide = ordered_scatter_add_ref(torch.from_numpy(plane.copy()),
+                                   torch.from_numpy(c), torch.from_numpy(vals))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert np.array_equal(got.numpy().view(np.int32),
+                          wide.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["uniform", "skewed", "one_key", "sink_only",
+                                  "one_row"])
+def test_acc32_ordered_scatter_wrapper_takes_int32_cells_on_cpu(case):
+    rng = np.random.default_rng(2)
+    n, b = 1000, 4096
+    if case == "uniform":
+        c = rng.integers(0, n + 1, b)
+    elif case == "skewed":
+        c = np.where(rng.random(b) < 0.7, 3, rng.integers(0, n + 1, b))
+    elif case == "one_key":
+        c = np.full(b, 17)
+    elif case == "sink_only":
+        c = np.full(b, n)
+    else:
+        c = np.array([5])
+    c = c.astype(np.int32)
+    vals = rng.standard_normal(c.size).astype(np.float32)
+    plane = rng.standard_normal(n + 1).astype(np.float32)
+    got = ordered_scatter_add(torch.from_numpy(plane.copy()),
+                              torch.from_numpy(c), torch.from_numpy(vals))
+    assert np.array_equal(got.numpy().view(np.int32),
+                          _np_add_at(plane, c, vals).view(np.int32))

@@ -57,9 +57,19 @@
 // max/min follow jnp.maximum / jnp.minimum (the reference's rolling
 // step): a NaN operand gives NaN, and +0.0 is greater than -0.0. CUDA's
 // fmax/fmin drop NaN, so they are not used.
+//
+// Subnormals are flushed as the reference's compiler (XLA) flushes them:
+// its computations read a subnormal operand as a zero of the same sign
+// and write a subnormal result as one. So every value a key folds and
+// every stored plane value it starts from are flushed when read, and
+// every float sum is flushed when formed (a max or a min of flushed
+// operands is one of them). PTX has no .ftz for float64, so the flush is
+// explicit (ftz below) for both float types. A padding row's emission is
+// its own value, unflushed: it is a copy.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -83,6 +93,19 @@ static_assert(kRadix == kThreads, "one thread per digit");
 
 enum Op { kMax = 0, kMin = 1, kSum = 2 };
 
+// A subnormal float as a zero of its sign (XLA's flush); NaN, inf and
+// normal floats, and integers, as they are.
+template <typename T>
+__device__ __forceinline__ T ftz(T x) {
+  if constexpr (std::is_integral<T>::value) {
+    return x;
+  } else {
+    const T tiny = sizeof(T) == 8 ? T(DBL_MIN) : T(FLT_MIN);
+    return fabs(x) < tiny ? copysign(T(0), x) : x;
+  }
+}
+
+// The operands come flushed; a float sum is flushed when formed.
 template <typename T, int OP>
 __device__ __forceinline__ T combine(T a, T b) {
   if constexpr (std::is_integral<T>::value) {
@@ -95,7 +118,7 @@ __device__ __forceinline__ T combine(T a, T b) {
     if (OP == kMax) return a < b ? b : a;
     return b < a ? b : a;
   } else {
-    if (OP == kSum) return a + b;
+    if (OP == kSum) return ftz(a + b);
     if (a != a || b != b) return a + b;  // NaN in, NaN out
     if (OP == kMax) {
       if (a > b) return a;
@@ -339,7 +362,10 @@ __device__ void reduce_tile(const Args<T>& a, const uint64_t* pairs,
       const int head = key != prev;
       prev = key;
       T x = __ldg(a.vals + uint32_t(p));
-      if (head && key < uint32_t(a.K)) x = combine<T, OP>(a.plane[key], x);
+      if (key < uint32_t(a.K)) {
+        x = ftz(x);
+        if (head) x = combine<T, OP>(ftz(a.plane[key]), x);
+      }
       a.xs[i] = x;
       acc = seg_combine<T, OP>(acc, Seg<T>{x, head});
     }
@@ -419,7 +445,8 @@ __device__ void apply_tile(const Args<T>& a, const uint64_t* pairs,
         const uint32_t next = u + 1 < kItems ? key[u + 1] : after;
         if (next != key[u]) a.plane[key[u]] = run.v;
       } else {
-        a.emis[row[u]] = x[u];  // padding or out of range: its own value
+        // padding or out of range: its own value, as it was read
+        a.emis[row[u]] = __ldg(a.vals + row[u]);
       }
     }
   }

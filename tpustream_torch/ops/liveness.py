@@ -39,7 +39,9 @@ def trace(fn: Callable, dummies: Sequence[torch.Tensor]):
     """``(placeholders, outputs)`` of ``fn``'s graph: the fx nodes of its
     positional arguments and of the values it returns (a tuple)."""
     args = [d.clone() for d in dummies]  # one placeholder per argument
-    with reference_arithmetic():
+    # the graph of the function's own ops: the flush, which XLA applies
+    # inside each op, would wrap them
+    with reference_arithmetic(flush=False):
         gm = make_fx(lambda *a: tuple(fn(*a)), tracing_mode="fake")(*args)
     nodes = list(gm.graph.nodes)
     placeholders = [n for n in nodes if n.op == "placeholder"]

@@ -53,6 +53,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..arith import flush_subnormal
 from ..records import F64, I64, STR
 from .segments import inverse_permutation, segment_tails, segmented_scan, sort_by_key
 from .seq_rolling import IDENTITY, seq_rolling_reduce
@@ -366,7 +367,9 @@ def rolling_step(
         # never seen keeps 0, the reference's value
         occupied = (planes[slices[sentinel_leaf].start] >= 0
                     if sentinel_leaf is not None else state["seen"])
-        stored_plane.copy_(torch.where(occupied, agg_plane, 0))
+        # (a float32 subnormal flushed, as XLA's conversion flushes it)
+        stored_plane.copy_(flush_subnormal(
+            torch.where(occupied, agg_plane, 0).to(stored_plane.dtype)))
 
     emis = []
     kj = 0

@@ -8,7 +8,9 @@ a ``[K]`` plane and ``[B]`` keys and values, in arrival order::
 
 ``op`` is ``max``, ``min`` or ``sum``, over float32, float64 or int64.
 Rows with a negative key (padding) fold nothing and emit their own
-value. A plane that starts at the op's identity (:data:`IDENTITY`)
+value. Subnormal floats are flushed as the reference's compiler flushes
+them: each value folded and each stored value read as a zero of its
+sign, each float sum flushed when formed (``arith.flush_subnormal``). A plane that starts at the op's identity (:data:`IDENTITY`)
 makes every emission the running aggregate of its key: Flink's
 rolling-aggregate contract. An int64 ``sum`` wraps in two's complement,
 as the reference's int64 sum and Java's ``long`` do.
@@ -25,6 +27,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from ..arith import flush_subnormal
 
 OPS = ("max", "min", "sum")
 
@@ -56,7 +60,12 @@ def _min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
-REDUCERS = {"max": _max, "min": _min, "sum": torch.add}
+def _sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # operands come flushed; a subnormal sum is flushed when formed
+    return flush_subnormal(a + b)
+
+
+REDUCERS = {"max": _max, "min": _min, "sum": _sum}
 # integers have no NaN and no signed zero; torch's int64 add wraps
 INT_REDUCERS = {"max": torch.maximum, "min": torch.minimum, "sum": torch.add}
 
@@ -246,7 +255,8 @@ def seq_rolling_reduce_ref(
     Updates ``plane`` in place. max/min and an int64 sum (which wraps)
     give the sequential fold's bits; a float sum adds in the scan's tree
     order, not in arrival order, so it agrees with the kernel and the
-    sequential fold only to rounding. Keys
+    sequential fold only to rounding. Subnormals are flushed as the
+    kernel flushes them. Keys
     ``>= K`` are counted into ``bad_keys`` and treated as padding, or
     raise ``IndexError`` when there is no ``bad_keys``.
     """
@@ -269,7 +279,7 @@ def seq_rolling_reduce_ref(
         bad_keys += over.sum().to(bad_keys.dtype)
         k = torch.where(over, -1, k)
     sk, perm = torch.sort(k, stable=True)
-    x = v[perm]
+    x = flush_subnormal(v[perm])
     starts = torch.ones(n, dtype=torch.bool, device=k.device)
     starts[1:] = sk[1:] != sk[:-1]
     tails = torch.ones_like(starts)
@@ -284,7 +294,7 @@ def seq_rolling_reduce_ref(
         flag = torch.cat([flag[:d], flag[d:] | flag[:-d]])
         d *= 2
     valid = sk >= 0
-    total = reducer(flat[sk.clamp(min=0)], x)
+    total = reducer(flush_subnormal(flat[sk.clamp(min=0)]), x)
     emis[perm] = torch.where(valid, total, v[perm])
     write = tails & valid
     flat[sk[write]] = total[write]

@@ -12,8 +12,10 @@ layout lets state move between the two packages plane by plane
 ``compact32`` is the lossy 32-bit accumulator mode
 (``StreamConfig.acc_dtype`` ``"int32"`` or ``"float32"``): a 64-bit leaf
 keeps ONE 32-bit plane (int64 wraps mod 2^32, float64 rounds to
-float32). A per-leaf sequence restricts it to the leaves a combiner
-aggregates (the window programs' and the rolling program's layouts).
+float32, and a float32 subnormal is flushed to a signed zero, as XLA's
+conversion flushes it). A per-leaf sequence restricts it to the leaves
+a combiner aggregates (the window programs' and the rolling program's
+layouts).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import List, Sequence, Union
 
 import torch
 
+from ..arith import flush_subnormal
 from ..records import BOOL, F64, I64, STR
 
 Compact = Union[bool, Sequence[bool]]
@@ -83,8 +86,12 @@ def pack_words(
             lo = v & 0xFFFFFFFF
             words.append(torch.where(lo >= 2**31, lo - 2**32, lo).to(torch.int32))
             words.append((v >> 32).to(torch.int32))
+        elif kind == F64 and c32:
+            # a float conversion under XLA's flush: a float64 that
+            # rounds to a float32 subnormal is stored as a signed zero
+            words.append(flush_subnormal(col.to(torch.float32)))
         elif kind == F64:
-            words.append(col.to(torch.float32 if c32 else torch.float64))
+            words.append(col.to(torch.float64))
         else:  # STR, BOOL
             words.append(col.to(torch.int32))
     return words
@@ -105,6 +112,8 @@ def unpack_words(
             continue
         if kind == I64:
             cols.append(words[w].to(torch.int64))
+        elif kind == F64 and c32:
+            cols.append(flush_subnormal(words[w]).to(torch.float64))
         elif kind == F64:
             cols.append(words[w].to(torch.float64))
         elif kind == BOOL:

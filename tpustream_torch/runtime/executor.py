@@ -114,6 +114,7 @@ import numpy as np
 import torch
 
 from ..api.functions import as_callable
+from ..arith import flush_subnormal
 from ..api.timeapi import TimeCharacteristic
 from ..api.watermarks import LONG_MIN, MAX_WATERMARK, AssignerWithPunctuatedWatermarks
 from ..config import StreamConfig
@@ -1479,7 +1480,9 @@ class Runner:
             if mode == "d32":
                 return p.to(torch.int64) + b
             if mode == "f32":
-                return p.to(torch.float64)
+                # a float conversion on the device: XLA's flush reads a
+                # float32 subnormal as a zero of its sign
+                return flush_subnormal(p).to(torch.float64)
             if mode == "i16":
                 return p.to(torch.int32)
             if mode == "bits":

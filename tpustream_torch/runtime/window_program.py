@@ -489,7 +489,8 @@ class WindowProgram(BaseProgram):
             touched = touched[:n]
 
         if self.fast_reduce:
-            idx = torch.where(live, cell, sink).clamp(0, sink).to(torch.int64)
+            idx32 = torch.where(live, cell, sink).clamp(0, sink).to(torch.int32)
+            idx = idx32.to(torch.int64)
             for s, (p, i, op) in enumerate(
                 zip(planes, self.stored_idx, self.stored_ops)
             ):
@@ -498,8 +499,9 @@ class WindowProgram(BaseProgram):
                 )
                 val = val.to(p.dtype)
                 if op == "add" and p.is_floating_point():
-                    # a float sum depends on its order: arrival order
-                    ordered_scatter_add(p, idx, val.contiguous())
+                    # a float sum depends on its order: arrival order,
+                    # with XLA's flush of subnormals
+                    ordered_scatter_add(p, idx32, val.contiguous())
                 elif op == "add":
                     p.index_add_(0, idx, val)
                 else:
