@@ -71,6 +71,18 @@ point), a ``kernels`` JSON line and, last, ``{"ok": true, "device":
 device, when the package is not beside this script, or when any phase
 fails.
 
+Phase ``analysis`` (after ``recovery``) runs the pre-flight analyzer:
+``python -m tpustream_torch.analysis.lint`` over the chapter jobs as a
+subprocess (exit 0, no error) and each job's ``analyze()`` timed, first
+call and warm; chapter 2 at the job phase's shape under
+``strict_analysis=True`` with obs on (rows against the oracle, the
+kernel on its path, the pre-flight's share of the wall, the finding's
+counter); a broken job (an event-time window without an assigner),
+which must raise PlanAnalysisError with nothing allocated on the card
+and nothing launched; the state-layout audit of the recovery phase's
+snapshots (compatible; incompatible with TSM042 against a float32
+graph); and ``python -m tpustream_torch.obs.dump --selftest``.
+
 Phase ``acc32`` drives the 32-bit accumulator configurations: the
 fixed-order float32 merge's kernels (``ordered_scatter_add``) against
 their plain version at the flagship's plane (88 x 2^20 + 1 cells, B =
@@ -90,11 +102,12 @@ rolling float32 sum on the rolling kernel's float64 path; one session
 and one count-window job under float32.
 
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,acc32,small``,
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,analysis,acc32,small``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
 ``--flagship-lines N`` (flagship, chain, recovery's flagship runs and
 acc32 input), ``--obs-lines N`` (obs, and acc32's ledger-cost pairs),
-``--pipeline-lines N`` (pipeline), ``--new-lines N`` (input of
+``--pipeline-lines N`` (pipeline; ``--obs-lines`` also sizes the
+analysis phase's strict run), ``--new-lines N`` (input of
 ch1, avg and median), ``--window-lines N`` (input of session, count and
 acc32's window jobs),
 ``--cep-lines N`` (input of cep and rules).
@@ -106,6 +119,7 @@ import argparse
 import concurrent.futures
 import datetime
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -485,11 +499,11 @@ def capture_kernel_call(index: int = 1):
     plain = rolling.seq_rolling_reduce
     box = {"calls": 0}
 
-    def capture(plane, keys, vals, op="max", bad_keys=None):
+    def capture(plane, keys, vals, op="max", bad_keys=None, fresh=None):
         if box["calls"] == index:
             box["call"] = (plane.clone(), keys.clone(), vals.clone(), op)
         box["calls"] += 1
-        return plain(plane, keys, vals, op, bad_keys=bad_keys)
+        return plain(plane, keys, vals, op, bad_keys=bad_keys, fresh=fresh)
 
     rolling.seq_rolling_reduce = capture
     return box, lambda: setattr(rolling, "seq_rolling_reduce", plain)
@@ -2951,6 +2965,7 @@ def recovery_ch2(n_lines: int) -> dict:
             raise AssertionError("recovery ch2: recovered rows differ from "
                                  "the uninterrupted run")
         checkpoint_lines("ch2", made)
+        keep_manifest("ch2", d)
     print(f"recovery ch2: {n_lines} lines, {steps} steps a run, recovered "
           f"rows equal the uninterrupted run and the oracle; "
           f"job_restarts_total=1 {rec} kernel launches={launches}; "
@@ -3012,6 +3027,7 @@ def recovery_flagship(n_lines: int) -> None:
                                  f"the uninterrupted run: {got == full}; "
                                  f"losses {losses}")
         checkpoint_lines("flagship", made)
+        keep_manifest("flagship", d)
         t0 = time.perf_counter()
         drill = restore_drill(d)
         drill_s = time.perf_counter() - t0
@@ -3086,6 +3102,24 @@ def recovery_savepoint(n_lines: int) -> None:
           f"wall_s full={wall0} restored={wall}")
 
 
+# the newest snapshot manifest of each recovery run, kept for the
+# analysis phase's audit (a manifest carries every leaf's dtype and shape;
+# the audit reads nothing else)
+SNAPSHOTS: dict = {}
+_KEPT: list = []  # the directory holding them, made at first use
+
+
+def keep_manifest(label: str, directory: str) -> None:
+    import glob
+    import shutil
+
+    if not _KEPT:
+        _KEPT.append(tempfile.TemporaryDirectory())
+    newest = sorted(glob.glob(os.path.join(directory, "ckpt-*.npz")))[-1]
+    SNAPSHOTS[label] = shutil.copy(newest, os.path.join(
+        _KEPT[0].name, f"{label}-{os.path.basename(newest)}"))
+
+
 def recovery_phase(n_lines: int, flagship_lines: int) -> dict:
     for name, fn, args in (("ch2", recovery_ch2, (n_lines,)),
                            ("flagship", recovery_flagship, (flagship_lines,)),
@@ -3094,6 +3128,223 @@ def recovery_phase(n_lines: int, flagship_lines: int) -> dict:
         out = fn(*args)
         print(f"recovery {name}: {time.perf_counter() - t0:.1f} s")
         if name == "ch2":
+            result = out
+    return result
+
+
+# -- phase analysis: the pre-flight analyzer, the audit, the dump CLI --------
+
+CHAPTERS = ("chapter1_threshold", "chapter2_avg", "chapter2_max",
+            "chapter2_median", "chapter3_bandwidth",
+            "chapter3_bandwidth_eventtime", "chapter4_cep_alert",
+            "chapter5_dynamic_rules", "chapter6_tenant_fleet")
+
+
+def analysis_lint() -> None:
+    """``python -m tpustream_torch.analysis.lint`` over the port's chapter
+    jobs as a subprocess (exit 0, no error finding), then each job's
+    ``analyze()`` in this process, first call and warm."""
+    import importlib
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpustream_torch.analysis.lint"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=HERE)
+    lint_s = time.perf_counter() - t0
+    oks = [ln for ln in proc.stdout.splitlines() if ": ok (0 errors" in ln]
+    if proc.returncode != 0 or len(oks) != len(CHAPTERS):
+        raise AssertionError(f"analysis lint: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr[-2000:]}")
+    print(f"analysis lint: rc 0, {len(oks)} job modules with 0 errors, "
+          f"{lint_s} s as a subprocess")
+    for ch in CHAPTERS:
+        env = importlib.import_module(f"tpustream_torch.jobs.{ch}").lint_env()
+        t0 = time.perf_counter()
+        found = env.analyze()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        env.analyze()
+        warm = time.perf_counter() - t0
+        print(f"analysis analyze() {ch}: first_s={first} warm_s={warm} "
+              f"findings={[f.code for f in found]}")
+
+
+def analysis_strict_run(n_lines: int) -> dict:
+    """Chapter 2 at the job phase's shape with ``strict_analysis=True`` and
+    obs on, over a fetch group wider than its window (a TSM009 WARN, which
+    strict analysis lets through): rows against the oracle, the kernel on
+    the path, the finding's counter and breadcrumb, and the pre-flight's
+    share of the wall. Then the kernel against its plain version on the
+    inputs of its second call on this path."""
+    import tpustream_torch.analysis as A
+    from tpustream_torch import StreamExecutionEnvironment
+    from tpustream_torch.config import ObsConfig, StreamConfig
+    from tpustream_torch.jobs.chapter2_max import build
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    want = oracle_rows(lines)
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=ANALYSIS_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+        strict_analysis=True, async_depth=2, fetch_group=4,
+        obs=ObsConfig(enabled=True)))
+    handle = build(env, env.add_source(ReplaySource(lines))).collect()
+    plain, spent = A.analyze, []
+
+    def timed_analyze(*a, **k):
+        t0 = time.perf_counter()
+        out = plain(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    box, undo = capture_kernel_call(index=1)
+    A.analyze = timed_analyze
+    S.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        env.execute("ComputeCpuMax")
+        wall = time.perf_counter() - t0
+    finally:
+        A.analyze = plain
+        undo()
+    launches = S.seq_rolling_reduce.launches
+    m = env.metrics
+    got = [tuple(t.values()) for t in handle.items]
+    series = {s["labels"].get("code"): s["value"]
+              for s in m.obs_snapshot()["metrics"]["series"]
+              if s["name"] == "analysis_findings_total"}
+    crumbs = [e["code"] for e in m.job_obs.flight.events()
+              if e["kind"] == "analysis_finding"]
+    on_card = ANALYSIS_DEVICE == "cuda"
+    if got != want or (on_card and launches < 1) or series != {"TSM009": 1} \
+            or crumbs != ["TSM009"] or len(spent) != 1:
+        raise AssertionError(
+            f"analysis strict run: rows equal the oracle {got == want}, "
+            f"launches {launches}, findings counters {series}, breadcrumbs "
+            f"{crumbs}, analyses {len(spent)}")
+    print(f"analysis strict run: chapter 2 strict_analysis=True obs on, "
+          f"{n_lines} lines, {m.steps} steps, rows equal the oracle, kernel "
+          f"launches={launches}, analysis_findings_total={series}; "
+          f"preflight_s={spent[0]} wall_s={wall} preflight_share="
+          f"{spent[0] / wall} events_per_s={n_lines / wall}")
+    if not on_card:
+        return {"launches": launches}
+    case = path_kernel_case("analysis (strict, obs on)", box["call"], 20)
+    return {"launches": launches, "case": case}
+
+
+def analysis_refusal() -> None:
+    """An event-time window with no timestamp assigner (TSM002) under
+    ``strict_analysis``: PlanAnalysisError before anything is allocated
+    on the card or launched."""
+    import torch
+
+    from tpustream_torch import (PlanAnalysisError, StreamExecutionEnvironment,
+                                 Time, TimeCharacteristic)
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs.chapter2_max import parse
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    on_card = ANALYSIS_DEVICE == "cuda"
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=ANALYSIS_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+        strict_analysis=True))
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    (env.add_source(ReplaySource(make_lines(1000, 64, seed=1))).map(parse)
+     .key_by(0).time_window(Time.seconds(5)).max(2).collect())
+    if on_card:
+        torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() if on_card else 0
+    S.reset_launches()
+    try:
+        env.execute("broken")
+    except PlanAnalysisError as e:
+        codes = [f.code for f in e.findings]
+    else:
+        raise AssertionError("analysis refusal: the broken job ran")
+    if on_card:
+        torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated() if on_card else 0
+    if "TSM002" not in codes or after != before or \
+            S.seq_rolling_reduce.launches or env.metrics is not None:
+        raise AssertionError(f"analysis refusal: codes {codes}, allocated "
+                             f"{before} -> {after}, launches "
+                             f"{S.seq_rolling_reduce.launches}")
+    print(f"analysis refusal: PlanAnalysisError {codes}; "
+          f"torch.cuda.memory_allocated {before} -> {after}; 0 launches")
+
+
+def analysis_audit() -> None:
+    """The state-layout audit of the recovery phase's snapshots: each
+    ``compatible`` against its job's graph; the chapter-2 snapshot
+    against the same graph under ``acc_dtype="float32"`` (its aggregated
+    leaf float32) ``incompatible`` with TSM042."""
+    from tpustream_torch import StreamExecutionEnvironment, TimeCharacteristic
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.jobs import chapter2_max, chapter3_bandwidth_eventtime
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    if set(SNAPSHOTS) != {"ch2", "flagship"}:
+        raise AssertionError("analysis audit: run phase recovery first "
+                             f"(snapshots kept: {sorted(SNAPSHOTS)})")
+
+    def env_for(module, event_time=False, **cfg):
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=ANALYSIS_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            **cfg))
+        if event_time:
+            env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+        module.build(env, env.add_source(ReplaySource([]))).collect()
+        return env
+
+    for label, env, path, want, code in (
+            ("ch2", env_for(chapter2_max), SNAPSHOTS["ch2"], "compatible", None),
+            ("flagship", env_for(chapter3_bandwidth_eventtime, True,
+                                 alert_capacity=1 << 16),
+             SNAPSHOTS["flagship"], "compatible", None),
+            ("ch2 under float32", env_for(chapter2_max, acc_dtype="float32"),
+             SNAPSHOTS["ch2"], "incompatible", "TSM042")):
+        t0 = time.perf_counter()
+        report = env.audit_checkpoint(path)
+        audit_s = time.perf_counter() - t0
+        codes = [f.code for f in report.findings]
+        if report.verdict != want or (code is not None and code not in codes):
+            raise AssertionError(f"analysis audit {label}: {report.verdict} "
+                                 f"{[str(f) for f in report.findings]}")
+        print(f"analysis audit {label}: {report.verdict} {codes} "
+              f"({len(report.manifest.leaves)} leaves, {audit_s} s)")
+
+
+def analysis_dump() -> None:
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpustream_torch.obs.dump",
+                           "--selftest"], capture_output=True, text=True,
+                          timeout=300, cwd=HERE)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not last.startswith("selftest ok"):
+        raise AssertionError(f"analysis dump: rc {proc.returncode} {last}\n"
+                             f"{proc.stderr[-2000:]}")
+    print(f"analysis dump: python -m tpustream_torch.obs.dump --selftest "
+          f"rc 0, {last} ({time.perf_counter() - t0} s)")
+
+
+ANALYSIS_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+HERE = os.path.dirname(os.path.abspath(__file__))  # the checkout's root
+
+
+def analysis_phase(n_lines: int) -> dict:
+    result = {}
+    for name, fn, args in (("lint", analysis_lint, ()),
+                           ("strict run", analysis_strict_run, (n_lines,)),
+                           ("refusal", analysis_refusal, ()),
+                           ("audit", analysis_audit, ()),
+                           ("dump", analysis_dump, ())):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"analysis {name}: {time.perf_counter() - t0:.1f} s")
+        if name == "strict run":
             result = out
     return result
 
@@ -3909,7 +4160,9 @@ def small_subnormal() -> None:
     the rolling max at 1e-309 (every max 0.0; ``seq_rolling.cu``'s
     explicit flush), a float32 rolling sum near 1e-39 (its stored
     float32 words flushed), a user filter ``usage > 0`` (a comparison),
-    and the median at 1e-39 and 1e-309, a copy path that keeps them."""
+    and the median at 1e-39 and 1e-309, a copy path that keeps them.
+    Then the one-row rule and the scan's zeros on ``seq_rolling.cu``,
+    against the JAX package's rows written out here."""
     from tpustream_torch import Tuple2, Tuple3
     from tpustream_torch.jobs import chapter2_avg, chapter2_max, chapter2_median
 
@@ -3960,6 +4213,30 @@ def small_subnormal() -> None:
                                  f"CPU {cpu[:4]}")
         print(f"small run subnormal {label}: {len(card)} rows, card equals "
               f"CPU (first {card[:2]})")
+    # the one-row rule and the scan's zeros through seq_rolling.cu: the rows the JAX
+    # package prints for the chapter-2 rolling max over these lines (a
+    # batch of one row copies a new key's value; a scan turns a flushed
+    # negative subnormal into +0.0), held on the card and on the CPU
+    from tpustream_torch.ops import seq_rolling as S
+
+    lines = ["1563452000 10.8.0.1 cpu0 1e-309", "1563452001 10.8.0.1 cpu0 3e-309",
+             "1563452002 10.8.0.2 cpu0 -2e-309"]
+    for label, batch, want in (
+            ("batch_size 1", 1, ["(10.8.0.1,cpu0,1e-309)", "(10.8.0.1,cpu0,0.0)",
+                                    "(10.8.0.2,cpu0,-2e-309)"]),
+            ("batch_size 4", 4, ["(10.8.0.1,cpu0,0.0)", "(10.8.0.1,cpu0,0.0)",
+                                    "(10.8.0.2,cpu0,0.0)"])):
+        S.reset_launches()
+        card, _, _ = run_job(chapter2_max, lines, "cuda", batch_size=batch)
+        launches = S.seq_rolling_reduce.launches
+        cpu, _, _ = run_job(chapter2_max, lines, "cpu", batch_size=batch)
+        card, cpu = [repr(t) for t in card], [repr(t) for t in cpu]
+        if card != want or cpu != want or launches < 1:
+            raise AssertionError(f"small subnormal rolling {label}: card "
+                                 f"{card}, CPU {cpu}, want {want}, kernel "
+                                 f"launches {launches}")
+        print(f"small run subnormal rolling {label}: card and CPU print "
+              f"the JAX package's rows {card}; kernel launches={launches}")
 
 
 def small_windows() -> None:
@@ -4324,7 +4601,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
-                            "cep,rules,fleet,obs,pipeline,recovery,acc32,small")
+                            "cep,rules,fleet,obs,pipeline,recovery,analysis,"
+                            "acc32,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=1_000_000)
     ap.add_argument("--flagship-lines", type=int, default=1_000_000,
@@ -4396,6 +4674,8 @@ def main() -> int:
     recovery = (timed("recovery", recovery_phase, args.lines,
                       args.flagship_lines)
                 if "recovery" in phases else {})
+    analysis = (timed("analysis", analysis_phase, args.obs_lines)
+                if "analysis" in phases else {})
     acc32 = (timed("acc32", acc32_phase, args.flagship_lines,
                    args.window_lines, args.obs_lines, args.reps)
              if "acc32" in phases else {})
@@ -4423,6 +4703,8 @@ def main() -> int:
              pipeline.get("case")),
             ("recovery", "float64", "max", recovery.get("launches"),
              recovery.get("case")),
+            ("analysis", "float64", "max", analysis.get("launches"),
+             analysis.get("case")),
             ("acc32_rolling", "float64", "sum",
              acc32.get("rolling", {}).get("launches"),
              acc32.get("rolling", {}).get("case"))):

@@ -2,7 +2,7 @@
 on the CPU.
 
 * Counterparts of the JAX package's tests/test_obs.py (its ``dump``
-  CLI cases aside: the CLI is not ported). The unit cases run over BOTH
+  CLI cases are in tests/test_torch_obs_dump.py). The unit cases run over BOTH
   packages, as cases of one parametrised test (fixture ``pk``): the
   registry, the Prometheus text (golden, byte-equal), the tracer ring,
   the snapshotter, the DerivedKeyTable snapshot invariant. The
@@ -652,22 +652,3 @@ def test_fetch_group_clamped_to_inflight_window():
     assert eff(8, 4) == 3   # clamped to async_depth - 1
     assert eff(2, 4) == 2   # under the window: honoured
     assert eff(4, 1) == 1   # no pipelining at all: a fetch a step
-
-
-# -- strict analysis: refused by name until the analyzer is ported --------
-
-def test_strict_analysis_refuses_by_name():
-    """``StreamConfig(strict_analysis=True)`` raises NotImplementedError
-    naming ROADMAP item 13b (the JAX package's probe, a dead restore
-    drill under strict analysis, raises PlanAnalysisError there; the
-    port has no analyzer yet). Obs on alone runs the job."""
-    def run(**cfg):
-        env = T.StreamExecutionEnvironment(StreamConfig(device="cpu", **cfg))
-        text = env.add_source(ReplaySource(["1563452051 10.8.22.1 cpu2 99.2"]))
-        h = text.map(ch1.parse).filter(lambda v: v.f2 > 90).collect()
-        env.execute("strict")
-        return [repr(t) for t in h.items]
-
-    with pytest.raises(NotImplementedError, match="13b"):
-        run(strict_analysis=True, restore_drill_interval_s=5.0)
-    assert run(obs=ObsConfig(enabled=True)) == ["(10.8.22.1,cpu2,99.2)"]

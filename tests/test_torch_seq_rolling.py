@@ -117,7 +117,9 @@ def test_repeated_key_arrival_order():
 def test_nan_and_signed_zero_follow_jnp(op):
     # the reference rolling step folds with jnp.maximum / jnp.minimum:
     # a NaN sticks to its key, and +0.0 beats -0.0 under max (-0.0 under
-    # min); a sequential fold with the jnp op is the oracle
+    # min); its scan adds 0.0 to every value of the batch first (a -0.0
+    # value folds as +0.0), and a stored -0.0 meets it. A sequential
+    # fold with the jnp op of each value + 0.0 is the oracle
     red = {"max": jnp.maximum, "min": jnp.minimum}[op]
     pool = np.array([np.nan, 0.0, -0.0, 1.5, -2.0, np.inf, -np.inf])
     rng = np.random.default_rng(5)
@@ -125,10 +127,11 @@ def test_nan_and_signed_zero_follow_jnp(op):
     keys = rng.integers(0, K, B).astype(np.int32)
     vals = pool[rng.integers(0, pool.size, B)].astype(np.float64)
     plane = np.full(K, S.IDENTITY[torch.float64][op], np.float64)
+    plane[::2] = -0.0  # keys seen before, at -0.0
     p = plane.copy()
     want = np.empty(B)
     for i, (k, v) in enumerate(zip(keys, vals)):
-        p[k] = float(red(jnp.float64(p[k]), jnp.float64(v)))
+        p[k] = float(red(jnp.float64(p[k]), jnp.float64(v) + 0.0))
         want[i] = p[k]
     got_plane, got_emis = _port(plane, keys, vals, op)
     assert np.isnan(want).any()
@@ -137,13 +140,25 @@ def test_nan_and_signed_zero_follow_jnp(op):
 
 
 def test_sum_keeps_negative_zero():
-    # the sum identity is -0.0: a key whose values are all -0.0 emits
-    # -0.0, as the reference's prefix sum does (0.0 + -0.0 would be 0.0)
+    # the sum identity is -0.0 (0.0 + -0.0 would be 0.0), so a key that
+    # has folded nothing keeps its plane row at -0.0, and where the
+    # reference keeps a -0.0 the port does: a batch of one row without a
+    # scan copies a new key's -0.0, and a seen key's stored -0.0 plus a
+    # -0.0 is -0.0. A scanned batch adds 0.0 to every value first, as the
+    # reference's scan does, so its -0.0 values fold as +0.0
+    plane = np.full(4, S.IDENTITY[torch.float64]["sum"])
+    p = torch.from_numpy(plane.copy())
+    one = torch.tensor([-0.0], dtype=torch.float64)
+    for fresh in (True, False):
+        emis = S.seq_rolling_reduce(p, torch.tensor([3], dtype=torch.int32),
+                                    one.clone(), "sum",
+                                    fresh=torch.tensor([fresh]))
+        assert _same_bits(emis.numpy(), np.array([-0.0]))
+    assert _same_bits(p.numpy(), np.array([-0.0, -0.0, -0.0, -0.0]))
     keys = np.array([3, 3, 1, 3], np.int32)
     vals = np.array([-0.0, -0.0, 0.0, 2.0])
-    plane = np.full(4, S.IDENTITY[torch.float64]["sum"])
     got_plane, got_emis = _port(plane, keys, vals, "sum")
-    assert _same_bits(got_emis, np.array([-0.0, -0.0, 0.0, 2.0]))
+    assert _same_bits(got_emis, np.array([0.0, 0.0, 0.0, 2.0]))
     assert _same_bits(got_plane, np.array([-0.0, 0.0, -0.0, 2.0]))
 
 

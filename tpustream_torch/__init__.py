@@ -27,7 +27,11 @@ uploads, steps in flight, the packed wire, device-side compaction,
 grouped fetches, parse-ahead), ingest lanes with in-place self-healing
 (``StreamConfig.ingest_lanes``), dead-letter quarantine
 (``StreamConfig.dead_letter``) and the adaptive pipeline controller
-(``ObsConfig.adaptive``). ``ROADMAP.md`` lists what is still to come.
+(``ObsConfig.adaptive``), and the pre-flight plan analyzer
+(``env.analyze()``, ``StreamConfig.strict_analysis``, ``Finding``,
+``PlanAnalysisError``; ``python -m tpustream_torch.analysis.lint``) with
+the checkpoint state-layout audit (``env.audit_checkpoint``). ``ROADMAP.md``
+lists what is still to come.
 """
 
 import os as _os
@@ -55,6 +59,7 @@ if _os.environ.get("TPUSTREAM_LANE_WORKER") == "1":
         "ProcessWindowFunction": "api.functions",
         "ReduceFunction": "api.functions",
         "OutputTag": "api.output",
+        "Finding": "analysis", "PlanAnalysisError": "analysis",
         "BroadcastStream": "broadcast", "RuleDescriptor": "broadcast",
         "RuleParam": "broadcast", "RuleSet": "broadcast",
         "RuleUpdate": "broadcast",
@@ -95,6 +100,7 @@ else:
         ReduceFunction,
     )
     from .api.output import OutputTag  # noqa: E402
+    from .analysis import Finding, PlanAnalysisError  # noqa: E402
     from .broadcast import (  # noqa: E402
         BroadcastStream,
         RuleDescriptor,
@@ -117,6 +123,7 @@ __all__ = [
     "BroadcastStream",
     "CEP",
     "FilterFunction",
+    "Finding",
     "JobServer",
     "KeySelector",
     "MapFunction",
@@ -124,6 +131,7 @@ __all__ = [
     "OutputTag",
     "Pattern",
     "PatternSelectFunction",
+    "PlanAnalysisError",
     "ProcessWindowFunction",
     "ReduceFunction",
     "RestartStrategies",

@@ -149,6 +149,28 @@ class StreamExecutionEnvironment:
             )
         self._broadcast = bs
 
+    def analyze(self) -> list:
+        """Pre-flight static analysis of the constructed graph: every
+        plan-lint and purity finding (tpustream_torch/analysis), worst
+        first. Pure inspection — nothing plans, builds or launches, and
+        the graph is not mutated. ``execute()`` runs the same analysis
+        automatically when ``config.strict_analysis`` or obs is on."""
+        from ..analysis import analyze
+
+        return analyze(self, self._sinks)
+
+    def audit_checkpoint(self, path: str):
+        """Audit an on-disk checkpoint's state layout against THIS job
+        graph without loading its arrays or building a program: returns
+        an :class:`tpustream_torch.analysis.state_audit.AuditReport` whose
+        verdict (compatible/incompatible/unknown) matches what an
+        actual restore would do, with TSM04x findings explaining any
+        drift. ``python -m tpustream_torch.analysis.audit`` is the CLI
+        form."""
+        from ..analysis.state_audit import audit_checkpoint
+
+        return audit_checkpoint(self, path, self._sinks)
+
     def execute(self, job_name: str = "tpustream job"):
         """Phase B: plan, build the device program, and run the job to
         source exhaustion.

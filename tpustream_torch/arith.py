@@ -38,12 +38,33 @@ through a jitted JAX function on the CPU
 * everything else passes the bits through: indexing, gathers,
   scatter-sets, concatenation, reshapes, clones, ``where``, and the
   sign-bit ops ``neg``, ``abs`` and ``copysign`` (XLA keeps a
-  subnormal's bits through all three).
+  subnormal's bits through all three);
+* :data:`IDENTITIES`: XLA's algebraic simplifier removes an op whose
+  other operand is a compile-time constant identity, so the op keeps
+  the bits of ``x``, a subnormal or a ``-0.0`` included. The set, each
+  probed against a jitted JAX function
+  (``test_subnormal_identities_match_jitted_xla``): ``x + 0``,
+  ``0 + x``, ``x - 0`` (``0`` as ``0.0``, ``-0.0`` or the int ``0``),
+  ``x * 1``, ``1 * x``, ``x / 1``, ``x ** 1`` and the clamps with
+  infinite or absent bounds pass ``x``; ``x * -1``, ``-1 * x``,
+  ``x / -1`` and ``-0.0 - x`` are ``-x``. Only a Python or numpy
+  number counts as a constant, and only where the result keeps ``x``'s
+  dtype: a ``0.0`` that arrives as a tensor is data, and XLA does not
+  remove the op then either. ``0.0 - x``, ``x * 0.0`` and chains of
+  constants (``x * 0.5 * 2.0``, which XLA folds) are computed.
+* ``sqrt`` (and ``x ** 0.5``, which XLA computes as a square root) is
+  correctly rounded, as XLA's is: torch's CPU ``sqrt`` and ``pow`` of
+  float32 and float64 tensors are one ulp off for about one value in a
+  hundred, so on the CPU the root is numpy's. XLA's ``rsqrt`` (which is
+  also what it makes of ``1 / sqrt(x)``) is an approximation within one
+  ulp that no torch op reproduces; it is not copied.
 
 :func:`flush_subnormal` is the flush itself, for the framework's own
 arithmetic outside user functions (the 32-bit narrowing in
 ``ops/wordplanes.py``, the ordered merge's plain version, the rolling
-kernel's plain version).
+kernel's plain version). :func:`plus_zero` is XLA's ``x + 0.0``, which
+``jax.lax.associative_scan`` applies to every float it interleaves:
+``ops/segments.py`` and the rolling kernel copy it.
 
 It sits below both ``ops`` and ``runtime``, which both use it.
 """
@@ -72,6 +93,20 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     # flush reads the same under reference_arithmetic's mode
     return torch.copysign(
         torch.nn.functional.hardshrink(x, _largest_subnormal(x.dtype)), x)
+
+
+def plus_zero(x: torch.Tensor) -> torch.Tensor:
+    """``x + 0.0`` as XLA computes it, with denormals-are-zero: a
+    subnormal or a zero of either sign becomes ``+0.0``; NaN, inf,
+    normal floats and non-float tensors are as they are.
+    ``jax.lax.associative_scan`` interleaves its halves by padding each
+    with zeros and adding them, so every float a scan emits has passed
+    through this."""
+    if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+        return x
+    # hardshrink writes +0.0 for |x| <= the largest subnormal, -0.0
+    # included: one op on any device
+    return torch.nn.functional.hardshrink(x, _largest_subnormal(x.dtype))
 
 
 _LARGEST_SUBNORMAL = {}
@@ -124,6 +159,91 @@ COMPARED = frozenset(
 # conversions: flushed on both sides when a float dtype changes
 CONVERSIONS = frozenset(
     ("to", "type", "type_as", "float", "double", "half", "bfloat16"))
+
+
+def _is_number(c) -> bool:
+    return isinstance(c, numbers.Real) and not isinstance(c, (bool, np.bool_))
+
+
+def _number_is(c, *values) -> bool:
+    return _is_number(c) and any(
+        float(c) == v and math.copysign(1.0, float(c)) == math.copysign(1.0, v)
+        for v in values)
+
+
+# the ops XLA's simplifier removes with a constant operand (the module's
+# note), by name
+_ADD = ("add", "__add__", "__radd__", "add_", "__iadd__")
+_SUB = ("sub", "subtract", "__sub__", "sub_", "__isub__")
+_MUL = ("mul", "multiply", "__mul__", "__rmul__", "mul_", "__imul__")
+IDENTITIES = frozenset(
+    _ADD + _SUB + _MUL + ("__rsub__", "rsub", "pow", "pow_", "__pow__",
+                          "__ipow__", "clamp", "clip", "clamp_", "clip_",
+                          "clamp_min", "clamp_max", "clamp_min_",
+                          "clamp_max_"))
+
+
+def _identity(name: str, args: tuple, kwargs: dict):
+    """``"x"`` or ``"neg"`` when XLA's simplifier removes this op (the
+    module's note), else None."""
+    if not (args and isinstance(args[0], torch.Tensor)
+            and args[0].is_floating_point()):
+        return None
+    x, c = args[0], (args[1] if len(args) > 1 else None)
+    if name.startswith("clamp") or name.startswith("clip"):
+        if name.startswith("clamp_max"):
+            lo, hi = None, kwargs.get("max", c)
+        elif name.startswith("clamp_min"):
+            lo, hi = kwargs.get("min", c), None
+        else:
+            lo = kwargs.get("min", c)
+            hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+        ok = ((lo is None or _number_is(lo, -math.inf))
+              and (hi is None or _number_is(hi, math.inf)))
+        return "x" if ok else None
+    if kwargs or len(args) != 2 or not _is_number(c):
+        return None
+    if torch.result_type(x, c) != x.dtype:
+        return None  # a conversion: XLA computes it
+    if name in _ADD or name in _SUB:
+        return "x" if _number_is(c, 0.0, -0.0) else None
+    if name in _MUL:
+        if _number_is(c, 1.0):
+            return "x"
+        return "neg" if _number_is(c, -1.0) else None
+    if name in ("__rsub__", "rsub"):
+        return "neg" if _number_is(c, -0.0) else None
+    return "x" if _number_is(c, 1.0) else None  # pow
+
+
+def _in_place(name: str) -> bool:
+    return (name.endswith("_") and not name.startswith("__")
+            or name.startswith("__i"))
+
+
+def _apply_identity(kind: str, name: str, x: torch.Tensor) -> torch.Tensor:
+    if _in_place(name):
+        return x.neg_() if kind == "neg" else x
+    return torch.neg(x) if kind == "neg" else x.clone()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``x`` (XLA's): numpy's on the
+    CPU, where torch's vector path is one ulp off for some values;
+    torch's own elsewhere (CUDA's ``sqrt`` is correctly rounded)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    out = torch.empty_like(x)
+    with np.errstate(invalid="ignore"):  # a negative root is NaN, as XLA's
+        np.sqrt(x.numpy(), out=out.numpy())
+    return out
+
+
+def _pow_half(x: torch.Tensor) -> torch.Tensor:
+    # pow(x, 0.5): the root, with pow's -0.0 -> +0.0, -inf -> +inf and a
+    # positive NaN for a negative base (the root's NaN is negative)
+    root = torch.where(x < 0, math.nan, plus_zero(_sqrt(x)))
+    return torch.where(x == -math.inf, math.inf, root)
 
 
 def _maximum(a, b):
@@ -196,9 +316,20 @@ class _ReferenceArithmetic(torch.overrides.TorchFunctionMode):
             inv = 1.0 / d if d != 0 else math.copysign(math.inf, d)
             func, args = torch.mul, (args[0], inv)
         name = getattr(func, "__name__", "") if self.flush else ""
+        if name in IDENTITIES:
+            kind = _identity(name, args, kwargs)
+            if kind is not None:
+                return _apply_identity(kind, name, args[0])
+        if (name in ("sqrt", "sqrt_", "pow", "pow_", "__pow__", "__ipow__")
+                and len(args) >= 1 and isinstance(args[0], torch.Tensor)
+                and args[0].is_floating_point() and not kwargs
+                and (name.startswith("sqrt") and len(args) == 1
+                     or len(args) == 2 and _number_is(args[1], 0.5))):
+            root = (_sqrt if name.startswith("sqrt") else _pow_half)(
+                flush_subnormal(args[0]))
+            return args[0].copy_(root) if _in_place(name) else root
         if name in FLUSHED or name in COMPARED:
-            in_place = (name.endswith("_") and not name.startswith("__")
-                        or name.startswith("__i"))
+            in_place = _in_place(name)
             # an ``out=`` tensor is written, not read: flushed after
             kw = {k: v if k == "out" else _flush_arg(v)
                   for k, v in kwargs.items()}

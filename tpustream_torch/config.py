@@ -423,10 +423,12 @@ class StreamConfig:
 
     # -- pre-flight analysis (tpustream/analysis) ---------------------------
     strict_analysis: bool = False
-    # In the reference, True runs the static plan analyzer before planning
-    # and any ERROR finding raises PlanAnalysisError. The analyzer is not
-    # ported (ROADMAP item 13b): here True makes execute() raise
-    # NotImplementedError, and False (default) runs no analysis.
+    # True: execute() runs the static plan analyzer BEFORE planning,
+    # allocating or launching anything, and any ERROR finding raises
+    # PlanAnalysisError (the job never builds). False (default): analysis
+    # still runs when obs is enabled — findings become flight breadcrumbs
+    # and analysis_findings_total{code=...} counters — but never blocks.
+    # docs/analysis.md catalogs the TSM0xx rules.
 
     # -- observability ------------------------------------------------------
     obs: ObsConfig = field(default_factory=ObsConfig)

@@ -63,7 +63,8 @@ def health_rules(stall_s: float = 30.0):
 
 
 def lint_env() -> StreamExecutionEnvironment:
-    """Constructed-but-never-executed env for the pre-flight analyzer."""
+    """Constructed-but-never-executed env for the pre-flight analyzer
+    (``python -m tpustream_torch.analysis.lint``)."""
     env = StreamExecutionEnvironment.get_execution_environment()
     build(env, env.from_collection([])).print()
     return env

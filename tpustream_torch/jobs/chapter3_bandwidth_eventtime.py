@@ -57,6 +57,14 @@ def build(env: StreamExecutionEnvironment, text,
     )
 
 
+def lint_env() -> StreamExecutionEnvironment:
+    """Constructed-but-never-executed env for the pre-flight analyzer."""
+    env = StreamExecutionEnvironment.get_execution_environment()
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    build(env, env.from_collection([])).print()
+    return env
+
+
 def main(host: str = "localhost", port: int = 8080) -> None:
     env = StreamExecutionEnvironment.get_execution_environment()
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)

@@ -85,6 +85,17 @@ def build(env: StreamExecutionEnvironment, text,
     )
 
 
+def lint_env() -> StreamExecutionEnvironment:
+    """Constructed-but-never-executed env for the pre-flight analyzer."""
+    env = StreamExecutionEnvironment.get_execution_environment()
+    env.set_stream_time_characteristic(TimeCharacteristic.EventTime)
+    timeout_tag = OutputTag("breach-timeout")
+    alerts = build(env, env.from_collection([]), timeout_tag=timeout_tag)
+    alerts.print()
+    alerts.get_side_output(timeout_tag).print()
+    return env
+
+
 def main(host: str = "localhost", port: int = 8080) -> None:
     env = StreamExecutionEnvironment.get_execution_environment()
     env.set_stream_time_characteristic(TimeCharacteristic.EventTime)

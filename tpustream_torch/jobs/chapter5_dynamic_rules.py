@@ -83,6 +83,16 @@ def control_lines(updates: Sequence[Tuple[int, float]]) -> List[str]:
     return [f"threshold {v} {pos}" for pos, v in updates]
 
 
+def lint_env() -> StreamExecutionEnvironment:
+    """Constructed-but-never-executed env for the pre-flight analyzer."""
+    env = StreamExecutionEnvironment.get_execution_environment()
+    rules = make_rules()
+    text = env.from_collection([])
+    control = env.from_collection([])
+    build(env, text, control, rules).print()
+    return env
+
+
 def main(
     host: str = "localhost",
     port: int = 8080,

@@ -99,6 +99,19 @@ def expected(
     return oracle(lines, updates, threshold=threshold)
 
 
+def lint_env():
+    """Constructed-but-never-executed fleet env for the pre-flight
+    analyzer: two tenants through JobServer.build_job, so the tenant
+    template check (TSM008) exercises the real fleet graph."""
+    from tpustream_torch import StreamExecutionEnvironment
+
+    server = make_fleet({"tenant00": 90.0, "tenant01": 95.0})
+    env = StreamExecutionEnvironment(server.config)
+    server.build_job(env)
+    server.env = env
+    return env
+
+
 def main(n_tenants: int = 8, records_per_tenant: int = 64) -> None:
     """Demo: an n-tenant fleet through one built program, with a hot
     threshold update and a removal mid-stream."""

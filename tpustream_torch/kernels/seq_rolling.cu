@@ -66,6 +66,18 @@
 // operands is one of them). PTX has no .ftz for float64, so the flush is
 // explicit (ftz below) for both float types. A padding row's emission is
 // its own value, unflushed: it is a copy.
+//
+// Two rules more copy where the reference's step (tpustream/ops/
+// rolling.py::_rolling_step_commutative) runs no arithmetic at all or
+// runs an add the reader would not expect. A batch of two rows or more
+// goes through its segmented scan, whose jax.lax.associative_scan
+// interleaves halves by padding them with zeros and adding them: every
+// value comes out as XLA's x + 0.0, a subnormal or a zero of either
+// sign as +0.0 (plus_zero below; max, min and sum distribute over it).
+// A batch of one row has no scan. The caller says so by passing fresh
+// (one byte: whether the row's key is new to its state): the value is
+// then copied, not even flushed, for a new key, and combined with the
+// flushed stored value for any other.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,6 +114,18 @@ __device__ __forceinline__ T ftz(T x) {
   } else {
     const T tiny = sizeof(T) == 8 ? T(DBL_MIN) : T(FLT_MIN);
     return fabs(x) < tiny ? copysign(T(0), x) : x;
+  }
+}
+
+// XLA's x + 0.0 with denormals-are-zero: a subnormal or a zero of either
+// sign as +0.0; NaN, inf and normal floats, and integers, as they are.
+template <typename T>
+__device__ __forceinline__ T plus_zero(T x) {
+  if constexpr (std::is_integral<T>::value) {
+    return x;
+  } else {
+    const T tiny = sizeof(T) == 8 ? T(DBL_MIN) : T(FLT_MIN);
+    return fabs(x) < tiny ? T(0) : x;
   }
 }
 
@@ -209,6 +233,7 @@ struct Args {
   T* plane;
   T* emis;
   int* bad_keys;  // or null
+  const uint8_t* fresh;  // B == 1 without a scan: the row's key is new
   int B, K, passes, n_tiles;
   uint64_t* pairs_a;
   uint64_t* pairs_b;
@@ -363,8 +388,12 @@ __device__ void reduce_tile(const Args<T>& a, const uint64_t* pairs,
       prev = key;
       T x = __ldg(a.vals + uint32_t(p));
       if (key < uint32_t(a.K)) {
-        x = ftz(x);
-        if (head) x = combine<T, OP>(ftz(a.plane[key]), x);
+        if (a.fresh == nullptr) {
+          x = plus_zero(x);
+          if (head) x = combine<T, OP>(ftz(a.plane[key]), x);
+        } else if (!a.fresh[uint32_t(p)]) {
+          x = combine<T, OP>(ftz(a.plane[key]), ftz(x));
+        }
       }
       a.xs[i] = x;
       acc = seg_combine<T, OP>(acc, Seg<T>{x, head});
@@ -549,7 +578,8 @@ cudaError_t launch_typed(int op, Args<T> a, cudaStream_t s) {
 
 template <typename T>
 Args<T> make_args(const void* keys, const void* vals, void* plane, void* emis,
-                  void* bad_keys, int B, int K, int passes, void* pairs_a,
+                  void* bad_keys, const void* fresh, int B, int K, int passes,
+                  void* pairs_a,
                   void* pairs_b, void* counts, void* xs, void* agg_v,
                   void* agg_f) {
   Args<T> a;
@@ -558,6 +588,7 @@ Args<T> make_args(const void* keys, const void* vals, void* plane, void* emis,
   a.plane = static_cast<T*>(plane);
   a.emis = static_cast<T*>(emis);
   a.bad_keys = static_cast<int*>(bad_keys);
+  a.fresh = static_cast<const uint8_t*>(fresh);
   a.B = B;
   a.K = K;
   a.passes = passes;
@@ -580,7 +611,10 @@ extern "C" int seq_rolling_digit_bits() { return kDigitBits; }
 
 // Plain C entry point, bound with ctypes. dtype: 0 = float32,
 // 1 = float64, 2 = int64; op: 0 = max, 1 = min, 2 = sum. bad_keys (one int32, or
-// null) gains the number of rows whose key is >= K. passes: radix
+// null) gains the number of rows whose key is >= K. fresh (one byte, or
+// null): given only for B == 1 that the reference steps without a scan,
+// nonzero when the row's key holds no value yet in the caller's state.
+// passes: radix
 // passes, enough that K < 2^(8 * passes). Scratch, from the caller:
 // pairs_a and pairs_b hold B uint64 each, counts passes * n_tiles * 256
 // uint32, xs B values, agg_v n_tiles values and agg_f n_tiles int32,
@@ -588,32 +622,34 @@ extern "C" int seq_rolling_digit_bits() { return kDigitBits; }
 // `stream` and returns its cudaError_t.
 extern "C" int seq_rolling_reduce_launch(
     int dtype, int op, const void* keys, const void* vals, void* plane,
-    void* emis, void* bad_keys, int B, int K, int passes, void* pairs_a,
-    void* pairs_b, void* counts, void* xs, void* agg_v, void* agg_f,
-    void* stream) {
+    void* emis, void* bad_keys, const void* fresh, int B, int K, int passes,
+    void* pairs_a, void* pairs_b, void* counts, void* xs, void* agg_v,
+    void* agg_f, void* stream) {
   if (B < 0 || K < 0 || passes < 1 || kDigitBits * passes > 32 ||
       (kDigitBits * passes < 32 &&
        (int64_t(K) >> (kDigitBits * passes)) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (fresh != nullptr && B != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
     err = launch_typed<float>(
-        op, make_args<float>(keys, vals, plane, emis, bad_keys, B, K, passes,
-                             pairs_a, pairs_b, counts, xs, agg_v, agg_f),
+        op, make_args<float>(keys, vals, plane, emis, bad_keys, fresh, B, K,
+                             passes, pairs_a, pairs_b, counts, xs, agg_v,
+                             agg_f),
         s);
   } else if (dtype == 1) {
     err = launch_typed<double>(
-        op, make_args<double>(keys, vals, plane, emis, bad_keys, B, K,
+        op, make_args<double>(keys, vals, plane, emis, bad_keys, fresh, B, K,
                               passes, pairs_a, pairs_b, counts, xs, agg_v,
                               agg_f),
         s);
   } else if (dtype == 2) {
     err = launch_typed<int64_t>(
-        op, make_args<int64_t>(keys, vals, plane, emis, bad_keys, B, K,
-                               passes, pairs_a, pairs_b, counts, xs, agg_v,
+        op, make_args<int64_t>(keys, vals, plane, emis, bad_keys, fresh, B,
+                               K, passes, pairs_a, pairs_b, counts, xs, agg_v,
                                agg_f),
         s);
   } else {

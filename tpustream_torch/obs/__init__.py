@@ -52,7 +52,10 @@ Prometheus reporter). This package provides:
 * :mod:`tpustream_torch.obs.slo` — per-tenant SLOs compiled into health
   rules.
 
-Not ported yet: the ``dump`` CLI (ROADMAP item 13d).
+* :mod:`tpustream_torch.obs.dump` — ``python -m tpustream_torch.obs.dump``
+  pretty-prints a snapshot file (table, Prometheus text, health,
+  tenants, ledger, profile, trace, a checkpoint directory's tree);
+  ``--selftest`` needs no input.
 
 Design stance: instruments update **per batch/step only** — never per
 record — and every hot-path hook has a null twin

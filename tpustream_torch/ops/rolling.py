@@ -130,8 +130,14 @@ def _combine_by(pos: int, is_max: bool):
     wins ties."""
 
     def combine(a, b):
-        better_b = b[pos] > a[pos] if is_max else b[pos] < a[pos]
-        return tuple(torch.where(better_b, fb, fa) for fa, fb in zip(a, b))
+        # the compared field as XLA reads it: its select between the two
+        # values it compared becomes a max/min instruction, which flushes
+        # them (the record's other fields are selected as they are)
+        ka, kb = flush_subnormal(a[pos]), flush_subnormal(b[pos])
+        better_b = kb > ka if is_max else kb < ka
+        return tuple(
+            torch.where(better_b, kb if i == pos else fb, ka if i == pos else fa)
+            for i, (fa, fb) in enumerate(zip(a, b)))
 
     return combine
 
@@ -335,15 +341,18 @@ def rolling_step(
                     if sentinel_leaf is not None else state["seen"])
         agg_plane = torch.where(occupied, stored_plane.to(wide),
                                 IDENTITY[wide][kind])
+    # a step of one row is a batch_size of 1 (the Runner never steps one
+    # row alone otherwise): the reference's step has no scan there and
+    # copies a new key's value
+    new_rows = valid & ~seen_rows
     emis_agg = seq_rolling_reduce(
         agg_plane, kid, cols[pos].to(agg_plane.dtype).contiguous(), kind,
-        bad_keys=bad_keys,
+        bad_keys=bad_keys, fresh=new_rows if n == 1 else None,
     )
 
     # keep-first leaves change only for keys never seen before; a warm
     # key space skips the first-row search and the plane writes
     keep_emis = stored_keep
-    new_rows = valid & ~seen_rows
     if bool(new_rows.any()):
         rows = torch.arange(n, device=keys.device)
         # each key's first row in this batch: invalid rows offer n, the

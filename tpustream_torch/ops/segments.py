@@ -18,6 +18,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from ..arith import plus_zero
+
 
 def sort_by_key(keys: torch.Tensor, valid: torch.Tensor, max_key: int = None):
     """Stable order: by key id, invalid rows last, ties by arrival position.
@@ -41,12 +43,15 @@ def sort_by_key(keys: torch.Tensor, valid: torch.Tensor, max_key: int = None):
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[a0, b0, a1, b1, ...] with len(a) - len(b) in {0, 1}."""
+    """[a0, b0, a1, b1, ...] with len(a) - len(b) in {0, 1}. JAX pads
+    each half with zeros and adds them, so a float comes out as XLA's
+    ``x + 0.0``: a subnormal or a zero of either sign as +0.0
+    (``arith.plus_zero``)."""
     out = torch.empty((a.shape[0] + b.shape[0],) + a.shape[1:],
                       dtype=a.dtype, device=a.device)
     out[0::2] = a
     out[1::2] = b
-    return out
+    return plus_zero(out)
 
 
 def associative_scan(fn: Callable, elems: Sequence[torch.Tensor]) -> List[torch.Tensor]:

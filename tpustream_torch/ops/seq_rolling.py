@@ -10,7 +10,14 @@ a ``[K]`` plane and ``[B]`` keys and values, in arrival order::
 Rows with a negative key (padding) fold nothing and emit their own
 value. Subnormal floats are flushed as the reference's compiler flushes
 them: each value folded and each stored value read as a zero of its
-sign, each float sum flushed when formed (``arith.flush_subnormal``). A plane that starts at the op's identity (:data:`IDENTITY`)
+sign, each float sum flushed when formed (``arith.flush_subnormal``).
+Where the reference's step runs its segmented scan (its batch has two
+rows or more), every value is first ``arith.plus_zero``'d, as the scan's
+interleave adds 0.0 to it: a subnormal or a zero of either sign folds as
++0.0. A batch of one row has no scan: the caller says so by passing
+``fresh`` (which of its rows' keys its state has never seen), and then
+a fresh key's value is copied, unflushed, and any other is combined
+with the flushed stored value. A plane that starts at the op's identity (:data:`IDENTITY`)
 makes every emission the running aggregate of its key: Flink's
 rolling-aggregate contract. An int64 ``sum`` wraps in two's complement,
 as the reference's int64 sum and Java's ``long`` do.
@@ -28,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from ..arith import flush_subnormal
+from ..arith import flush_subnormal, plus_zero
 
 OPS = ("max", "min", "sum")
 
@@ -106,7 +113,7 @@ def scratch_layout(n_rows: int, n_keys: int, itemsize: int):
     return tuple(offsets), end
 
 
-def _check(plane, keys, vals, op, bad_keys):
+def _check(plane, keys, vals, op, bad_keys, fresh=None):
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     if plane.dtype not in _DTYPE_CODES:
@@ -136,14 +143,29 @@ def _check(plane, keys, vals, op, bad_keys):
         raise ValueError(
             "bad_keys must be one int32 element on the plane's device"
         )
+    if fresh is not None and not (
+        fresh.dtype == torch.bool and fresh.shape == keys.shape
+        and fresh.numel() == 1
+        and fresh.is_contiguous() and fresh.device == plane.device
+    ):
+        raise ValueError(
+            "fresh must be one bool element shaped like keys (a batch of "
+            "one row), on the plane's device"
+        )
 
 
 def seq_rolling_reduce(
     plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     op: str = "max", bad_keys: Optional[torch.Tensor] = None,
+    fresh: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fold ``vals`` into ``plane`` by ``keys`` in arrival order and
     return the per-row emissions (shaped like ``vals``).
+
+    ``fresh`` (bool, one element, or None): for a batch of one row that
+    the reference steps without a scan, whether the row's key is new to
+    the caller's state; such a row's value is copied (see the module's
+    note). None: the batch is scanned.
 
     ``plane`` (float32, float64 or int64, any shape, read as flat ``[K]``) is
     updated IN PLACE, as the TPU kernel aliases its plane input to its
@@ -161,9 +183,9 @@ def seq_rolling_reduce(
     synchronisation; a refused launch raises). CPU tensors take the plain
     version. Any other device raises.
     """
-    _check(plane, keys, vals, op, bad_keys)
+    _check(plane, keys, vals, op, bad_keys, fresh)
     if plane.device.type == "cpu":
-        return seq_rolling_reduce_ref(plane, keys, vals, op, bad_keys)
+        return seq_rolling_reduce_ref(plane, keys, vals, op, bad_keys, fresh)
     if plane.device.type != "cuda":
         raise RuntimeError(f"no seq_rolling_reduce kernel for {plane.device}")
     if bad_keys is None:
@@ -172,7 +194,7 @@ def seq_rolling_reduce(
             "of out-of-range keys"
         )
     emis = torch.empty_like(vals)
-    launch(plane, keys, vals, op, emis, bad_keys)
+    launch(plane, keys, vals, op, emis, bad_keys, fresh)
     seq_rolling_reduce.launches += 1
     by_dtype = seq_rolling_reduce.launches_by_dtype
     name = str(plane.dtype).rsplit(".", 1)[-1]
@@ -210,7 +232,7 @@ def _entry():
             )
     fn = lib.seq_rolling_reduce_launch
     fn.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 7
     )
     fn.restype = ctypes.c_int
@@ -220,6 +242,7 @@ def _entry():
 def launch(
     plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor, op: str,
     emis: torch.Tensor, bad_keys: Optional[torch.Tensor] = None,
+    fresh: Optional[torch.Tensor] = None,
 ) -> None:
     """Launch the kernel into ``emis`` on the current stream, with none of
     :func:`seq_rolling_reduce`'s checks and without counting: for timing
@@ -236,6 +259,7 @@ def launch(
             _DTYPE_CODES[plane.dtype], _OP_CODES[op],
             keys.data_ptr(), vals.data_ptr(), plane.data_ptr(), emis.data_ptr(),
             None if bad_keys is None else bad_keys.data_ptr(),
+            None if fresh is None else fresh.data_ptr(),
             n, k, sort_passes(k), *(base + o for o in offsets),
             torch.cuda.current_stream(plane.device).cuda_stream,
         )
@@ -246,6 +270,7 @@ def launch(
 def seq_rolling_reduce_ref(
     plane: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     op: str = "max", bad_keys: Optional[torch.Tensor] = None,
+    fresh: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`seq_rolling_reduce`, on any device.
 
@@ -279,7 +304,9 @@ def seq_rolling_reduce_ref(
         bad_keys += over.sum().to(bad_keys.dtype)
         k = torch.where(over, -1, k)
     sk, perm = torch.sort(k, stable=True)
-    x = flush_subnormal(v[perm])
+    # the reference's scan adds 0.0 to every value; with ``fresh`` there
+    # is no scan
+    x = plus_zero(v[perm]) if fresh is None else flush_subnormal(v[perm])
     starts = torch.ones(n, dtype=torch.bool, device=k.device)
     starts[1:] = sk[1:] != sk[:-1]
     tails = torch.ones_like(starts)
@@ -295,6 +322,9 @@ def seq_rolling_reduce_ref(
         d *= 2
     valid = sk >= 0
     total = reducer(flush_subnormal(flat[sk.clamp(min=0)]), x)
+    if fresh is not None:
+        # no scan and no combine: a fresh key's value is a copy
+        total = torch.where(fresh.reshape(-1)[perm], v[perm], total)
     emis[perm] = torch.where(valid, total, v[perm])
     write = tails & valid
     flat[sk[write]] = total[write]

@@ -86,12 +86,12 @@ MIGRATIONS = {
        "supervision session's nonce; snapshots are now named by source "
        "position (monotone across restart attempts, where the per-attempt "
        "batch counter is not)",
-    9: "dynamic rules (the broadcast package) — a broadcast-parameterized "
+    9: "dynamic rules (tpustream_torch/broadcast) — a broadcast-parameterized "
        "job's state pytree carries rule leaves (__rules__/"
        "__rule_version__), and meta records the host RuleSet's values "
        "plus its applied-update count so a restore re-syncs the "
        "control-feed cursor exactly-once",
-    10: "multi-tenancy (the tenancy package) — rule leaves may be [T] "
+    10: "multi-tenancy (tpustream_torch/tenancy) — rule leaves may be [T] "
         "per-tenant vectors (rule_values carries the tenant table under "
         "\"__tenant__\"), and meta gains a ``tenancy`` dict: the "
         "JobServer's tenant→slot map, admitted/quota counters, and slot "
@@ -891,8 +891,7 @@ def latest_checkpoint(directory: str, flight=None, audit=None) -> Optional[str]:
     ``audit`` (optional): a ``path -> Optional[str]`` callable consulted
     AFTER basic validation passes, returning a reason string when the
     snapshot cannot restore into the current job graph; None lets the
-    snapshot through. (The reference's state-layout auditor is ROADMAP
-    item 13b; the supervisor here passes None.)"""
+    snapshot through. The supervisor passes its ``_layout_audit``."""
     if not os.path.isdir(directory):
         return None
     candidates: List[str] = []

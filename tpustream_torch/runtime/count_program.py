@@ -60,6 +60,9 @@ class CountWindowProgram(WindowProgram):
     operator_name = "count_window"
     # no pane ring: count state is per-key accumulators + open counts
     STATE_COMPONENT_KEYS = {"count_acc": ("acc", "cnt")}
+    # the reference's count state shards as the rolling state does
+    KEY_AXIS_MIN_NDIM = 1
+    key_sharded_leaves = BaseProgram.key_sharded_leaves
 
     fires_on_clock = False
     main_emission_prefix = False  # a mask selects the rows

@@ -1235,8 +1235,15 @@ class Runner:
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
+            sub = batch.slice_rows(start, stop)
+            if sub.n == 1 and size > 1:
+                # the reference steps every batch padded to batch_size,
+                # and its scans add 0.0 to every float they emit once
+                # they hold two rows (arith.plus_zero): one row alone
+                # steps with one invalid row beside it
+                sub = sub.pad_to(2)
             with self.obs.span("pack", self._step_idx + 1):
-                inputs = self._pack_batch(batch.slice_rows(start, stop))
+                inputs = self._pack_batch(sub)
             self._stage_step(inputs, wm_lower, t_batch)
             if self.count_input:
                 self.metrics.records_in += stop - start
@@ -2293,17 +2300,21 @@ def execute_job(env, sink_nodes) -> JobResult:
     runtime/supervisor.py: the strategy decides whether the job
     restarts, and a restart rebuilds the chain and resumes exactly-once
     from the latest valid checkpoint. Unset (the default), the first
-    failure propagates.
+    failure propagates."""
+    # pre-flight static analysis (tpustream_torch/analysis): runs ONCE
+    # per submission, before supervision, planning, any allocation or
+    # any launch. Under strict_analysis an ERROR finding aborts the job
+    # here; otherwise (obs on) the findings stash on the env and the
+    # first attempt's _execute_job turns them into counters + flight
+    # breadcrumbs.
+    if getattr(env.config, "strict_analysis", False) or env.config.obs.enabled:
+        from ..analysis import PlanAnalysisError, analyze, has_errors
 
-    ``StreamConfig(strict_analysis=True)`` raises ``NotImplementedError``:
-    the reference's pre-flight plan analyzer (tpustream/analysis) is not
-    ported yet (ROADMAP item 13b). Obs alone does not refuse: there the
-    reference's analysis only mints counters and never blocks."""
-    if getattr(env.config, "strict_analysis", False):
-        raise NotImplementedError(
-            "StreamConfig(strict_analysis=True) is not ported to the "
-            "PyTorch runtime: the static plan analyzer is ROADMAP item 13b"
-        )
+        findings = analyze(env, sink_nodes)
+        if findings:
+            env._analysis_findings = findings
+        if getattr(env.config, "strict_analysis", False) and has_errors(findings):
+            raise PlanAnalysisError(findings)
     if env.config.ingest_lanes > 1 and env.config.obs.enabled:
         # lane recovery keeps the job running with no restart: it
         # surfaces through a built-in WARN health rule, installed before
@@ -2484,6 +2495,23 @@ def _make_job_obs(env, cfg: StreamConfig, supervision=None):
             error=_native_mod.build_error() or "build not attempted")
     else:
         job_obs.flight.record("native_parse_ready")
+    # pre-flight analysis findings (stashed by execute_job; popped so a
+    # supervised restart doesn't double-count): WARN/ERROR go to the
+    # flight ring, every finding increments the per-code counter
+    pending_findings = env.__dict__.pop("_analysis_findings", None)
+    if pending_findings and job_obs.enabled:
+        for f in pending_findings:
+            job_obs.group.group(code=f.code).counter(
+                "analysis_findings_total"
+            ).inc()
+            if f.severity in ("error", "warn"):
+                job_obs.flight.record(
+                    "analysis_finding",
+                    code=f.code,
+                    severity=f.severity,
+                    node=repr(f.node) if f.node is not None else None,
+                    message=f.message,
+                )
     return metrics, job_obs
 
 

@@ -34,7 +34,7 @@ from ..ops.segments import segment_ranks, segment_tails, sort_by_key
 from ..records import BOOL, F64, NUMPY_DTYPES, STR
 from .device import TORCH_DTYPES
 from ..utils.tree import to_host
-from .step import host_leaves, no_exchange
+from .step import BaseProgram, host_leaves, no_exchange
 from .window_program import WindowProgram, _dirty
 
 COUNTERS = ("evicted_unfired", "buffer_overflow", "late_dropped")
@@ -60,6 +60,9 @@ class ProcessWindowProgram(WindowProgram):
     before the next step."""
 
     operator_name = "process_window"
+    # [K, N, cap] buffers and [K, N] counts shard on the key axis by
+    # rank, not as WindowProgram's flat planes do
+    key_sharded_leaves = BaseProgram.key_sharded_leaves
     STATE_COMPONENT_KEYS = {
         "process_buffers": ("buf", "cnt"),
         "pane_ring": ("slot_pane",),

@@ -54,7 +54,7 @@ from .device import TORCH_DTYPES, dummy_leaf
 from .plan import JobPlan
 from .process_program import ProcessWindowProgram, host_values
 from ..utils.tree import to_host
-from .step import host_leaves, no_exchange
+from .step import BaseProgram, host_leaves, no_exchange
 from .window_program import WindowProgram
 
 COUNTERS = ("evicted_unfired", "alert_overflow", "window_fires", "late_dropped")
@@ -87,6 +87,9 @@ class _SessionCommon:
     late test (probes of panes p-1, p, p+1 and the intra-batch rescue
     closure), the ring head, the coverage guard; and the session-run
     detection over a ring of cells."""
+
+    # typed [K, N] cells shard on the key axis by rank
+    key_sharded_leaves = BaseProgram.key_sharded_leaves
 
     @property
     def gap_ms(self) -> int:

@@ -35,7 +35,7 @@ from ..config import StreamConfig
 from ..ops import panes as pane_ops
 from ..ops import rolling as rolling_ops
 from ..records import I64, STR
-from ..utils.tree import to_host
+from ..utils.tree import to_host, tree_leaves, tree_unflatten
 from .device import DeviceChain, record_combiner
 from .plan import JobPlan
 
@@ -176,6 +176,22 @@ class BaseProgram:
         finally:
             self.device = dev
 
+    # the reference's state_specs shard a leaf of this rank or more on
+    # the key axis (tpustream/runtime/step.py BaseProgram.state_specs)
+    KEY_AXIS_MIN_NDIM = 2
+
+    def key_sharded_leaves(self, spec: dict) -> dict:
+        """``spec`` (a :meth:`jax_state_spec`) with each leaf replaced by
+        whether the reference's ``state_specs`` shard it on the key axis:
+        by rank here, never a rule leaf. A restore grows such a leaf's
+        leading key rows (the state audit's TSM043 reads it)."""
+        out = tree_unflatten(spec, [np.ndim(x) >= self.KEY_AXIS_MIN_NDIM
+                                    for x in tree_leaves(spec)])
+        for k in (RULES_KEY, RULE_VERSION_KEY):
+            if k in out:
+                out[k] = all_false(out[k])
+        return out
+
     def obs_state_scalars(self, state: dict) -> dict:
         """The OBS_STATE_SCALARS this program keeps in ``state`` as host
         ints (reading them never waits on the card)."""
@@ -217,6 +233,11 @@ class BaseProgram:
         if self.plan.synthetic_key:
             return self.plan.tables[-1] if self.plan.tables else None
         return self.mid_tables[self.key_pos]
+
+
+def all_false(tree):
+    """``tree``'s structure with False at every leaf."""
+    return tree_unflatten(tree, [False] * len(tree_leaves(tree)))
 
 
 class StatelessProgram(BaseProgram):
@@ -292,6 +313,7 @@ class RollingProgram(BaseProgram):
 
     operator_name = "rolling"
     STATE_COMPONENT_KEYS = {"rolling_planes": ("seen", "planes")}
+    KEY_AXIS_MIN_NDIM = 1  # seen [K] and the [K] planes
 
     def __init__(self, plan: JobPlan, cfg: StreamConfig):
         super().__init__(plan, cfg)

@@ -30,10 +30,10 @@ lanes and checkpoint writer are torn down and rebuilt. A device-side
 fault that poisons the CUDA context (a sticky error) cannot be recovered
 this way; the faults this module handles are host-side.
 
-The reference's state-layout audit of each candidate snapshot
-(``_layout_audit``) needs its static analyzer, which is ROADMAP item 13b:
-here ``latest_checkpoint`` runs with ``audit=None``, and a snapshot that
-cannot restore into the job graph fails its restore attempt instead.
+Each candidate snapshot is audited against the job graph before the
+restore commits to it (``_layout_audit``, the static state-layout
+auditor of analysis/state_audit.py): one whose leaf tree cannot restore
+is skipped with the audit's reason.
 """
 
 from __future__ import annotations
@@ -266,6 +266,39 @@ def _install_restore_drill_health_rules(env) -> None:
     )
 
 
+def _layout_audit(env, sink_nodes, flight):
+    """The ``latest_checkpoint(audit=...)`` hook: run the static
+    state-layout auditor (analysis/state_audit.py) over each candidate
+    snapshot BEFORE the supervisor commits to restoring it. A snapshot
+    whose leaf tree cannot restore into the current job graph is
+    skipped with the audit reason in the ``checkpoint_skipped``
+    breadcrumb — instead of failing mid-restore on the next attempt.
+    Every audit leaves a ``checkpoint_audit`` breadcrumb, a crashed one
+    too (verdict ``"crashed"``); auditor crashes never block recovery
+    (the restore path is authoritative)."""
+
+    def audit(path):
+        try:
+            from ..analysis.state_audit import audit_checkpoint
+
+            report = audit_checkpoint(env, path, sink_nodes)
+        except Exception as e:
+            flight.record("checkpoint_audit", path=path, verdict="crashed",
+                          codes=[], error=f"{type(e).__name__}: {e}")
+            return None
+        flight.record(
+            "checkpoint_audit",
+            path=path,
+            verdict=report.verdict,
+            codes=[f.code for f in report.findings],
+        )
+        if report.verdict == "incompatible":
+            return report.reason or "state layout incompatible"
+        return None
+
+    return audit
+
+
 def supervise(env, sink_nodes, run_attempt):
     """Run ``run_attempt(env, sink_nodes)`` under the configured restart
     strategy until it completes or the strategy gives up."""
@@ -339,9 +372,9 @@ def supervise(env, sink_nodes, run_attempt):
                 if env.config.checkpoint_dir:
                     from .checkpoint import latest_checkpoint
 
-                    # no layout audit: the analyzer is ROADMAP item 13b
                     ckpt = latest_checkpoint(
-                        env.config.checkpoint_dir, flight=flight, audit=None
+                        env.config.checkpoint_dir, flight=flight,
+                        audit=_layout_audit(env, sink_nodes, flight),
                     )
                 if ckpt is None:
                     ckpt = user_restore

@@ -87,7 +87,7 @@ from .device import (
     wrap_record,
 )
 from .plan import JobPlan
-from .step import BaseProgram, host_leaves, no_exchange
+from .step import BaseProgram, all_false, host_leaves, no_exchange
 
 INF = 2**62
 COUNTERS = ("window_fires", "late_dropped", "alert_overflow", "evicted_unfired")
@@ -127,6 +127,14 @@ class _Emission:
 class WindowProgram(BaseProgram):
     operator_name = "window"
     STATE_COMPONENT_KEYS = {"pane_ring": ("planes", "cnt", "slot_pane")}
+
+    def key_sharded_leaves(self, spec: dict) -> dict:
+        """The reference's window state_specs: the flat word planes and
+        ``cnt`` shard on the key axis, ring metadata and scalars do not."""
+        out = all_false(spec)
+        out["planes"] = [True for _ in spec["planes"]]
+        out["cnt"] = True
+        return out
     accepted_kinds = ("tumbling", "sliding")
     fires_on_clock = True
     main_emission_prefix = True  # append-compacted alert buffer
