@@ -101,8 +101,21 @@ usages below float32's normal range (the long-run fold and the flush); a
 rolling float32 sum on the rolling kernel's float64 path; one session
 and one count-window job under float32.
 
+Phase ``sharded`` (after ``acc32``) drives keyed state sharded over 8
+shards in one process (``StreamConfig(parallelism=8)``): the flagship's
+exact configuration at full width (1M channels, B = 131072), every row
+against the host oracle as a multiset and the exchange's overflow 0; the
+chapter-2 rolling max at full width, every row against the oracle in the
+sharded order, the rolling kernel launched on every shard's plane and
+each launch held bitwise against its plain version; the chapter-2 mean
+under float32 at 4 shards, every row bitwise against the float32
+arrival-order oracle, each call of the ordered merge held against its
+plain version; a snapshot written at 8 shards restored at 4 and at 1;
+and a run with ``exchange_capacity_factor=0.5`` whose overflow equals
+the host's count.
+
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,analysis,acc32,small``,
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,analysis,acc32,sharded,small``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
 ``--flagship-lines N`` (flagship, chain, recovery's flagship runs and
 acc32 input), ``--obs-lines N`` (obs, and acc32's ledger-cost pairs),
@@ -110,7 +123,15 @@ acc32 input), ``--obs-lines N`` (obs, and acc32's ledger-cost pairs),
 analysis phase's strict run), ``--new-lines N`` (input of
 ch1, avg and median), ``--window-lines N`` (input of session, count and
 acc32's window jobs),
-``--cep-lines N`` (input of cep and rules).
+``--cep-lines N`` (input of cep and rules), ``--sharded-lines N``
+(input of the sharded phase's flagship, rolling and mean runs). The
+defaults keep the whole run well inside 20 minutes: 786,432 lines (six
+batches of 131,072, which the profiled data steps 2-5 and the recovery
+crash at data step 5 need) for the job, flagship, new, window and cep
+inputs, 393,216 for the pipeline (24 frames of its lanes' source: more
+than the 16 its producer runs ahead, so a killed lane respawns), 262,144
+for obs, 100,000 for the dead letters; the phase texts above give the
+shapes the earlier runs used.
 """
 
 from __future__ import annotations
@@ -4597,29 +4618,350 @@ def small_cep_rules() -> None:
     print(f"small run CEP rule predicate: {card}, card equals CPU and the golden")
 
 
+# -- phase sharded: keyed state over shards in one process ------------------
+
+SHARDS = 8
+SHARDED_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+
+
+def check_rolling_calls(box: dict):
+    """Hold every launch of the rolling kernel on the path against its
+    plain version on the same inputs (bitwise: the emissions and the
+    plane after), keeping the inputs of the second call for
+    :func:`path_kernel_case`. The plain version is not the kernel, so
+    the check adds no launch. Returns the undo."""
+    import torch
+
+    from tpustream_torch.ops import rolling
+    from tpustream_torch.ops import seq_rolling as S
+
+    plain = rolling.seq_rolling_reduce
+
+    def checked(plane, keys, vals, op="max", bad_keys=None, fresh=None):
+        p0, k0, v0 = plane.clone(), keys.clone(), vals.clone()
+        f0 = None if fresh is None else fresh.clone()
+        if box["calls"] == 1:
+            box["call"] = (p0.clone(), k0, v0, op)
+        out = plain(plane, keys, vals, op, bad_keys=bad_keys, fresh=fresh)
+        if plane.is_cuda:
+            bad = torch.zeros(1, dtype=torch.int32, device=plane.device)
+            ref = S.seq_rolling_reduce_ref(p0, k0, v0, op, bad_keys=bad,
+                                           fresh=f0)
+            if not (same_bits(out, ref) and same_bits(plane, p0)):
+                raise AssertionError(
+                    f"sharded seq_rolling_reduce call {box['calls']}: kernel "
+                    f"!= plain version")
+            box["err"] = max(box["err"], float(
+                (out - ref).abs().nan_to_num().max()))
+            box["checked"] += 1
+        box["calls"] += 1
+        return out
+
+    rolling.seq_rolling_reduce = checked
+    return lambda: setattr(rolling, "seq_rolling_reduce", plain)
+
+
+def check_scatter_calls(box: dict):
+    """The same for the fixed-order float merge on the window path."""
+    import torch
+
+    from tpustream_torch.ops import ordered_scatter as O
+    from tpustream_torch.runtime import window_program as W
+
+    plain = W.ordered_scatter_add
+
+    def checked(plane, cells, vals):
+        p0, c0, v0 = plane.clone(), cells.clone(), vals.clone()
+        if box["calls"] == 1:
+            box["call"] = (p0.clone(), c0, v0)
+        out = plain(plane, cells, vals)
+        if plane.is_cuda:
+            O.ordered_scatter_add_ref(p0, c0, v0)
+            if not torch.equal(plane.view(torch.int32), p0.view(torch.int32)):
+                raise AssertionError(
+                    f"sharded ordered_scatter_add call {box['calls']}: kernel "
+                    f"!= plain version")
+            box["checked"] += 1
+        box["calls"] += 1
+        return out
+
+    W.ordered_scatter_add = checked
+    return lambda: setattr(W, "ordered_scatter_add", plain)
+
+
+def shard_order(ids: np.ndarray, batch: int, shards: int) -> np.ndarray:
+    """The order a sharded per-record job emits the records of a stream
+    in: step by step (``batch`` records), and within a step shard by
+    shard (the key's owner ``id % shards``), each shard's in arrival
+    order."""
+    step = np.arange(ids.size) // batch
+    return np.lexsort((np.arange(ids.size), ids % shards, step))
+
+
+def exchange_overflow_oracle(ids: np.ndarray, batch: int, shards: int,
+                             capacity: int) -> int:
+    """The records the keyBy drops: per step, per source shard's block of
+    ``batch / shards`` rows, the records past ``capacity`` of each
+    destination ``id % shards``."""
+    blk, total = batch // shards, 0
+    for start in range(0, ids.size, batch):
+        step = ids[start:start + batch]
+        for b in range(0, step.size, blk):
+            counts = np.bincount(step[b:b + blk] % shards, minlength=shards)
+            total += int(np.maximum(counts - capacity, 0).sum())
+    return total
+
+
+def sharded_flagship(n_lines: int) -> None:
+    """The flagship's exact configuration at full width over SHARDS
+    shards: every row against the host oracle (as a multiset: rows stack
+    shard by shard within a step), the loss and exchange counters 0."""
+    t0 = time.perf_counter()
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    want = sorted(f"({c},{v!r})" for c, v in flagship_oracle(ts, ch, flow))
+    print(f"sharded flagship: {n_lines} lines, {len(want)} oracle rows "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rows, m, wall = run_flagship(lines, SHARDED_DEVICE, parallelism=SHARDS)
+    if sorted(rows) != want:
+        raise AssertionError(f"sharded flagship: {len(rows)} rows vs "
+                             f"{len(want)} from the oracle")
+    losses = check_losses("sharded flagship", m, (
+        "late_dropped", "alert_overflow", "evicted_unfired",
+        "exchange_overflow"))
+    print(f"sharded flagship: parallelism={SHARDS} B={B_MAIN} K={K_MAIN}: "
+          f"{len(rows)} rows equal the oracle; {losses}; window_fires="
+          f"{m.window_fires}; {check_native('sharded flagship', m)}")
+    print(f"sharded flagship {wall_split(m, wall)}")
+
+
+def sharded_rolling(n_lines: int, reps: int) -> dict:
+    """The chapter-2 rolling max at full width over SHARDS shards: every
+    row against the oracle in the sharded emission order, the kernel
+    launched on every shard's plane and each launch held against its
+    plain version."""
+    from tpustream_torch.jobs import chapter2_max
+    from tpustream_torch.ops import seq_rolling as S
+
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    ids = interned_ids(make_hosts(n_lines, K_MAIN, seed=7))
+    oracle = oracle_rows(lines)
+    want = [oracle[i] for i in shard_order(ids, B_MAIN, SHARDS)]
+    box = {"calls": 0, "checked": 0, "err": 0.0}
+    undo = check_rolling_calls(box)
+    S.reset_launches()
+    try:
+        items, m, wall = run_job(chapter2_max, lines, SHARDED_DEVICE,
+                                 "ComputeCpuMax", batch_size=B_MAIN,
+                                 key_capacity=K_MAIN, parallelism=SHARDS)
+    finally:
+        undo()
+    launches = S.seq_rolling_reduce.launches
+    got = [tuple(t.values()) for t in items]
+    if got != want:
+        bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                   min(len(got), len(want)))
+        raise AssertionError(f"sharded rolling: {len(got)} rows vs "
+                             f"{len(want)}, first difference at row {bad}")
+    if SHARDED_DEVICE == "cuda" and (launches < SHARDS * m.steps
+                                     or box["checked"] != launches):
+        raise AssertionError(
+            f"sharded rolling: {launches} launches over {m.steps} steps of "
+            f"{SHARDS} shards, {box['checked']} held against the plain "
+            f"version")
+    check_losses("sharded rolling", m, ("exchange_overflow",))
+    print(f"sharded rolling: parallelism={SHARDS} B={B_MAIN} K={K_MAIN}: "
+          f"{len(got)} rows equal the oracle in the sharded order; "
+          f"seq_rolling_reduce launches={launches} over {m.steps} steps, "
+          f"each bitwise equal to the plain version "
+          f"(max_abs_err={box['err']})")
+    print(f"sharded rolling {wall_split(m, wall)}")
+    out = {"launches": launches}
+    if SHARDED_DEVICE == "cuda":
+        out["case"] = path_kernel_case("sharded rolling", box["call"], reps)
+        out["case"]["max_abs_err"] = max(out["case"]["max_abs_err"],
+                                         box["err"])
+    return out
+
+
+def sharded_avg(n_lines: int, reps: int, shards: int = 4,
+                per_minute: int = 100_000) -> dict:
+    """The chapter-2 mean under float32 over ``shards`` shards: every
+    row against the float32 arrival-order oracle, bitwise and in the
+    sharded order (each minute's window, shard by shard, key ids
+    ascending on a shard), the merge's kernels launched on every
+    shard's merge and each call held against the plain version."""
+    from tpustream_torch.jobs import chapter2_avg
+    from tpustream_torch.ops import ordered_scatter as O
+
+    hosts = make_hosts(n_lines, K_MAIN, seed=7)
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    usage = np.array([float(l.rsplit(" ", 1)[1]) for l in lines])
+    minute = np.arange(n_lines) // per_minute
+    key = interned_ids(hosts)
+    order = np.lexsort((key // shards, key % shards, minute))
+    cell = minute[order] * (1 << 21) + key[order]
+    starts = np.r_[True, cell[1:] != cell[:-1]]
+    group = np.empty(n_lines, np.int64)
+    group[order] = np.cumsum(starts) - 1
+    sums = np.zeros(int(starts.sum()), np.float32)
+    np.add.at(sums, group, usage.astype(np.float32))
+    want = sums.astype(np.float64) / np.bincount(group)
+    box = {"calls": 0, "checked": 0}
+    undo = check_scatter_calls(box)
+    O.reset_launches()
+    try:
+        items, m, wall = run_job(
+            chapter2_avg, with_minutes(lines, per_minute), SHARDED_DEVICE,
+            "ComputeCpuAvg", batch_size=B_MAIN, key_capacity=K_MAIN,
+            alert_capacity=1 << 18, acc_dtype="float32", parallelism=shards)
+    finally:
+        undo()
+    launches = O.ordered_scatter_add.launches
+    got = np.array(items, dtype=np.float64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = (int(np.flatnonzero(got != want)[0]) if got.shape == want.shape
+               else None)
+        raise AssertionError(f"sharded avg float32: {got.size} rows vs "
+                             f"{want.size}, first difference at row {bad}")
+    if SHARDED_DEVICE == "cuda" and (launches < shards * (m.steps // 2)
+                                     or box["checked"] != launches):
+        raise AssertionError(
+            f"sharded avg float32: {launches} launches over {m.steps} steps "
+            f"of {shards} shards, {box['checked']} held against the plain "
+            f"version")
+    losses = check_losses("sharded avg float32", m, (
+        "late_dropped", "alert_overflow", "evicted_unfired",
+        "exchange_overflow"))
+    print(f"sharded avg float32: parallelism={shards} B={B_MAIN} K={K_MAIN}: "
+          f"{got.size} rows equal the float32 arrival-order oracle (bitwise, "
+          f"in the sharded order); {losses}; ordered_scatter_add launches="
+          f"{launches}, each call bitwise equal to the plain version")
+    print(f"sharded avg float32 {wall_split(m, wall)}")
+    out = {"launches": launches}
+    if SHARDED_DEVICE == "cuda":
+        out["case"] = scatter_case("on the sharded avg float32 path's call",
+                                   *box["call"], reps, 3)
+    return out
+
+
+def sharded_restore(n_lines: int) -> None:
+    """A snapshot of the chapter-2 job written at SHARDS shards, restored
+    in fresh envs at 4 shards and at 1 into the uninterrupted run's
+    remaining rows (as a multiset: the order depends on the shards)."""
+    from tpustream_torch.jobs import chapter2_max
+    from tpustream_torch.runtime.checkpoint import load_checkpoint
+
+    lines = make_lines(n_lines, K_MAIN, seed=5)
+    with tempfile.TemporaryDirectory() as d:
+        full, m, wall = run_job(
+            chapter2_max, lines, SHARDED_DEVICE, "ComputeCpuMax",
+            batch_size=B_MAIN, key_capacity=K_MAIN, parallelism=SHARDS,
+            checkpoint_dir=d, checkpoint_interval_batches=1)
+        full = [repr(t) for t in full]
+        snaps = sorted(f for f in os.listdir(d) if f.startswith("ckpt-"))
+        snap = next(os.path.join(d, f) for f in snaps
+                    if 0 < load_checkpoint(os.path.join(d, f)).emitted
+                    < len(full))
+        done = load_checkpoint(snap).emitted
+        from tpustream_torch import StreamExecutionEnvironment
+        from tpustream_torch.config import StreamConfig
+        from tpustream_torch.runtime.sources import ReplaySource
+
+        for p in (4, 1):
+            t0 = time.perf_counter()
+            env = StreamExecutionEnvironment(StreamConfig(
+                device=SHARDED_DEVICE, batch_size=B_MAIN,
+                key_capacity=K_MAIN, parallelism=p))
+            env.restore_from_checkpoint(snap)
+            h = chapter2_max.build(env, env.add_source(
+                ReplaySource(lines))).collect()
+            env.execute("restored")
+            resumed = [repr(t) for t in h.items]
+            if sorted(resumed) != sorted(full[done:]):
+                raise AssertionError(
+                    f"sharded restore at parallelism {p}: {len(resumed)} "
+                    f"rows vs {len(full) - done} of the uninterrupted run")
+            print(f"sharded restore: the snapshot after {done} rows, written "
+                  f"at parallelism {SHARDS}, restored at parallelism {p}: "
+                  f"{len(resumed)} rows equal the uninterrupted run's rest "
+                  f"({time.perf_counter() - t0:.1f} s)")
+
+
+def sharded_overflow(n_lines: int, factor: float = 0.5) -> None:
+    """The chapter-2 job with a small ``exchange_capacity_factor``: the
+    records the keyBy drops are counted, as many as the host computes."""
+    from tpustream_torch.jobs import chapter2_max
+    from tpustream_torch.parallel.exchange import exchange_capacity
+
+    lines = make_lines(n_lines, K_MAIN, seed=9)
+    ids = interned_ids(make_hosts(n_lines, K_MAIN, seed=9))
+    cap = exchange_capacity(B_MAIN, SHARDS, factor)
+    want = exchange_overflow_oracle(ids, B_MAIN, SHARDS, cap)
+    items, m, wall = run_job(chapter2_max, lines, SHARDED_DEVICE,
+                             "ComputeCpuMax", batch_size=B_MAIN,
+                             key_capacity=K_MAIN, parallelism=SHARDS,
+                             exchange_capacity_factor=factor)
+    if m.exchange_overflow != want or want == 0 \
+            or len(items) != n_lines - want:
+        raise AssertionError(
+            f"sharded overflow: exchange_overflow={m.exchange_overflow}, "
+            f"{want} by the host, {len(items)} rows of {n_lines} lines")
+    print(f"sharded overflow: exchange_capacity_factor={factor} "
+          f"(capacity {cap} rows a destination): exchange_overflow="
+          f"{m.exchange_overflow} equals the host's count, "
+          f"{len(items)} rows emitted")
+
+
+def sharded_phase(flagship_lines: int, n_lines: int, reps: int) -> dict:
+    """Keyed state sharded over shards in one process (``parallelism``):
+    the flagship at full width, the rolling max (the rolling kernel on
+    every shard), the float32 mean at 4 shards (the ordered merge on
+    every shard), a snapshot restored at 4 and 1, a counted overflow."""
+    out = {}
+    t0 = time.perf_counter()
+    sharded_flagship(flagship_lines)
+    print(f"sharded flagship: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["rolling"] = sharded_rolling(n_lines, reps)
+    print(f"sharded rolling: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["avg"] = sharded_avg(n_lines, reps)
+    print(f"sharded avg: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_restore(4 * B_MAIN)
+    print(f"sharded restore: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_overflow(B_MAIN)
+    print(f"sharded overflow: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
                             "cep,rules,fleet,obs,pipeline,recovery,analysis,"
-                            "acc32,small")
+                            "acc32,sharded,small")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--lines", type=int, default=1_000_000)
-    ap.add_argument("--flagship-lines", type=int, default=1_000_000,
+    ap.add_argument("--lines", type=int, default=786_432)
+    ap.add_argument("--flagship-lines", type=int, default=786_432,
                     help="input of the flagship and chain phases")
-    ap.add_argument("--new-lines", type=int, default=1_000_000,
+    ap.add_argument("--new-lines", type=int, default=786_432,
                     help="input of the ch1, avg and median phases")
-    ap.add_argument("--window-lines", type=int, default=1_000_000,
+    ap.add_argument("--window-lines", type=int, default=786_432,
                     help="input of the session and count phases")
-    ap.add_argument("--cep-lines", type=int, default=1_000_000,
+    ap.add_argument("--cep-lines", type=int, default=786_432,
                     help="input of the cep phase's two runs and the rules phase")
-    ap.add_argument("--obs-lines", type=int, default=500_000,
+    ap.add_argument("--obs-lines", type=int, default=262_144,
                     help="input of the obs phase's runs and of the acc32 "
                          "phase's ledger-cost pairs")
-    ap.add_argument("--pipeline-lines", type=int, default=500_000,
+    ap.add_argument("--pipeline-lines", type=int, default=393_216,
                     help="input of the pipeline phase's chapter-2, flagship "
                          "and chapter-4 runs")
-    ap.add_argument("--dead-letter-lines", type=int, default=200_000,
+    ap.add_argument("--sharded-lines", type=int, default=524_288,
+                    help="input of the sharded phase's flagship, rolling and "
+                         "mean runs")
+    ap.add_argument("--dead-letter-lines", type=int, default=100_000,
                     help="chapter-1 input of the pipeline phase's dead "
                          "letters (one line in 10,000 malformed)")
     args = ap.parse_args()
@@ -4679,6 +5021,9 @@ def main() -> int:
     acc32 = (timed("acc32", acc32_phase, args.flagship_lines,
                    args.window_lines, args.obs_lines, args.reps)
              if "acc32" in phases else {})
+    sharded = (timed("sharded", sharded_phase, args.sharded_lines,
+                     args.sharded_lines, args.reps)
+               if "sharded" in phases else {})
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -4707,7 +5052,10 @@ def main() -> int:
              analysis.get("case")),
             ("acc32_rolling", "float64", "sum",
              acc32.get("rolling", {}).get("launches"),
-             acc32.get("rolling", {}).get("case"))):
+             acc32.get("rolling", {}).get("case")),
+            ("sharded_rolling", "float64", "max",
+             sharded.get("rolling", {}).get("launches"),
+             sharded.get("rolling", {}).get("case"))):
         if case is None:
             continue
         entries.append({
@@ -4731,10 +5079,11 @@ def main() -> int:
     # the fixed-order float merge: one entry a path it launches on, the
     # chapter-2 mean under float32, under int32 and under float32 with a
     # hot host (each path's own second call)
-    for path, key in (("acc32_avg_float32", "avg float32"),
-                      ("acc32_avg_int32", "avg int32"),
-                      ("acc32_hot_host", "hot host")):
-        got = acc32.get(key) or {}
+    for path, got in (("acc32_avg_float32", acc32.get("avg float32")),
+                      ("acc32_avg_int32", acc32.get("avg int32")),
+                      ("acc32_hot_host", acc32.get("hot host")),
+                      ("sharded_avg_float32", sharded.get("avg"))):
+        got = got or {}
         case = got.get("case")
         if case is None:
             continue

@@ -321,7 +321,8 @@ def test_key_capacity_growth_equals_the_jax_package(config):
 def test_unported_window_features_raise():
     """``acc_dtype="float32"`` runs since the 32-bit accumulators are
     ported: the flagship and a session job give the JAX package's rows.
-    ``parallelism > 1`` still refuses by name (roadmap queue item 12)."""
+    ``parallelism > 1`` runs since the sharded programs are ported: the
+    session job at ``parallelism=2`` gives the JAX package's rows at 2."""
     T = tpustream_torch
     import tpustream.api.windows as jax_windows
     import tpustream_torch.api.windows as torch_windows
@@ -362,9 +363,12 @@ def test_unported_window_features_raise():
         return sessions(T, torch_et, torch_windows, text)
 
     env, text = job(parallelism=2)
-    sessions_port(text).collect()
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        env.execute("x")
+    h = sessions_port(text).collect()
+    env.execute("x")
+    jenv, jtext = jax_env(parallelism=2)
+    jh = sessions(tpustream, jax_et, jax_windows, jtext).collect()
+    jenv.execute("x")
+    assert h.items and [repr(t) for t in h.items] == [repr(t) for t in jh.items]
 
     # chained stages run since the chain glue is ported: the same
     # two-stage job gives the JAX package's rows

@@ -7,7 +7,12 @@ that run's output after the snapshot's ``emitted`` — for keyed rolling
 state, windowed aggregation, event-time sliding windows, full-window
 process(), sessions, a process()-fed chain and count windows — and the
 port's run equals the JAX package's (tolerance: identical rows). The
-sharded and rescale cases are ROADMAP item 12.
+sharded cases (parallelism 8 and 4: every snapshot resumes onto a fresh
+set of shards, rows equal to the JAX package's at the same parallelism)
+and the rescale cases (a snapshot written at parallelism N restores at
+M: the resumed rows are the uninterrupted run's remaining multiset,
+since the emission order depends on the parallelism) are
+tests/test_checkpoint.py's.
 """
 
 import glob
@@ -240,7 +245,7 @@ def test_event_time_window_resume_fast_path(tmp_path):
 
 def test_process_median_resume(tmp_path):
     """Full-window process() buffers (elements, counts, ring) checkpoint
-    and resume mid-window (the parallelism=4 half is ROADMAP item 12)."""
+    and resume mid-window, on one device and at parallelism=4."""
     from tpustream_torch.jobs.chapter2_median import build
 
     items = (
@@ -253,6 +258,8 @@ def test_process_median_resume(tmp_path):
         + [AdvanceProcessingTime(122_000)]
     )
     resume_suffix_check(build, items, tmp_path / "solo")
+    resume_suffix_check(build, items, tmp_path / "p4", parallelism=4,
+                        batch_size=4, key_capacity=64, print_parallelism=1)
 
 
 def test_session_window_resume(tmp_path):
@@ -425,3 +432,123 @@ def test_count_window_resume(tmp_path):
     lines = ["a 1", "a 2", "b 10", "a 4", "b 20", "a 8", "b 30", "a 16", "a 32"]
     full = resume_suffix_check(make, lines, tmp_path, key_capacity=64)
     assert [(t.f0, t.f1) for t in full] == [("a", 7.0), ("b", 60.0), ("a", 56.0)]
+
+
+# -- sharded resume and rescale (tests/test_checkpoint.py:188-560) ----------
+
+def sharded_cfg(parallelism=8):
+    return dict(parallelism=parallelism, batch_size=16, key_capacity=64,
+                print_parallelism=1)
+
+
+def test_eight_shard_eventtime_resume(tmp_path):
+    """ch3 sliding windows at parallelism=8: every snapshot resumes onto
+    a fresh set of shards and emits exactly the remaining suffix, and
+    the run equals the JAX package's at parallelism 8."""
+    from tpustream_torch.jobs.chapter3_bandwidth_eventtime import build
+
+    items = [
+        f"2019-08-28T10:{m:02d}:{s:02d} www.ch{(m * 3 + s) % 5}.com {100 + m * 10}"
+        for m in range(6)
+        for s in (0, 30)
+    ]
+    resume_suffix_check(build, items, tmp_path,
+                        time_char=TimeCharacteristic.EventTime, **sharded_cfg())
+
+
+def test_eight_shard_rolling_resume(tmp_path):
+    from tpustream_torch.jobs.chapter2_max import build
+
+    lines = [
+        f"15634520{i:02d} 10.8.22.{i % 5} cpu0 {50 + (i * 31) % 47}.5"
+        for i in range(24)
+    ]
+    resume_suffix_check(build, lines, tmp_path, **sharded_cfg())
+
+
+def rescale_check(build, items, tmp_path, p_save, p_resume, time_char=None,
+                  **cfg):
+    """A snapshot written at ``p_save`` restores at ``p_resume`` to the
+    uninterrupted run's remaining rows (as a multiset: the emission
+    order depends on the parallelism). True when a mid-run snapshot was
+    among those resumed."""
+    cfg.setdefault("batch_size", 16)
+    cfg.setdefault("key_capacity", 64)
+    cfg.setdefault("print_parallelism", 1)
+    ckdir = tmp_path / "ck"
+    full = run_job(build, items, tmpdir=ckdir, time_char=time_char,
+                   parallelism=p_save, **cfg)
+    assert full, "job produced no output"
+    snaps = checkpoints(ckdir)[:2]
+    assert snaps, "no checkpoints were written"
+    resumed_mid = False
+    for snap in snaps:
+        ck = load_checkpoint(snap)
+        resumed = run_job(build, items, restore=snap, time_char=time_char,
+                          parallelism=p_resume, **cfg)
+        assert sorted(map(repr, resumed)) == sorted(
+            map(repr, full[ck.emitted:]))
+        resumed_mid = resumed_mid or 0 < ck.emitted < len(full)
+    return resumed_mid
+
+
+def test_eight_shard_rescale_rolling_state(tmp_path):
+    from tpustream_torch.jobs.chapter2_max import build
+
+    lines = [
+        f"15634520{i:02d} 10.8.22.{i % 11} cpu{i % 3} {40 + (i * 13) % 60}.5"
+        for i in range(24)
+    ]
+    assert rescale_check(build, lines, tmp_path / "up", 1, 8)
+    assert rescale_check(build, lines, tmp_path / "down", 8, 1)
+
+
+def test_eight_shard_rescale_window_state(tmp_path):
+    """The window's flat word planes (``[shard][slot][local_key]``)
+    permute through ``[slot][global_key]``."""
+    @factory
+    def make(a):
+        class TsExtractor(a.BoundedOutOfOrdernessTimestampExtractor):
+            def __init__(self):
+                super().__init__(a.Time.milliseconds(2_000))
+
+            def extract_timestamp(self, value):
+                return int(value.split(" ")[0])
+
+        def build(env, text):
+            return (
+                text.assign_timestamps_and_watermarks(TsExtractor())
+                .map(lambda l: a.Tuple2(l.split(" ")[1], int(l.split(" ")[2])))
+                .key_by(0)
+                .time_window(a.Time.seconds(5))
+                .reduce(lambda x, y: a.Tuple2(x.f0, x.f1 + y.f1))
+            )
+        return build
+
+    build = make(api(tpustream_torch))
+    lines = [f"{1000 + i * 700} k{i % 9} {i + 1}" for i in range(24)]
+    assert rescale_check(build, lines, tmp_path / "up", 1, 8,
+                         time_char=TimeCharacteristic.EventTime)
+    assert rescale_check(build, lines, tmp_path / "down", 8, 1,
+                         time_char=TimeCharacteristic.EventTime)
+
+
+@pytest.mark.parametrize("slide,p_save,p_resume", [(None, 1, 8), (2, 8, 1)],
+                         ids=["tumbling", "sliding"])
+def test_eight_shard_rescale_count_state(slide, p_save, p_resume, tmp_path):
+    """Count windows' per-key accumulators and element logs follow their
+    keys through the permutation."""
+    @factory
+    def make(a):
+        def build(env, text):
+            w = (text.map(lambda l: a.Tuple2(l.split(" ")[0],
+                                             float(l.split(" ")[1])))
+                 .key_by(0))
+            w = w.count_window(3) if slide is None else w.count_window(4, slide)
+            return w.reduce(lambda x, y: a.Tuple2(x.f0, x.f1 + y.f1))
+        return build
+
+    lines = ([f"k{i % 3} {i + 1}" for i in range(40)] if slide is None
+             else [f"k{i % 7} {2 ** (i % 9)}" for i in range(36)])
+    assert rescale_check(make(api(tpustream_torch)), lines, tmp_path,
+                         p_save, p_resume, batch_size=8)

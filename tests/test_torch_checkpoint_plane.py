@@ -1,6 +1,6 @@
 """The checkpoint plane through the PyTorch port, on the CPU: the cases
-of tests/test_checkpoint_plane.py but the rescale one (ROADMAP item 12):
-incremental chunked snapshots, tiered retention + crash-safe chunk GC,
+of tests/test_checkpoint_plane.py, the savepoint restored at another
+parallelism among them: incremental chunked snapshots, tiered retention + crash-safe chunk GC,
 pinned savepoints, restore drills, and writer/GC fault recovery.
 
 The unit half drives ``write_snapshot`` directly with hand-built
@@ -323,6 +323,18 @@ def test_savepoint_pinned_and_self_contained(tmp_path):
     assert validate_checkpoint(str(exiled)) is None
     _, resumed2, _ = run_job(restore=str(exiled))
     assert resumed2 == full[ck.emitted:]
+
+
+def test_savepoint_restores_at_another_parallelism(tmp_path):
+    """The savepoint's rescale story: state written at parallelism 1
+    restores the identical suffix at parallelism 2 (as a multiset: the
+    emission order depends on the parallelism)."""
+    ckdir = tmp_path / "ck"
+    env, full, _ = run_job(ckdir=ckdir, savepoint_tags=("rescale",))
+    sp = env.savepoints[0]
+    ck = load_checkpoint(sp)
+    _, resumed, _ = run_job(restore=sp, parallelism=2)
+    assert sorted(map(repr, resumed)) == sorted(map(repr, full[ck.emitted:]))
 
 
 @pytest.mark.parametrize("point,at", [

@@ -1,8 +1,7 @@
 """The conservation ledger (``obs/ledger.py``) through the PyTorch port,
-on the CPU: the single-device cases of tests/test_ledger.py (all but the
-8-shard one, ROADMAP item 12), run through the port's executor with
-``device="cpu"``, plus snapshots carrying anchors across the two
-packages.
+on the CPU: the cases of tests/test_ledger.py, the 8-shard one among
+them, run through the port's executor with ``device="cpu"``, plus
+snapshots carrying anchors across the two packages.
 
 The ledger observes the emit path and must never change a job's output
 (equal rows with it on and off); every accounted invariant holds at a
@@ -75,6 +74,18 @@ def test_ledger_output_byte_identical_single_chip():
     _, led_on, res = run_job(obs=ObsConfig(enabled=True))
     assert led_on == plain
     assert led_off == plain
+    state = _ledger_state(res)
+    assert state["violations"]["total"] == 0
+    assert all(r == 0 for r in _evaluated_residuals(state).values())
+
+
+def test_ledger_output_byte_identical_eight_shards():
+    """The same parity contract with the job sharded over 8 shards."""
+    _, plain, _ = run_job(batch_size=8, parallelism=8,
+                          obs=ObsConfig(enabled=False))
+    _, led_on, res = run_job(batch_size=8, parallelism=8,
+                             obs=ObsConfig(enabled=True))
+    assert led_on == plain
     state = _ledger_state(res)
     assert state["violations"]["total"] == 0
     assert all(r == 0 for r in _evaluated_residuals(state).values())

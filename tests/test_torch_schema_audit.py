@@ -426,18 +426,16 @@ def test_port_audit_leaf_dtype_change_tsm042(tmp_path):
 
 def test_port_audit_parallelism_rescale_is_not_blocking(tmp_path):
     """A rescale at restore is supported: never incompatible, TSM047 an
-    INFO, with the reference's message. The port refuses
-    ``parallelism > 1`` at build (ROADMAP item 12), so its expected
-    layout is underivable and its verdict is ``unknown``, which the
-    reference's own test allows; the reference, with the test suite's
-    host devices, derives the sharded layout and says ``compatible``."""
+    INFO, with the reference's message. The port builds the sharded
+    program at ``parallelism=2``, so it derives the sharded layout and
+    its verdict is the reference's, ``compatible``."""
     envs = build_both(lambda P: golden_env(P, tmp_path / P.side, parallelism=2))
     reports = {side: env.audit_checkpoint(fixture(12)) for side, env in envs.items()}
     for report in reports.values():
         assert report.verdict != "incompatible"
         assert next(f for f in report.findings
                     if f.code == "TSM047").severity == "info"
-    assert reports["torch"].verdict == "unknown"
+    assert reports["torch"].verdict == reports["jax"].verdict == "compatible"
     assert [norm(str(f)) for f in reports["torch"].findings if f.code == "TSM047"] \
         == [str(f) for f in reports["jax"].findings if f.code == "TSM047"]
 

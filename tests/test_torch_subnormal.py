@@ -679,3 +679,153 @@ def test_subnormal_rsqrt_is_left_within_one_ulp():
     ulps = np.abs(got - xla) / np.spacing(xla)
     assert ulps.max() <= 2.0
     assert np.array_equal(np.asarray(jax.jit(lambda v: 1 / jnp.sqrt(v))(x)), xla)
+
+
+# -- fault 3.4 e, g, h: sorting, a select of the compared values, chains ----
+
+def _probe_pair(dtype):
+    """Subnormals of both signs, both zeros, NaNs of both signs, infinities
+    and normal values, with ties, plus a seeded normal tail."""
+    tiny = F64_TINY if dtype == np.float64 else F32_TINY
+    rng = np.random.default_rng(7)
+    a = np.concatenate([np.array(
+        [tiny / 8, -tiny / 8, 0.0, -0.0, 1.5, np.nan, np.inf, tiny * 3,
+         -np.nan, tiny / 2, -0.0, 0.0, -np.inf, -tiny / 4], dtype),
+        (rng.standard_normal(602) * 10).astype(dtype)])
+    b = np.concatenate([np.array(
+        [tiny / 4, tiny / 8, -0.0, 0.0, 1.5, 1.0, np.nan, -tiny, 2.0,
+         -tiny / 2, tiny / 8, -0.0, -np.inf, -tiny / 4], dtype),
+        (rng.standard_normal(602) * 10).astype(dtype)])
+    return a, b
+
+
+# (name, torch op under reference_arithmetic, jitted jnp op)
+SORT_OPS = [
+    ("sort", lambda a, b: torch.sort(a).values, lambda a, b: jnp.sort(a)),
+    ("sort_indices", lambda a, b: a.sort()[1], lambda a, b: jnp.argsort(a)),
+    ("argsort", lambda a, b: torch.argsort(a), lambda a, b: jnp.argsort(a)),
+    ("argsort_descending", lambda a, b: torch.argsort(a, descending=True),
+     lambda a, b: jnp.argsort(a, descending=True)),
+    ("sort_descending", lambda a, b: a.sort(descending=True).values,
+     lambda a, b: jnp.sort(a, descending=True)),
+    ("msort", lambda a, b: torch.msort(a.reshape(-1, 4)),
+     lambda a, b: jnp.sort(a.reshape(-1, 4), axis=0)),
+    ("sort_dim0", lambda a, b: torch.sort(a.reshape(-1, 2), dim=0)[1],
+     lambda a, b: jnp.argsort(a.reshape(-1, 2), axis=0)),
+    ("topk_values", lambda a, b: torch.topk(a, 40).values,
+     lambda a, b: jax.lax.top_k(a, 40)[0]),
+    ("topk_indices", lambda a, b: a.topk(40)[1],
+     lambda a, b: jax.lax.top_k(a, 40)[1].astype(jnp.int64)),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name,top,jop", SORT_OPS, ids=[o[0] for o in SORT_OPS])
+def test_subnormal_sort_matches_jitted_xla(name, top, jop, dtype):
+    """Fault 3.4 e: ``jnp.sort``/``argsort`` order the flushed values (a
+    subnormal ties with both zeros, ``-0.0`` with ``+0.0``, NaNs last),
+    stably, and move the original bits; ``lax.top_k`` orders by IEEE's
+    total order. The port's sorts under ``reference_arithmetic`` give the
+    same values and indices, bit for bit."""
+    a, b = _probe_pair(dtype)
+    want = np.asarray(jax.jit(jop)(a, b))
+    with reference_arithmetic():
+        got = top(torch.from_numpy(a.copy()), torch.from_numpy(b.copy())).numpy()
+    if want.dtype.kind == "f":
+        _assert_bitwise(got, want)
+    else:
+        assert np.array_equal(got, want.astype(got.dtype))
+
+
+# every select of two tensors by a comparison of the same two, and a few
+# selects of others
+SELECT_OPS = [
+    (f"where({p}{c}{q},{u},{v})",
+     eval(f"lambda a, b: torch.where({p} {c} {q}, {u}, {v})"),
+     eval(f"lambda a, b: jnp.where({p} {c} {q}, {u}, {v})"))
+    for c in (">", ">=", "<", "<=")
+    for p, q in (("a", "b"), ("b", "a"))
+    for u, v in (("a", "b"), ("b", "a"))
+] + [
+    ("where_other", lambda a, b: torch.where(a > b, a, b * 2.0),
+     lambda a, b: jnp.where(a > b, a, b * 2.0)),
+    ("where_eq", lambda a, b: torch.where(a == b, a, b),
+     lambda a, b: jnp.where(a == b, a, b)),
+    ("where_method", lambda a, b: b.where(b > a, a),
+     lambda a, b: jnp.where(b > a, b, a)),
+    ("where_identity_copy", lambda a, b: torch.where(b > a, b, a * 1.0 + 0.0),
+     lambda a, b: jnp.where(b > a, b, a * 1.0 + 0.0)),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name,top,jop", SELECT_OPS,
+                         ids=[o[0] for o in SELECT_OPS])
+def test_subnormal_select_of_compared_matches_jitted_xla(name, top, jop, dtype):
+    """Fault 3.4 g: XLA lowers a select of exactly the two tensors a
+    strict comparison (``>``, ``<``) compared, in either order, to a
+    max/min instruction that returns the flushed operand; after ``>=``,
+    ``<=`` or ``==``, or of any other value, the select keeps the bits.
+    A copy the simplifier removes (``a * 1.0 + 0.0``) is still ``a``."""
+    a, b = _probe_pair(dtype)
+    want = np.asarray(jax.jit(jop)(a, b))
+    with reference_arithmetic():
+        got = top(torch.from_numpy(a.copy()), torch.from_numpy(b.copy())).numpy()
+    _assert_bitwise(got, want)
+
+
+def _inplace_chain(a):
+    y = a * 3.0
+    y *= 7.0
+    return y
+
+
+CHAIN_OPS = [
+    ("mul_mul", lambda a: a * 3.0 * 7.0),
+    ("mul_div", lambda a: a * 0.1 / 10.0),
+    ("div_mul", lambda a: a / 3.0 * 7.0),
+    ("div_div", lambda a: a / 3.0 / 7.0),
+    ("mul_mul_mul", lambda a: a * 1.7 * 2.3 * 0.9),
+    ("half_two", lambda a: a * 0.5 * 2.0),
+    ("reflected_mul", lambda a: 3.0 * a * 7.0),
+    ("add_add", lambda a: a + 1.3 + 5.9),
+    ("add_sub", lambda a: a + 1.3 - 0.7),
+    ("sub_add", lambda a: a - 1.3 + 0.7),
+    ("sub_sub", lambda a: a - 1.3 - 5.9),
+    ("add_sub_identity", lambda a: a + 1.5 - 1.5),
+    ("rsub_add", lambda a: (1.3 - a) + 5.9),
+    ("rsub_sub", lambda a: (1.3 - a) - 5.9),
+    ("add_then_mul", lambda a: (a + 1.3) * 2.3),
+    ("div_constant", lambda a: a / 0.1),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name,fn", CHAIN_OPS + [("in_place", None)],
+                         ids=[o[0] for o in CHAIN_OPS] + ["in_place"])
+def test_subnormal_constant_chains_match_jitted_xla(name, fn, dtype):
+    """Fault 3.4 h: XLA's simplifier folds a chain of multiplications (a
+    division by a constant is one by its reciprocal) or of additions and
+    subtractions with constants into one op with the constants combined
+    in the tensor's dtype, which changes the rounding of normal values
+    too; an identity that appears only after folding is removed. The
+    port's ops under ``reference_arithmetic`` give the same bits."""
+    a, _ = _probe_pair(dtype)
+    jfn = (lambda x: x * 3.0 * 7.0) if fn is None else fn
+    want = np.asarray(jax.jit(jfn)(a))
+    with reference_arithmetic():
+        got = (_inplace_chain if fn is None else fn)(
+            torch.from_numpy(a.copy())).numpy()
+    _assert_bitwise(got, want)
+
+
+def test_subnormal_chain_sees_a_changed_base():
+    """A chain folds only while its base is unchanged: after an in-place
+    change of ``x`` the next op is computed on the tensor as it is."""
+    x = torch.tensor([1.1, 2.2, 3.3], dtype=torch.float64)
+    with reference_arithmetic():
+        y = x * 3.0
+        x.add_(1.0)
+        z = y * 7.0
+    assert torch.equal(z, (torch.tensor([1.1, 2.2, 3.3],
+                                        dtype=torch.float64) * 3.0) * 7.0)

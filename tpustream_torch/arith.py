@@ -50,8 +50,37 @@ through a jitted JAX function on the CPU
   ``x / -1`` and ``-0.0 - x`` are ``-x``. Only a Python or numpy
   number counts as a constant, and only where the result keeps ``x``'s
   dtype: a ``0.0`` that arrives as a tensor is data, and XLA does not
-  remove the op then either. ``0.0 - x``, ``x * 0.0`` and chains of
-  constants (``x * 0.5 * 2.0``, which XLA folds) are computed.
+  remove the op then either. ``0.0 - x`` and ``x * 0.0`` are computed.
+* constant chains (``test_subnormal_constant_chains_match_jitted_xla``):
+  the simplifier folds a chain of multiplications by constants (a
+  division by ``c`` being a multiplication by ``1/c``, rounded in the
+  tensor's dtype) or of additions and subtractions of constants into
+  one op, the constants combined left to right in the tensor's dtype:
+  ``x * c1 * c2`` is ``x * (c1 * c2)``, ``x + c1 - c2`` is
+  ``x + (c1 - c2)``, ``(c1 - x) + c2`` is ``(c1 + c2) - x``. That changes
+  the rounding of normal values too, and an identity that appears only
+  after folding (``x * 0.5 * 2.0``) is removed. A multiplication after
+  an addition is not folded (``(x + c1) * c2``), nor is ``c2 - (x +
+  c1)``. A tensor made by ``x op c`` remembers ``(x, op, c)`` while
+  neither changes in place;
+* sorting (``test_subnormal_sort_matches_jitted_xla``): ``sort``,
+  ``argsort`` and ``msort`` of a float tensor order the flushed values,
+  stably, and move the original bits (``jnp.sort``): a subnormal ties
+  with both zeros, ``-0.0`` with ``+0.0``, and NaNs of either sign go
+  last (first when descending); the values of a descending sort reverse
+  an ascending one, so their ties come last first. ``topk`` orders by
+  IEEE's total order with no flush (``lax.top_k``: ``-0.0`` below
+  ``+0.0``, subnormals by value, a negative NaN last), ties by index;
+* a select of the two values it compares
+  (``test_subnormal_select_of_compared_matches_jitted_xla``): XLA
+  lowers ``where(a > b, a, b)`` and every other ``where`` of exactly the
+  two tensors a ``>`` or ``<`` compared, in either order, to a max/min
+  instruction, which returns the flushed operand. A comparison's result
+  remembers which two tensors it compared (a copy the simplifier
+  removed counts as its source). After ``>=``, ``<=``, ``==`` or
+  ``!=``, or of any other values, the select keeps the bits. A select
+  against a Python number follows rules that depend on the constant's
+  value; it is not copied (ROADMAP 3.4).
 * ``sqrt`` (and ``x ** 0.5``, which XLA computes as a square root) is
   correctly rounded, as XLA's is: torch's CPU ``sqrt`` and ``pow`` of
   float32 and float64 tensors are one ulp off for about one value in a
@@ -224,7 +253,23 @@ def _in_place(name: str) -> bool:
 def _apply_identity(kind: str, name: str, x: torch.Tensor) -> torch.Tensor:
     if _in_place(name):
         return x.neg_() if kind == "neg" else x
-    return torch.neg(x) if kind == "neg" else x.clone()
+    if kind == "neg":
+        return torch.neg(x)
+    out = x.clone()
+    # the simplifier's result IS x: a select of the two values a mask
+    # compared (fault 3.4 g) sees through the copy
+    root = _same_as(x)
+    out._xla_same = (root, root._version, out._version)
+    return out
+
+
+def _same_as(t: torch.Tensor) -> torch.Tensor:
+    """The tensor ``t`` is a removed identity op's copy of, unchanged
+    since, else ``t``."""
+    rec = getattr(t, "_xla_same", None)
+    if rec is None or rec[2] != t._version or rec[0]._version != rec[1]:
+        return t
+    return rec[0]
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -289,6 +334,177 @@ def _flush_out(out):
     return out
 
 
+_NP_FLOATS = {torch.float64: np.float64, torch.float32: np.float32}
+
+# -- fault 3.4 e: sorting ----------------------------------------------------
+SORTS = frozenset(("sort", "argsort", "msort", "topk"))
+
+
+def _sort_args(name: str, args: tuple, kwargs: dict):
+    """``(dim, descending)`` of a sort call, or None for a form the mode
+    leaves alone (an ``out=``)."""
+    if "out" in kwargs:
+        return None
+    if name == "msort":
+        return 0, False
+    pos = list(args[1:]) + [None, None]
+    dim = kwargs.get("dim", pos[0] if pos[0] is not None else -1)
+    desc = kwargs.get("descending", pos[1] if pos[1] is not None else False)
+    return dim, bool(desc)
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """An integer per float whose order is IEEE's total order: -NaN,
+    -inf, ..., -0.0, +0.0, ..., +inf, +NaN, subnormals by value."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}[x.dtype]
+    bits = x.contiguous().view(ints)
+    mask = torch.iinfo(ints).max
+    return torch.where(bits < 0, bits ^ mask, bits)
+
+
+def _sort(func, name: str, args: tuple, kwargs: dict):
+    """XLA's sorts of a float tensor (fault 3.4 e), else None.
+    ``jnp.sort``/``argsort`` compare the flushed values, so a subnormal
+    ties with both zeros, and ``-0.0`` ties with ``+0.0``; NaNs of either
+    sign go last (first when descending); ties keep their order (a stable
+    sort), except in the values of a descending sort, which reverse an
+    ascending one; the values keep their bits. ``lax.top_k`` orders by IEEE's
+    total order without a flush (``-0.0`` below ``+0.0``, ``-NaN``
+    last), ties by index."""
+    x = args[0] if args else None
+    if not (isinstance(x, torch.Tensor) and x.dtype in _NP_FLOATS):
+        return None
+    if name == "topk":
+        if "out" in kwargs or len(args) < 2 and "k" not in kwargs:
+            return None
+        pos = list(args[1:]) + [None] * 4
+        k = kwargs.get("k", pos[0])
+        dim = kwargs.get("dim", pos[1] if pos[1] is not None else -1)
+        largest = kwargs.get("largest", pos[2] if pos[2] is not None else True)
+        idx = torch.sort(_total_order_key(x), dim=dim, descending=bool(largest),
+                         stable=True).indices.narrow(dim, 0, int(k))
+        return torch.return_types.topk((x.gather(dim, idx), idx))
+    parsed = _sort_args(name, args, kwargs)
+    if parsed is None:
+        return None
+    dim, desc = parsed
+    key = flush_subnormal(x)
+    idx = torch.sort(key, dim=dim, descending=desc, stable=True).indices
+    if name == "argsort":
+        return idx
+    if desc:
+        # jnp.sort(descending=True) reverses the ascending sort, so its
+        # ties come out last first; jnp.argsort(descending=True) keeps
+        # them in order
+        values = x.gather(dim, torch.sort(key, dim=dim, stable=True)
+                          .indices.flip(dim))
+    else:
+        values = x.gather(dim, idx)
+    return values if name == "msort" else torch.return_types.sort((values, idx))
+
+
+# -- fault 3.4 g: a select of the two values a mask compared -----------------
+# the strict comparisons: XLA lowers ``where(a > b, a, b)`` and every
+# other select of exactly the two compared tensors after ``>``/``<`` (in
+# either order) to a max/min instruction, which returns the flushed
+# operand; after ``>=``/``<=``/``==``/``!=`` the select keeps the bits
+_STRICT = frozenset(("gt", "lt", "greater", "less", "__gt__", "__lt__"))
+
+
+def _record_compared(name: str, args: tuple, kwargs: dict, out) -> None:
+    if (name in _STRICT and not kwargs and len(args) == 2
+            and isinstance(out, torch.Tensor)
+            and all(isinstance(a, torch.Tensor) and a.is_floating_point()
+                    for a in args)):
+        out._xla_compared = (args[0], args[1], args[0]._version,
+                             args[1]._version, out._version)
+
+
+def _select_of_compared(func, args: tuple, kwargs: dict):
+    """``where(mask, u, v)`` of the two tensors ``mask`` compared
+    strictly, unchanged since: the max/min instruction's select of the
+    flushed operands (fault 3.4 g). None for any other ``where``."""
+    if kwargs or len(args) != 3:
+        return None
+    if func is torch.Tensor.where:
+        u, cond, v = args
+    else:
+        cond, u, v = args
+    rec = getattr(cond, "_xla_compared", None)
+    if rec is None or rec[4] != cond._version:
+        return None
+    p, q, pv, qv = rec[:4]
+    if p._version != pv or q._version != qv:
+        return None
+    u0, v0, p, q = _same_as(u), _same_as(v), _same_as(p), _same_as(q)
+    if not ((u0 is p and v0 is q) or (u0 is q and v0 is p)):
+        return None
+    return torch.where(cond, flush_subnormal(u), flush_subnormal(v))
+
+
+# -- fault 3.4 h: constant chains ----------------------------------------------
+# XLA's simplifier folds a chain of multiplications (a division by a
+# constant being a multiplication by its reciprocal) or of additions and
+# subtractions with compile-time constants into one op: ``x * c1 * c2``
+# is ``x * (c1 * c2)``, ``x + c1 - c2`` is ``x + (c1 - c2)`` and
+# ``(c1 - x) + c2`` is ``(c1 + c2) - x``, the constants combined in the
+# tensor's dtype. A tensor made by ``x op c`` remembers ``(x, op, c)``.
+_RSUB = ("__rsub__", "rsub")
+
+
+def _chain_step(name: str, args: tuple, kwargs: dict):
+    """``(class, sign, c)`` of a ``x op c`` the simplifier can fold: class
+    "mul" (``x * c``) or "add" (``sign * x + c``), else None."""
+    if kwargs or len(args) != 2 or not _is_number(args[1]):
+        return None
+    x, c = args
+    if not (isinstance(x, torch.Tensor) and x.dtype in _NP_FLOATS):
+        return None
+    if torch.result_type(x, c) != x.dtype:
+        return None
+    dt = _NP_FLOATS[x.dtype]
+    if name in _MUL:
+        return "mul", 1, dt(c)
+    if name in _ADD:
+        return "add", 1, dt(c)
+    if name in _SUB:
+        return "add", 1, -dt(c)
+    if name in _RSUB:
+        return "add", -1, dt(c)
+    return None
+
+
+def _chain_start(step, x: torch.Tensor):
+    """The record a new chain ``x op c`` leaves on its result."""
+    cls, sign, c = step
+    return cls, x, x._version, sign, c
+
+
+def _record_chain(out, rec) -> None:
+    if rec and isinstance(out, torch.Tensor):
+        out._xla_chain = rec + (out._version,)
+
+
+def _fold(step, y: torch.Tensor):
+    """``(func, types, args, record)`` of ``y op c`` folded into the op
+    that made ``y``, or None when ``y`` was made otherwise (or changed
+    since)."""
+    rec = getattr(y, "_xla_chain", None)
+    cls, sign, c = step
+    if rec is None or rec[0] != cls or sign != 1 or rec[5] != y._version:
+        return None
+    _, x, xv, xsign, c0 = rec[:5]
+    if x._version != xv or x.dtype != y.dtype:
+        return None
+    with np.errstate(over="ignore", invalid="ignore"):
+        folded = c0 * c if cls == "mul" else c0 + c
+    if cls == "mul":
+        func = torch.mul
+    else:
+        func = torch.add if xsign == 1 else torch.rsub
+    return func, (), (x, float(folded)), (cls, x, xv, xsign, folded)
+
+
 class _ReferenceArithmetic(torch.overrides.TorchFunctionMode):
     """XLA's arithmetic on torch tensors: ``tensor / number`` as
     ``tensor * (1 / number)``, and (``flush``) subnormal floats flushed
@@ -314,12 +530,38 @@ class _ReferenceArithmetic(torch.overrides.TorchFunctionMode):
         ):
             d = float(args[1])
             inv = 1.0 / d if d != 0 else math.copysign(math.inf, d)
+            np_dtype = _NP_FLOATS.get(args[0].dtype)
+            if np_dtype is not None and d != 0:
+                # the reciprocal of the constant as the tensor's own
+                # dtype rounds it, as XLA folds it
+                with np.errstate(over="ignore"):
+                    inv = float(np_dtype(1.0) / np_dtype(d))
             func, args = torch.mul, (args[0], inv)
         name = getattr(func, "__name__", "") if self.flush else ""
+        if name in SORTS:
+            out = _sort(func, name, args, kwargs)
+            if out is not None:
+                return out
+        if name == "where":
+            out = _select_of_compared(func, args, kwargs)
+            if out is not None:
+                return out
+        step = _chain_step(name, args, kwargs)
+        if step is not None:
+            folded = _fold(step, args[0])
+            if folded is not None:
+                out = self.__torch_function__(*folded[:2], args=folded[2])
+                if _in_place(name):
+                    out = args[0].copy_(out)
+                _record_chain(out, folded[3])
+                return out
         if name in IDENTITIES:
             kind = _identity(name, args, kwargs)
             if kind is not None:
-                return _apply_identity(kind, name, args[0])
+                out = _apply_identity(kind, name, args[0])
+                if step is not None:
+                    _record_chain(out, _chain_start(step, args[0]))
+                return out
         if (name in ("sqrt", "sqrt_", "pow", "pow_", "__pow__", "__ipow__")
                 and len(args) >= 1 and isinstance(args[0], torch.Tensor)
                 and args[0].is_floating_point() and not kwargs
@@ -344,7 +586,13 @@ class _ReferenceArithmetic(torch.overrides.TorchFunctionMode):
             out = func(*(_flush_arg(a) for a in args), **kw)
             if isinstance(kwargs.get("out"), torch.Tensor):
                 _flush_in_place(kwargs["out"])
-            return out if name in COMPARED else _flush_out(out)
+            if name in COMPARED:
+                _record_compared(name, args, kwargs, out)
+                return out
+            out = _flush_out(out)
+            if step is not None:
+                _record_chain(out, _chain_start(step, args[0]))
+            return out
         if name in CONVERSIONS and args and isinstance(args[0], torch.Tensor):
             out = func(*args, **kwargs)
             if (isinstance(out, torch.Tensor) and out.dtype != args[0].dtype
@@ -367,10 +615,9 @@ def reference_arithmetic(flush: bool = True):
     own), for tracing a function's graph: ``ops/liveness.py`` reads
     which ops it applies, and the flush would hide them. The caller's
     default dtype is restored after."""
-    prev = torch.get_default_dtype()
     outer = getattr(_ACTIVE, "flush", None)
     flush = flush and outer is not False
-    torch.set_default_dtype(torch.float64)
+    _hold_float64()
     try:
         if outer == flush:
             # the outer mode already rewrites and flushes every op run
@@ -384,9 +631,32 @@ def reference_arithmetic(flush: bool = True):
             finally:
                 _ACTIVE.flush = outer
     finally:
-        torch.set_default_dtype(prev)
+        _release_float64()
 
 
 # whether this thread's innermost reference_arithmetic flushes (None
 # outside any)
 _ACTIVE = threading.local()
+
+# torch's default dtype is one setting for the whole process, and the
+# shards of a sharded program (runtime/sharded.py) run user functions on
+# threads of their own: it is float64 while any thread is inside a
+# reference_arithmetic and the caller's again when the last one leaves
+# (the framework's own code names every dtype it makes)
+_DTYPE_LOCK = threading.Lock()
+_DTYPE_HOLD = {"threads": 0, "before": None}
+
+
+def _hold_float64() -> None:
+    with _DTYPE_LOCK:
+        if _DTYPE_HOLD["threads"] == 0:
+            _DTYPE_HOLD["before"] = torch.get_default_dtype()
+            torch.set_default_dtype(torch.float64)
+        _DTYPE_HOLD["threads"] += 1
+
+
+def _release_float64() -> None:
+    with _DTYPE_LOCK:
+        _DTYPE_HOLD["threads"] -= 1
+        if _DTYPE_HOLD["threads"] == 0:
+            torch.set_default_dtype(_DTYPE_HOLD["before"])

@@ -21,7 +21,12 @@ Per-operator series (labels ``{job, operator}``; all lazy ``set_fn``
 gauges, evaluated only at snapshot/scrape time):
 
 * ``operator_hbm_state_bytes``             — total state bytes
+* ``operator_hbm_state_bytes{shard=i}``    — each shard's state bytes
+  (``parallelism > 1``: the shards' own states, which sum to the total)
 * ``operator_state_component_bytes{component=...}``
+* ``operator_exchange_buffer_bytes``       — the keyBy all-to-all's
+  staging columns a sharded step makes, per shard
+  (``parallel/exchange.py::exchange_buffer_bytes``)
 * ``operator_key_table_capacity`` / ``_occupancy`` / ``_load_factor``
 * ``operator_key_cardinality``             — distinct keys seen
 * ``operator_hot_key_share``               — top key's share of keyed
@@ -32,9 +37,9 @@ Skew tracking is host-side and obs-gated: one ``np.bincount`` over the
 batch's key-id column per feed (interned ids are dense ``< capacity``),
 never per-record Python. Raw int64 key columns whose ids exceed the
 tracking bound disable skew gauges for the runner (one flight event)
-rather than growing an unbounded count table. The reference's per-shard
-and exchange-buffer series wait for ``parallelism > 1`` (ROADMAP item
-12).
+rather than growing an unbounded count table. A sharded program's
+state (``runtime/sharded.py``) is walked shard by shard: the global
+view's summed counters and clocks are not counted twice.
 """
 
 from __future__ import annotations
@@ -78,6 +83,13 @@ class StateMemoryTracker:
             trackers.append(self)
 
         obs.gauge("hbm_state_bytes").set_fn(self.total_bytes)
+        shards = runner.program.n_shards
+        if shards > 1:
+            for i in range(shards):
+                obs.scoped(shard=str(i)).gauge(
+                    "operator_hbm_state_bytes"
+                ).set_fn(lambda i=i: self.shard_bytes(i))
+            obs.gauge("exchange_buffer_bytes").set_fn(self.exchange_bytes)
         for comp in self._component_names():
             obs.scoped(component=comp).gauge(
                 "operator_state_component_bytes"
@@ -98,14 +110,38 @@ class StateMemoryTracker:
 
     # -- state walk ---------------------------------------------------------
 
-    def _state_items(self):
+    def _states(self) -> list:
+        """The state dicts to walk: a sharded program's shard states,
+        else the runner's one state."""
         state = self._runner.state
-        if isinstance(state, dict):
-            return state.items()
-        return ()
+        if isinstance(state, dict) and "shards" in state:
+            return list(state["shards"])
+        return [state] if isinstance(state, dict) else []
+
+    def _state_items(self):
+        return [kv for st in self._states() for kv in st.items()]
 
     def total_bytes(self) -> int:
-        return sum(leaf_nbytes(l) for l in tree_leaves(self._runner.state))
+        return sum(leaf_nbytes(l) for st in self._states()
+                   for l in tree_leaves(st))
+
+    def shard_bytes(self, shard: int) -> int:
+        states = self._states()
+        if shard >= len(states):
+            return 0
+        return sum(leaf_nbytes(l) for l in tree_leaves(states[shard]))
+
+    def exchange_bytes(self) -> int:
+        """The keyBy all-to-all's staging: the ``[n_shards * capacity]``
+        post-exchange columns (+ ts + valid) a sharded step makes on
+        each shard."""
+        from ..parallel.exchange import exchange_buffer_bytes
+
+        prog = self._runner.program
+        kinds = (getattr(getattr(prog, "pre_chain", None), "out_kinds", None)
+                 or self._runner.plan.record_kinds)
+        return exchange_buffer_bytes(
+            prog.n_shards, getattr(prog, "exchange_capacity", 0), kinds)
 
     def component_bytes(self) -> dict:
         comp_of = self._runner.program.state_components()

@@ -332,8 +332,11 @@ class CepProgram(BaseProgram):
         dev = self.device
         cap = self.cfg.alert_capacity
         mid_cols, mask = self._apply_pre(cols, valid)
+        batch_max_t = torch.where(mask, ts, W0).max()
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int64)
+        keys = self._local_keys(key_col).to(torch.int64)
         kk = self.key_capacity(state)
 
         wm_old = state["wm"]
@@ -350,10 +353,11 @@ class CepProgram(BaseProgram):
         ranks = segment_ranks(seg_starts)
         # the step's decisions need three scalars of the batch: one copy
         batch_max, n_rounds, max_key = (int(v) for v in self._read(torch.stack([
-            torch.where(mask, ts, W0).max(),
+            batch_max_t,
             torch.where(sv, ranks.to(torch.int64) + 1, 0).max(),
             torch.where(live, keys, -1).max(),
         ])))
+        batch_max = self._global_max(batch_max)
         if max_key >= kk:
             raise IndexError(
                 f"a record carried key id {max_key}, past the CEP state's "
@@ -389,7 +393,7 @@ class CepProgram(BaseProgram):
         m_unperm = [c[inv] for c in m_cols]
         flat_cols = [m_unperm[c][:, e] for e in range(L) for c in range(C)]
         out_cols, keep = self.post_chain.apply(flat_cols, m_mask_o)
-        gkey = keys.clamp(0, kk - 1)
+        gkey = self._global_key_ids(keys.clamp(0, kk - 1)).to(torch.int64)
         idx, count = pane_ops.compact_positions(keep, cap)
         idx = idx.to(torch.int64)
         gathered = [x[idx] for x in list(out_cols) + [gkey, ts]]

@@ -24,9 +24,11 @@ and reading the JAX package's snapshot format (``FORMAT_VERSION`` 12):
   without allocating state), then places the leaves through the
   program's ``state_from_jax_numpy`` onto the program's own device.
 
-A snapshot written by either package restores in the other. A snapshot
-written at ``parallelism`` > 1 is refused: its key layout is
-shard-major, and rescaling it onto one device is ROADMAP item 12.
+A snapshot written by either package restores in the other, at any
+parallelism: the key-sharded leaves of a snapshot written at another
+``parallelism`` are re-laid onto the restoring program's shard-major
+layout (``rescale_key_leaf``, the reference's
+tpustream/runtime/checkpoint.py:265-315; ROADMAP item 12a).
 
 Retention is tiered: the ``keep`` newest snapshots, plus every
 ``keep_every``-th as durable, plus pinned **savepoints** (self-contained
@@ -220,20 +222,11 @@ class Checkpoint:
     # format bump.
     ledger: Optional[dict] = None
 
-    def _check_parallelism(self) -> None:
-        if self.parallelism > 1:
-            raise NotImplementedError(
-                f"checkpoint was written at parallelism {self.parallelism}: "
-                "its keyed state is laid out shard-major, and restoring it "
-                "onto one device (rescale) is ROADMAP item 12, not ported"
-            )
-
     def restore_chain(self, programs, key_capacities=None):
         """Restore a runner CHAIN's states: the snapshot's leaf list is
         the concatenation of each stage's state leaves (saved as a list
         pytree), split here by each program's own leaf count, read from
         its leaf spec at the stage's saved key capacity."""
-        self._check_parallelism()
         caps = list(key_capacities or [])
         states = []
         offset = 0
@@ -259,7 +252,6 @@ class Checkpoint:
         of the reference layout, no tensors) gives the target structure;
         a config or job-graph mismatch surfaces as an error here rather
         than as silent corruption later."""
-        self._check_parallelism()
         spec = program.jax_state_spec(key_capacity)
         n = len(tree_leaves(spec))
         if n != len(self.leaves):
@@ -270,8 +262,7 @@ class Checkpoint:
             )
         return self._place(program, self.leaves, spec)
 
-    @staticmethod
-    def _place(program, saved, spec):
+    def _place(self, program, saved, spec):
         for s, like in zip(saved, tree_leaves(spec)):
             if tuple(s.shape) != tuple(like.shape) or s.dtype != like.dtype:
                 raise ValueError(
@@ -279,6 +270,15 @@ class Checkpoint:
                     f"match program state {like.shape}/{like.dtype} — "
                     "key_capacity / batch_size / window config changed"
                 )
+        # the key layout is shard-major (row shard*k_local+r holds global
+        # key r*S+shard), so a snapshot written at another parallelism has
+        # the same shapes and another layout: each key-sharded leaf is
+        # permuted through the canonical key-major order onto this
+        # program's (Flink savepoints restore at any parallelism)
+        if max(1, self.parallelism) != max(1, program.n_shards):
+            sharded = tree_leaves(program.key_sharded_leaves(spec))
+            saved = [program.rescale_key_leaf(np.asarray(s), self.parallelism)
+                     if k else s for s, k in zip(saved, sharded)]
         return program.state_from_jax_numpy(tree_unflatten(spec, list(saved)))
 
     def restore_tables(self, plan) -> None:

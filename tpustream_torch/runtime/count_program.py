@@ -63,6 +63,10 @@ class CountWindowProgram(WindowProgram):
     # the reference's count state shards as the rolling state does
     KEY_AXIS_MIN_NDIM = 1
     key_sharded_leaves = BaseProgram.key_sharded_leaves
+    # leading-key leaves rescale and grow with the base restack, not the
+    # window's flat word planes
+    rescale_key_leaf = BaseProgram.rescale_key_leaf
+    grow_key_leaf = BaseProgram.grow_key_leaf
 
     fires_on_clock = False
     main_emission_prefix = False  # a mask selects the rows
@@ -161,7 +165,7 @@ class CountWindowProgram(WindowProgram):
         return {
             "mask": post_mask[inv],
             "cols": tuple(c[inv] for c in post_cols),
-            "subtask": (safe_sk % n_shards)[inv],
+            "subtask": (self._global_key_ids(safe_sk) % n_shards)[inv],
             "bad_keys": self.bad_keys,
         }
 
@@ -174,8 +178,10 @@ class CountWindowProgram(WindowProgram):
         ``(state, {"main": stream})``; the stream's rows are in arrival
         order, ``mask`` the records that closed a window."""
         mid_cols, mask = self._apply_pre(cols, valid)
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         kk, N = self.key_capacity(state), self.count_n
 
         perm, sk, sv, seg_starts, safe_sk = self._sorted(keys, mask, kk)
@@ -353,8 +359,10 @@ class SlidingCountWindowProgram(_ElementLogMixin, CountWindowProgram):
 
     def step(self, state, cols, valid, ts=None, wm_lower=None):
         mid_cols, mask = self._apply_pre(cols, valid)
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         N, S = self.count_n, self.count_slide
 
         sb = self._sorted_batch(state, keys, mask)
@@ -445,8 +453,10 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
         (the closing record's arrival position), for
         :meth:`evaluate_fires`."""
         mid_cols, mask = self._apply_pre(cols, valid)
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         N, S = self.count_n, self.count_slide
 
         sb = self._sorted_batch(state, keys, mask)
@@ -477,9 +487,10 @@ class CountProcessProgram(_ElementLogMixin, CountWindowProgram):
             "count": torch.clamp(n_fire, max=self.fire_rows),
             "elems": elems,
             "m": f_m,
-            "key": sb["safe_sk"][fidx],
-            # closing record's arrival position, for emission order
-            "arr": sb["perm"][fidx],
+            "key": self._global_key_ids(sb["safe_sk"][fidx]),
+            # closing record's arrival position (in the shards' stacked
+            # rows), for emission order
+            "arr": self._row_offset(sv.shape[0]) + sb["perm"][fidx],
             "bad_keys": self.bad_keys,
         }}
 

@@ -736,8 +736,13 @@ class Runner:
         # device-side compaction: each mask-carrying stream also gathers
         # its emitted rows into [compaction_capacity] buffers, so a step
         # fetches about count rows instead of [B] buffers
+        # Off at parallelism > 1, as in the reference
+        # (tpustream/runtime/executor.py:577-583): the sharded emissions
+        # are fetched whole, and a sharded prefix stream is gathered
+        # into one prefix of the shards' prefixes already
         self._compact_cap = (int(cfg.compaction_capacity)
                              if cfg.compaction_capacity and not ref_state
+                             and cfg.parallelism <= 1
                              else 0)
         self._spilled_streams: set = set()
         # sticky per-column wire modes, known at the first pack
@@ -766,6 +771,12 @@ class Runner:
             self.obs.gauge("pipeline_occupancy").set_fn(
                 lambda: len(self._upload_q) + len(self._inflight)
             )
+            if self.program.n_shards > 1:
+                from ..parallel.exchange import exchange_capacity
+
+                self.obs.gauge("exchange_capacity_rows").set(
+                    exchange_capacity(cfg.batch_size, self.program.n_shards,
+                                      cfg.exchange_capacity_factor))
             # every sink counts under the legacy flat name and the one
             # labelled family, kept in lockstep
             for i, (_, sink) in enumerate(self.sinks):
@@ -986,11 +997,13 @@ class Runner:
 
     def pump_chain(self, proc_now: int) -> None:
         """Move buffered emissions to the downstream runner (or tick its
-        processing-time clock when there are none), then cascade. A
-        barrier: the steps in flight dispatch first."""
+        processing-time clock when there are none), then cascade. The
+        steps still in flight hand theirs over at a later pump, as in the
+        reference (tpustream/runtime/executor.py:1756): the downstream
+        stage's step boundaries, which order a sharded stage's rows,
+        follow the same cadence; :meth:`drain_chain` is the barrier."""
         if not self._chained:
             return
-        self.drain_inflight()
         d = self.downstream
         if d is None and self._chain_rows and self._lazy_plans:
             d = self._build_lazy_downstream()
@@ -1684,11 +1697,22 @@ class Runner:
         b = min(self._prefix_hint, int(leaves[0].shape[0]))
         return [t[:b] for t in leaves]
 
+    @property
+    def _chain_leaves(self) -> tuple:
+        """The hand-off's leaves a chained stage fetches beside its rows:
+        the timestamps an event-time stage downstream reads, and, from a
+        sharded stage, the window ends its canonical order sorts by."""
+        if self._chain_ts:
+            return ("window_end", "ts")
+        if self.downstream is not None and self.program.n_shards > 1:
+            return ("window_end",)
+        return ()
+
     def _prefix_leaves(self, stream) -> List[torch.Tensor]:
         """A prefix stream's row leaves in a fixed order: its columns,
         then ``key``, then the chained hand-off's ``window_end``/``ts``."""
         leaves = list(stream["cols"])
-        for k in ("key",) + (("window_end", "ts") if self._chain_ts else ()):
+        for k in ("key",) + self._chain_leaves:
             if k in stream:
                 leaves.append(stream[k])
         return leaves
@@ -1699,7 +1723,7 @@ class Runner:
         n_cols = len(stream["cols"])
         out = {"cols": list(arrays[:n_cols])}
         i = n_cols
-        for k in ("key",) + (("window_end", "ts") if self._chain_ts else ()):
+        for k in ("key",) + self._chain_leaves:
             if k in stream:
                 out[k] = arrays[i]
                 i += 1
@@ -1856,6 +1880,19 @@ class Runner:
             with obs.span("emit", self._step_idx), Stopwatch() as sw:
                 out = main["cols"]
                 if self.downstream is not None:
+                    wend, kcol = main.get("window_end"), main.get("key")
+                    if (wend is not None and kcol is not None
+                            and self.program.n_shards > 1):
+                        # the canonical (end, key) order: sharded rows
+                        # stack per shard, which would reorder rows of
+                        # different keys that share a downstream key; one
+                        # device fires end-major then key
+                        # (tpustream/runtime/executor.py:2296-2310)
+                        o = np.lexsort((kcol, wend))
+                        out = [c[o] for c in out]
+                        main = dict(main, window_end=wend[o], key=kcol[o])
+                        if "ts" in main:
+                            main["ts"] = main["ts"][o]
                     ts_rows = None
                     if self._chain_ts:
                         wend = main.get("window_end")

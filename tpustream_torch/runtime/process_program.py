@@ -63,6 +63,10 @@ class ProcessWindowProgram(WindowProgram):
     # [K, N, cap] buffers and [K, N] counts shard on the key axis by
     # rank, not as WindowProgram's flat planes do
     key_sharded_leaves = BaseProgram.key_sharded_leaves
+    # leading-key leaves rescale and grow with the base restack, not the
+    # window's flat word planes
+    rescale_key_leaf = BaseProgram.rescale_key_leaf
+    grow_key_leaf = BaseProgram.grow_key_leaf
     STATE_COMPONENT_KEYS = {
         "process_buffers": ("buf", "cnt"),
         "pane_ring": ("slot_pane",),
@@ -222,8 +226,11 @@ class ProcessWindowProgram(WindowProgram):
         ring = self.ring
         n, g, p_win = ring.n_slots, ring.pane_ms, ring.panes_per_window
         kk = self.key_capacity(state)
+        batch_max_t = torch.where(mask, ts, W0).max()
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
 
         wm_old = state["wm"]
         late = pane_ops.late_mask(ts, wm_old, self.allowed_lateness_ms, ring) & mask
@@ -233,11 +240,13 @@ class ProcessWindowProgram(WindowProgram):
             state["late_dropped"] += late.sum(dtype=torch.int64)
         batch_max, batch_hi, max_key = (
             int(v) for v in self._read(torch.stack([
-                torch.where(mask, ts, W0).max(),
+                batch_max_t,
                 torch.where(live, pane, -1).max(),
                 torch.where(live, keys.to(torch.int64), -1).max(),
             ]))
         )
+        batch_max = self._global_max(batch_max)
+        batch_hi = self._global_max(batch_hi)
         if max_key >= kk:
             raise IndexError(
                 f"a record carried key id {max_key}, past the window "
@@ -273,7 +282,11 @@ class ProcessWindowProgram(WindowProgram):
                           & (ends - 1 + self.allowed_lateness_ms > wm_old))
             if may_refire.any():
                 wrote = self._read(touched).astype(bool)
-                fire = fire | (may_refire & _dirty(slot_pane, wrote, cand, p_win))
+                # refires are shard-agreed: a dirty pane on any shard
+                # refires the candidate everywhere (fire stays the same
+                # on every shard)
+                dirty = self._global_max(_dirty(slot_pane, wrote, cand, p_win))
+                fire = fire | (may_refire & dirty)
         state.update(hi=hi, wm=wm_new, max_ts=new_max)
         emissions = {"late": {"mask": late, "cols": tuple(mid_cols)}}
         if fire.any():
@@ -313,6 +326,56 @@ class ProcessWindowProgram(WindowProgram):
         got = fetch([keys, per_key[keys]] + [b[pos] for b in state["buf"]])
         return got[0], got[1], got[2:]
 
+    def fired_windows(self, state, fire_info, fetch: Callable) -> dict:
+        """``{candidate index: slots}`` of the windows that fire and hold
+        an element here, in candidate order (one read: a slot without an
+        element adds nothing to a window)."""
+        ring = self.ring
+        n, p_win = ring.n_slots, ring.panes_per_window
+        slot_pane = state["slot_pane"]
+        kk = self.key_capacity(state)
+        (occupied,) = fetch([(state["cnt"][: kk * n].view(kk, n) > 0).any(dim=0)])
+        out = {}
+        for j in np.flatnonzero(fire_info["fire"]):
+            c = int(fire_info["cand"][j])
+            slots = [q % n for q in range(c - p_win + 1, c + 1)
+                     if slot_pane[q % n] == q and occupied[q % n]]
+            if slots:
+                out[int(j)] = slots
+        return out
+
+    def evaluate_window(self, state, fire_info, j: int, slots, emit: Callable,
+                        fetch: Callable) -> int:
+        """Fire candidate ``j``'s window over ``slots``: each key's
+        elements through the user function, keys ascending. Returns the
+        (key, window) invocations."""
+        ring = self.ring
+        kinds, tables = self.mid_kinds, self.mid_tables
+        key_table = self.key_table()
+        n_shards = max(1, self.cfg.parallelism)
+        wm, end = fire_info["wm"], int(fire_info["ends"][j])
+        key_rows, per_key, cols = self._gather_window(state, slots, fetch)
+        values = [host_values(kd, tb, col)
+                  for kd, tb, col in zip(kinds, tables, cols)]
+        items = values[0] if len(values) == 1 else [
+            make_tuple(*v) for v in zip(*values)]
+        off = 0
+        fired = 0
+        for key_row, k_n in zip(key_rows.tolist(), per_key.tolist()):
+            elements, off = items[off:off + k_n], off + k_n
+            key_id = self._global_key_id(key_row)
+            key_val = (key_table.lookup(key_id) if key_table is not None
+                       else key_id)
+            ctx = WindowContext(end - ring.size_ms, end, wm)
+            fired += 1
+            out = Collector()
+            self.process_fn(key_val, ctx, elements, out)
+            for ii, item in enumerate(out.items):
+                emit(item, key_id % n_shards, end - 1,
+                     (int(j), self._row_offset(self.key_capacity(state))
+                      + key_row, ii))
+        return fired
+
     def evaluate_fires(self, state, fire_info, emit: Callable,
                        fetch: Callable) -> int:
         """Host callback: gather each fired window's elements, run the
@@ -320,43 +383,14 @@ class ProcessWindowProgram(WindowProgram):
         ``emit(item, subtask, ts, order)`` (which runs the window's post
         ops): ``ts`` is Flink's window result timestamp ``end - 1``, which
         a chained stage consumes, and ``order`` the result's place in
-        this evaluation loop (fire candidate, key, item ordinal).
+        this evaluation loop (fire candidate, key row, item ordinal).
         ``fetch(tensors)`` copies device tensors to the host with one
         wait.
 
         Returns the (key, window) invocations, the ``window_fires``
         count."""
-        ring = self.ring
-        n, p_win = ring.n_slots, ring.panes_per_window
-        slot_pane = state["slot_pane"]
-        kinds, tables = self.mid_kinds, self.mid_tables
-        key_table = self.key_table()
-        n_shards = max(1, self.cfg.parallelism)
-        wm = fire_info["wm"]
-        kk = self.key_capacity(state)
-        # one read: a slot without an element adds nothing to a window
-        (occupied,) = fetch([(state["cnt"][: kk * n].view(kk, n) > 0).any(dim=0)])
         fired = 0
-        for j in np.flatnonzero(fire_info["fire"]):
-            c, end = int(fire_info["cand"][j]), int(fire_info["ends"][j])
-            slots = [q % n for q in range(c - p_win + 1, c + 1)
-                     if slot_pane[q % n] == q and occupied[q % n]]
-            if not slots:
-                continue
-            key_ids, per_key, cols = self._gather_window(state, slots, fetch)
-            values = [host_values(kd, tb, col)
-                      for kd, tb, col in zip(kinds, tables, cols)]
-            items = values[0] if len(values) == 1 else [
-                make_tuple(*v) for v in zip(*values)]
-            off = 0
-            for key_id, k_n in zip(key_ids.tolist(), per_key.tolist()):
-                elements, off = items[off:off + k_n], off + k_n
-                key_val = (key_table.lookup(key_id) if key_table is not None
-                           else key_id)
-                ctx = WindowContext(end - ring.size_ms, end, wm)
-                fired += 1
-                out = Collector()
-                self.process_fn(key_val, ctx, elements, out)
-                for ii, item in enumerate(out.items):
-                    emit(item, key_id % n_shards, end - 1, (int(j), key_id, ii))
+        for j, slots in self.fired_windows(state, fire_info, fetch).items():
+            fired += self.evaluate_window(state, fire_info, j, slots, emit,
+                                          fetch)
         return fired

@@ -90,6 +90,10 @@ class _SessionCommon:
 
     # typed [K, N] cells shard on the key axis by rank
     key_sharded_leaves = BaseProgram.key_sharded_leaves
+    # leading-key leaves rescale and grow with the base restack, not the
+    # window's flat word planes
+    rescale_key_leaf = BaseProgram.rescale_key_leaf
+    grow_key_leaf = BaseProgram.grow_key_leaf
 
     @property
     def gap_ms(self) -> int:
@@ -117,12 +121,15 @@ class _SessionCommon:
         return occ_q & (mn_q < ts + gap) & (ts < mx_q + gap)
 
     def _admit(self, state, keys, ts, mask, pane, cnt, cmin, cmax,
-               rel_ts: bool = False):
+               rel_ts: bool = False, batch_max_t=None):
         """Flink's merging-window late test and the step's host scalars.
         Returns ``(live, late, batch_max, hi)``: ``live`` the records
         that merge into the ring (late ones and those below its coverage
         after the head moved to ``hi`` removed; the latter counted in
-        ``evicted_unfired``), ``late`` the late stream's rows."""
+        ``evicted_unfired``), ``late`` the late stream's rows.
+        ``batch_max_t``: the newest timestamp of the shard's rows before
+        the keyBy (a device scalar; by default ``ts``'s). ``batch_max``
+        and ``hi`` are the shards' maxima."""
         n, gap = self.ring.n_slots, self.gap_ms
         kk = self.key_capacity(state)
         wm_old, hi_old = state["wm"], state["hi"]
@@ -136,7 +143,8 @@ class _SessionCommon:
         # the step's decisions need four scalars of the batch: one copy
         batch_max, max_key, n_unrescued, batch_hi = (
             int(v) for v in self._read(torch.stack([
-                torch.where(mask, ts, W0).max(),
+                (torch.where(mask, ts, W0).max() if batch_max_t is None
+                 else batch_max_t),
                 torch.where(mask, keys.to(torch.int64), -1).max(),
                 (hard_late & ~rescued).sum(dtype=torch.int64),
                 torch.where(anchor, pane, -1).max(),
@@ -155,6 +163,8 @@ class _SessionCommon:
                 torch.where(accepted, pane, -1).max().reshape(1)))
         else:
             accepted = anchor
+        batch_max = self._global_max(batch_max)
+        batch_hi = self._global_max(batch_hi)
         late = mask & ~accepted
         live = mask & accepted
         if self.count_late_as_dropped:
@@ -547,7 +557,7 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
         post_cols, post_mask = self.post_chain.apply(list(leaves), fvalid)
         k_idx = torch.remainder(idx, kk)
         o_idx = torch.div(idx, kk, rounding_mode="floor")
-        key_col = k_idx.to(torch.int32)
+        key_col = self._global_key_ids(k_idx)
         end_col = mx[k_idx, o_idx] + self.gap_ms
         out_idx, n_out = pane_ops.compact_positions(post_mask & fvalid, cap)
         out_idx = out_idx.to(torch.int64)
@@ -575,12 +585,15 @@ class SessionWindowProgram(_SessionCommon, WindowProgram):
         end pane, then key id; ``count`` is 0 (a Python int) when
         nothing fired."""
         mid_cols, mask = self._apply_pre(cols, valid)
+        batch_max_t = torch.where(mask, ts, W0).max()
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         pane = pane_ops.pane_of(ts, self.ring.pane_ms)
         live, late, batch_max, hi = self._admit(
             state, keys, ts, mask, pane, state["cnt"], state["cell_min"],
-            state["cell_max"], self._rel_ts)
+            state["cell_max"], self._rel_ts, batch_max_t)
         wm_old = state["wm"]
         new_max = max(state["max_ts"], batch_max)
         wm_new = max(wm_old, max(new_max - self.delay_ms, wm_lower))
@@ -704,8 +717,11 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
         ring = self.ring
         n, gap, L = ring.n_slots, self.gap_ms, self.allowed_lateness_ms
         kk = self.key_capacity(state)
+        batch_max_t = torch.where(mask, ts, W0).max()
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         v = self._cell_views(state)
 
         # the previous step's marks and clears (the host consumed those
@@ -725,7 +741,7 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
         wm_old = state["wm"]
         live, late, batch_max, hi = self._admit(
             state, keys, ts, mask, pane, state["cnt"], state["cell_min"],
-            state["cell_max"])
+            state["cell_max"], batch_max_t=batch_max_t)
         new_max = max(state["max_ts"], batch_max)
         wm_new = max(wm_old, max(new_max - self.delay_ms, wm_lower))
 
@@ -834,7 +850,7 @@ class SessionProcessProgram(_SessionCommon, ProcessWindowProgram):
             for j in range(c, e):
                 elements += items[first[j]:first[j] + counts[j]]
             start_ts, end_ts = int(cmin[c:e].min()), int(cmax[c:e].max())
-            key_id = int(key_row[c])
+            key_id = self._global_key_id(key_row[c])
             key_val = key_table.lookup(key_id) if key_table is not None else key_id
             fired += 1
             out = Collector()

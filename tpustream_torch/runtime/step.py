@@ -11,9 +11,12 @@ tumbling/sliding window ``reduce`` and ``aggregate``
 (``session_program.SessionWindowProgram``, ``SessionProcessProgram``),
 count windows (``count_program.CountWindowProgram``,
 ``SlidingCountWindowProgram``, ``CountProcessProgram``) and CEP
-(``cep_program.CepProgram``). ``parallelism > 1`` raises
-``NotImplementedError`` from :func:`build_program`. A step takes
-``(state, cols, valid, ts, wm_lower)``, as in the reference.
+(``cep_program.CepProgram``). At ``parallelism > 1``
+:func:`build_program` returns the sharded variant of each keyed family
+(``runtime/sharded.py``): S shards in one process, each running the
+family's own step, with the SPMD hooks of :class:`BaseProgram` (the
+identity here) bound to the mesh's collectives (ROADMAP item 12a). A
+step takes ``(state, cols, valid, ts, wm_lower)``, as in the reference.
 
 Dynamic rules (``tpustream_torch.broadcast``): every family's
 ``init_state`` attaches the job's rule tensors to its state
@@ -234,6 +237,88 @@ class BaseProgram:
             return self.plan.tables[-1] if self.plan.tables else None
         return self.mid_tables[self.key_pos]
 
+    # -- SPMD hooks (tpustream/runtime/step.py:272-313): the identity on
+    # one device; the shards of a sharded program (runtime/sharded.py)
+    # bind them to the mesh's collectives ---------------------------------
+    n_shards = 1
+    shard = 0  # this program's shard (runtime/sharded.py)
+
+    def _global_key_id(self, local_row: int) -> int:
+        """A host int: this shard's state row -> global key id."""
+        return int(local_row) * self.n_shards + self.shard
+
+    def _row_offset(self, n_local_rows: int) -> int:
+        """Offset of this shard's emission rows in the concatenated
+        output (0 on one device; ``shard * n_local_rows`` on a mesh)."""
+        return 0
+
+    def _global_max(self, x):
+        """``x`` maximized over the shards (host int or 0-d tensor)."""
+        return x
+
+    def _global_sum(self, x):
+        """``x`` summed over the shards."""
+        return x
+
+    def _exchange(self, mid_cols, mask, ts):
+        """keyBy: route the records to their key's owner shard. Returns
+        ``(cols, mask, ts, overflow)``; on one device nothing moves."""
+        return mid_cols, mask, ts, 0
+
+    def _local_keys(self, key_col):
+        """Global key id -> this shard's dense state row."""
+        return key_col.to(torch.int32)
+
+    def _global_key_ids(self, local_ids):
+        """This shard's state row -> global key id."""
+        return local_ids.to(torch.int32)
+
+    def rescale_key_leaf(self, arr: np.ndarray, from_parallelism: int):
+        """Re-lay a key-sharded leaf (the reference's layout) saved at
+        another parallelism onto this program's shard-major layout
+        (checkpoint rescale: Flink savepoints restore at any
+        parallelism; tpustream/runtime/step.py:162-192).
+
+        Default layout: the leading key axis stacked shard-major, row
+        ``shard * k_local + local`` holding global key
+        ``local * S + shard``. The global shape does not depend on the
+        parallelism, so a rescale is a row permutation through the
+        canonical key-major order. WindowProgram overrides it for its
+        flat word planes."""
+        S_o = max(1, from_parallelism)
+        S_n = max(1, self.n_shards)
+        if S_o == S_n:
+            return arr
+        K = arr.shape[0]
+        if K % S_o or K % S_n:
+            raise ValueError(
+                f"cannot rescale keyed state: key_capacity ({K}) must "
+                f"divide evenly by both the snapshot parallelism ({S_o}) "
+                f"and the target parallelism ({S_n})"
+            )
+        rest = tuple(range(2, arr.ndim + 1))
+        canon = arr.reshape(S_o, K // S_o, *arr.shape[1:]).transpose(
+            1, 0, *rest).reshape(arr.shape)
+        return np.ascontiguousarray(
+            canon.reshape(K // S_n, S_n, *arr.shape[1:]).transpose(
+                1, 0, *rest).reshape(arr.shape))
+
+    def grow_key_leaf(self, old: np.ndarray, new_init: np.ndarray,
+                      shards: int = None) -> np.ndarray:
+        """Copy a key-sharded leaf (the reference's layout) into this
+        program's larger key capacity: the shard count is unchanged and
+        interned ids are stable, so key ``g`` stays on shard ``g % S`` at
+        the same local row; new rows keep ``new_init``'s values
+        (tpustream/runtime/step.py:194-230)."""
+        S = shards or max(1, self.n_shards)
+        k_lo = old.shape[0] // S
+        out = np.array(new_init)
+        k_ln = out.shape[0] // S
+        k = min(k_lo, k_ln)
+        out.reshape(S, k_ln, *old.shape[1:])[:, :k] = old.reshape(
+            S, k_lo, *old.shape[1:])[:, :k]
+        return out
+
 
 def all_false(tree):
     """``tree``'s structure with False at every leaf."""
@@ -428,8 +513,10 @@ class RollingProgram(BaseProgram):
         ``ts``; ``bad_keys`` counts rows whose key id was past the
         capacity, which makes the step's output void."""
         mid_cols, mask = self._apply_pre(cols, valid)
+        # keyBy: route the records to their key's owner shard
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, gkeys = self._split_key_col(mid_cols)
-        keys = gkeys.to(torch.int32)
+        keys = self._local_keys(gkeys)
         if not self.kernel_path:
             state, emitted = rolling_ops.rolling_step_general(
                 state, keys, tuple(mid_cols), mask, self.combine,
@@ -445,7 +532,7 @@ class RollingProgram(BaseProgram):
             # ids and never touch its state plane
             dt = torch.int32 if key_kind == STR else torch.int64
             kwargs["key_col"] = self.key_pos
-            kwargs["key_emit"] = lambda k: k.to(dt)
+            kwargs["key_emit"] = lambda k: self._global_key_ids(k).to(dt)
         state, emitted = rolling_ops.rolling_step(
             state, keys, tuple(mid_cols), mask, self.mid_kinds,
             self.kind, self.pos, **kwargs,
@@ -458,7 +545,8 @@ class RollingProgram(BaseProgram):
         input timestamp."""
         out_cols, out_mask = self.post_chain.apply(list(emitted), mask)
         n_shards = max(1, self.cfg.parallelism)
-        subtask = torch.where(mask, keys, 0) % n_shards
+        # the key's owner from the GLOBAL key id (the print prefix)
+        subtask = self._global_key_ids(torch.where(mask, keys, 0)) % n_shards
         main = {"mask": out_mask, "cols": tuple(out_cols), "subtask": subtask,
                 "bad_keys": self.bad_keys}
         if self.emit_ts:
@@ -467,15 +555,17 @@ class RollingProgram(BaseProgram):
 
 
 def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
-    if cfg.parallelism > 1:
-        raise NotImplementedError(
-            f"parallelism={cfg.parallelism} is not ported to the PyTorch "
-            f"runtime yet (roadmap queue item 12): it runs on one device"
-        )
+    """The program of ``plan``'s stateful operator; at ``parallelism > 1``
+    its sharded variant (``runtime/sharded.py``), as the reference
+    dispatches (tpustream/runtime/step.py:485-560)."""
+    sharded = cfg.parallelism > 1
     if plan.stateful is None:
         return StatelessProgram(plan, cfg)
+    if sharded:
+        from . import sharded as sh
     if plan.stateful.kind in ("rolling", "rolling_reduce"):
-        return RollingProgram(plan, cfg)
+        return (sh.ShardedRollingProgram if sharded else RollingProgram)(
+            plan, cfg)
     if plan.stateful.kind == "window":
         spec = plan.stateful.window
         if spec is not None and spec.kind == "count":
@@ -486,25 +576,32 @@ def build_program(plan: JobPlan, cfg: StreamConfig) -> BaseProgram:
             )
 
             if plan.stateful.apply_kind == "process":
-                return CountProcessProgram(plan, cfg)
+                return (sh.ShardedCountProcessProgram if sharded
+                        else CountProcessProgram)(plan, cfg)
             if spec.count_slide and spec.count_slide != spec.count:
-                return SlidingCountWindowProgram(plan, cfg)
-            return CountWindowProgram(plan, cfg)
+                return (sh.ShardedSlidingCountWindowProgram if sharded
+                        else SlidingCountWindowProgram)(plan, cfg)
+            return (sh.ShardedCountWindowProgram if sharded
+                    else CountWindowProgram)(plan, cfg)
         if spec is not None and spec.kind == "session":
             from .session_program import SessionProcessProgram, SessionWindowProgram
 
             if plan.stateful.apply_kind == "process":
-                return SessionProcessProgram(plan, cfg)
-            return SessionWindowProgram(plan, cfg)
+                return (sh.ShardedSessionProcessProgram if sharded
+                        else SessionProcessProgram)(plan, cfg)
+            return (sh.ShardedSessionWindowProgram if sharded
+                    else SessionWindowProgram)(plan, cfg)
         if plan.stateful.apply_kind == "process":
             from .process_program import ProcessWindowProgram
 
-            return ProcessWindowProgram(plan, cfg)
+            return (sh.ShardedProcessWindowProgram if sharded
+                    else ProcessWindowProgram)(plan, cfg)
         from .window_program import WindowProgram
 
-        return WindowProgram(plan, cfg)
+        return (sh.ShardedWindowProgram if sharded else WindowProgram)(
+            plan, cfg)
     if plan.stateful.kind == "cep":
         from .cep_program import CepProgram
 
-        return CepProgram(plan, cfg)
+        return (sh.ShardedCepProgram if sharded else CepProgram)(plan, cfg)
     raise NotImplementedError(f"unknown stateful operator {plan.stateful.kind}")

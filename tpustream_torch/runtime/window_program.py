@@ -451,11 +451,48 @@ class WindowProgram(BaseProgram):
         return t.cpu().numpy()
 
     def _emission_keys(self, kk: int) -> torch.Tensor:
+        """The GLOBAL key id of each of this shard's ``kk`` state rows
+        (``arange(kk)`` on one device)."""
         ids = self._key_ids.get(kk)
         if ids is None:
-            ids = torch.arange(kk, dtype=torch.int32, device=self.device)
+            ids = self._global_key_ids(
+                torch.arange(kk, dtype=torch.int32, device=self.device))
             self._key_ids = {kk: ids}
         return ids
+
+    def rescale_key_leaf(self, arr, from_parallelism: int):
+        """Checkpoint rescale of the flat word planes (the reference's
+        layout ``[shard][slot][local_key]``, one contiguous
+        ``[n_slots * k_local]`` block a shard): the permutation goes
+        through the canonical ``[slot][global_key]`` order
+        (tpustream/runtime/window_program.py:340-361)."""
+        S_o = max(1, from_parallelism)
+        S_n = max(1, self.n_shards)
+        if S_o == S_n:
+            return arr
+        n = self.ring.n_slots
+        K = arr.shape[0] // n
+        if K % S_o or K % S_n:
+            raise ValueError(
+                f"cannot rescale window state: key_capacity ({K}) must "
+                f"divide evenly by both the snapshot parallelism ({S_o}) "
+                f"and the target parallelism ({S_n})"
+            )
+        canon = arr.reshape(S_o, n, K // S_o).transpose(1, 2, 0).reshape(n, K)
+        return np.ascontiguousarray(
+            canon.reshape(n, K // S_n, S_n).transpose(2, 0, 1).reshape(-1))
+
+    def grow_key_leaf(self, old, new_init, shards: int = None):
+        """Key-capacity growth of the flat word planes: per shard, each
+        slot's old run of local keys is the head of its new run."""
+        S = shards or max(1, self.n_shards)
+        n = self.ring.n_slots
+        k_lo = old.shape[0] // (S * n)
+        out = np.array(new_init)
+        k_ln = out.shape[0] // (S * n)
+        k = min(k_lo, k_ln)
+        out.reshape(S, n, k_ln)[:, :, :k] = old.reshape(S, n, k_lo)[:, :, :k]
+        return out
 
     # ------------------------------------------------------------------
     # the state merge
@@ -529,7 +566,8 @@ class WindowProgram(BaseProgram):
         old_words = [p[sc_c] for p in planes]
         old_cnt = cnt[sc_c]
         old_stored = unpack_words(old_words, self.stored_kinds, self.compact32)
-        old_live = self._live_from_stored(old_stored, torch.remainder(sc_c, kk))
+        old_live = self._live_from_stored(
+            old_stored, self._global_key_ids(torch.remainder(sc_c, kk)))
         merged = self._combine_live(tuple(old_live), prefix)
         has_old = (old_cnt > 0) & sv
         new_live = [torch.where(has_old, m, p) for m, p in zip(merged, prefix)]
@@ -714,8 +752,11 @@ class WindowProgram(BaseProgram):
         ring = self.ring
         n, g = ring.n_slots, ring.pane_ms
         kk = self.key_capacity(state)
+        # the newest timestamp of the shard's own rows, before the keyBy
+        batch_max_t = torch.where(mask, ts, W0).max()
+        mid_cols, mask, ts, _ = self._exchange(mid_cols, mask, ts)
         mid_cols, key_col = self._split_key_col(mid_cols)
-        keys = key_col.to(torch.int32)
+        keys = self._local_keys(key_col)
         lifted = self.lift(mid_cols)
 
         wm_old = state["wm"]
@@ -727,12 +768,16 @@ class WindowProgram(BaseProgram):
         # the step's decisions need four scalars of the batch: one copy
         batch_max, batch_hi, min_live_pane, max_key = (
             int(v) for v in self._read(torch.stack([
-                torch.where(mask, ts, W0).max(),
+                batch_max_t,
                 torch.where(live, pane, -1).max(),
                 torch.where(live, pane, INF).min(),
                 torch.where(live, keys.to(torch.int64), -1).max(),
             ]))
         )
+        # the decision scalars every shard must agree on (pmax)
+        batch_max = self._global_max(batch_max)
+        batch_hi = self._global_max(batch_hi)
+        min_live_pane = -self._global_max(-min_live_pane)
         if max_key >= kk:
             raise IndexError(
                 f"a record carried key id {max_key}, past the window "
@@ -812,6 +857,10 @@ class WindowProgram(BaseProgram):
             slot_pane = state["slot_pane"]
             unsafe = occ & ((slot_pane + p_win) * g - 1 > ft)
             unsafe_min = int(slot_pane[unsafe].min()) if unsafe.any() else INF
+            # the shards' occupancy differs; the head they advance to
+            # must not (a global min)
+            unsafe_min = -self._global_max(-unsafe_min)
+            min_unscat = -self._global_max(-min_unscat)
             hi_next = min(hi_target, unsafe_min + (n - 1), min_unscat + (n - p_win))
             hi_next = max(hi_next, hi_cur)
             if hi_next > hi_cur:

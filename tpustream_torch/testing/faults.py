@@ -13,7 +13,8 @@ paths named after them:
   matching) program only: targets crash recovery of mid-pattern NFA
   register state without also firing on the job's other operators
 * ``exchange``     — before a sharded (n_shards > 1) step's keyBy
-  all_to_all
+  all-to-all, on the last shard's thread while the others wait in it
+  (the mesh aborts, so every shard fails: runtime/sharded.py)
 * ``sink_emit``    — inside each sink emit attempt (so sink retry
   with backoff is exercised; see runtime/sinks.py RetryingSink)
 * ``control_apply``— after a broadcast rule update lands on the
