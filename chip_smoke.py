@@ -42,7 +42,7 @@ the kernel, which must launch), each against a host oracle and each
 program built once across the updates; the kernel is then held against
 its plain version on the inputs of the max's second call. Phase
 ``fleet`` drives the
-chapter-6 job server: 4096 tenants x 128 lines at B = 65536 with quotas,
+chapter-6 job server: 4096 tenants x 64 lines at B = 65536 with quotas,
 mid-stream threshold updates, removals and late admissions, every
 tenant's rows and quota side output against the chapter-6 oracle and
 one program build; the same fleet from half the tenant capacity, which
@@ -114,8 +114,23 @@ plain version; a snapshot written at 8 shards restored at 4 and at 1;
 and a run with ``exchange_capacity_factor=0.5`` whose overflow equals
 the host's count.
 
+Phase ``multiproc`` (after ``sharded``) drives one job over two
+processes: two workers of this script (``--multiproc-worker RANK
+PORT``, started with ``subprocess`` once both kernels and the native
+parser are built) join a ``torch.distributed`` group on the ``gloo``
+backend and share ``cuda:0``, 4 of the 8 shards each. The flagship
+exact at full width, the chapter-2 rolling max (every launch of the
+rolling kernel held against its plain version) and the chapter-2 mean
+under float32 at 4 shards (every merge call likewise): the union of
+both processes' rows against the host oracle, each process emitting a
+non-empty, strict part; then the pair's snapshot, written by its
+coordinator alone, restored here at 4 shards and at 1. It prints each
+process's events/s, wall, steps, median step and waits a step, the
+seconds and bytes of the collectives that crossed processes, and the
+pair's events/s beside phase ``sharded``'s one-process figure.
+
 Options (the default runs everything): ``--phases
-kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,analysis,acc32,sharded,small``,
+kernel,job,flagship,chain,ch1,avg,median,session,count,cep,rules,fleet,obs,pipeline,recovery,analysis,acc32,sharded,multiproc,small``,
 ``--reps N`` (timed repeats per kernel case), ``--lines N`` (job input),
 ``--flagship-lines N`` (flagship, chain, recovery's flagship runs and
 acc32 input), ``--obs-lines N`` (obs, and acc32's ledger-cost pairs),
@@ -124,14 +139,19 @@ analysis phase's strict run), ``--new-lines N`` (input of
 ch1, avg and median), ``--window-lines N`` (input of session, count and
 acc32's window jobs),
 ``--cep-lines N`` (input of cep and rules), ``--sharded-lines N``
-(input of the sharded phase's flagship, rolling and mean runs). The
+(input of the sharded phase's flagship, rolling and mean runs),
+``--multiproc-lines N`` (the same for the multiproc phase). The
 defaults keep the whole run well inside 20 minutes: 786,432 lines (six
-batches of 131,072, which the profiled data steps 2-5 and the recovery
-crash at data step 5 need) for the job, flagship, new, window and cep
-inputs, 393,216 for the pipeline (24 frames of its lanes' source: more
-than the 16 its producer runs ahead, so a killed lane respawns), 262,144
-for obs, 100,000 for the dead letters; the phase texts above give the
-shapes the earlier runs used.
+batches of 131,072, which the recovery crash at data step 5 needs) for the job, flagship, window and cep
+inputs, 524,288 for the unprofiled ch1, avg and median, 327,680 for
+the pipeline (20 frames of its lanes' source: more than the 16 its
+producer runs ahead, so a killed lane respawns), 262,144 for obs, the
+sharded and the multiproc phases (whose flagships span 10 minutes of
+event time, two window lengths, not 20: their time is set by the window
+ends to fire, not by the lines; the sharded snapshot's job 262,144),
+50,000 for the dead letters; the fleet's tenants send 64
+lines each (262,144 in all); the phase texts above give the shapes the
+earlier runs used.
 """
 
 from __future__ import annotations
@@ -147,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -714,14 +735,15 @@ FLOW_LINES = [
 ]
 
 
-def make_flagship_input(n: int, n_channels: int, seed: int):
+def make_flagship_input(n: int, n_channels: int, seed: int,
+                        span_s: int = 1200):
     """``(lines, ts_sec, channel)``: n lines ``ISO-ts channel flow`` over
-    20 min of event time, each jittered back by up to 30 s (under the
+    ``span_s`` of event time, each jittered back by up to 30 s (under the
     1 min delay, so nothing is late); half from 1024 hot channels, half
     uniform over ``n_channels``. Channels with ``id % 128 == 0`` send
     1-1000 bytes and alert; the rest send 1e9 bytes (127 Mbps, filtered)."""
     rng = np.random.default_rng(seed)
-    ts = T0_SEC + (np.arange(n, dtype=np.int64) * 1200) // n \
+    ts = T0_SEC + (np.arange(n, dtype=np.int64) * span_s) // n \
         - rng.integers(0, 31, n)
     ch = np.where(rng.random(n) < 0.5, rng.integers(0, 1024, n),
                   rng.integers(0, n_channels, n))
@@ -800,7 +822,7 @@ def run_flagship(lines, device, batch=B_MAIN, keys=K_MAIN, processing=False,
 
 
 def profile_steps(label: str, program_cls, run, main_step_s: list,
-                  first: int = 2, n: int = 4) -> None:
+                  first: int = 2, n: int = 2) -> None:
     """``run()`` (the job again; returns its Metrics) with
     ``torch.profiler`` (CPU and CUDA activity) on from data step
     ``first`` through data step ``first + n - 1`` of ``program_cls``
@@ -1532,7 +1554,7 @@ def session_phase(n_lines: int) -> None:
     ``aggregate`` mean over a float column under the exact default (the
     sorted merge). Every session against the numpy oracle: key, end and
     count exact, int32 sums exact, means within 2(m-1)*eps*sum|v|. Each
-    run again with ``torch.profiler`` on for data steps 2-5: the card's
+    run again with ``torch.profiler`` on for data steps 2-3: the card's
     busy share of a warm step and its device time by op."""
     from tpustream_torch.ops import seq_rolling as S
     from tpustream_torch.runtime.session_program import SessionWindowProgram
@@ -2093,7 +2115,7 @@ def rules_phase(n_lines: int, reps: int) -> dict:
 # -- phases fleet and obs: chapter 6 (tenancy) and the observability layer --
 
 FLEET_TENANTS = 4096
-FLEET_RECORDS = 128  # a tenant's lines: 4096 x 128 = 524,288
+FLEET_RECORDS = 64  # a tenant's lines: 4096 x 64 = 262,144
 FLEET_B = 65536
 FLEET_LATE = 64      # tenants admitted after ingestion began
 FLEET_ROUNDS = 16    # round-robin ingestion blocks
@@ -2342,12 +2364,12 @@ def check_fleet_run(label: str, srv, res, builds, want, cap: int) -> None:
 
 
 def fleet_phase(reps: int) -> dict:
-    """Chapter 6 at a fleet size users run: 4096 tenants, 524,288
-    lines (128 a tenant; cut from 256 to keep the script inside its
-    time limit), B = 65536. Every tenant's demuxed rows and quota side output
+    """Chapter 6 at a fleet size users run: 4096 tenants, 262,144
+    lines (64 a tenant; cut from 256, then 128, to keep the script inside
+    its time limit), B = 65536. Every tenant's demuxed rows and quota side output
     against ``c6.expected``; one program build; the same fleet from half
     the tenant capacity grows once; a profiled rerun of the first fleet
-    for warm steps 2-5; the keyed fleet's rolling max on the kernel
+    for warm steps 2-3; the keyed fleet's rolling max on the kernel
     against a numpy running max. Returns the kernel's launches in the
     keyed fleet and its case on the keyed fleet's second call
     (:func:`path_kernel_case`)."""
@@ -4622,6 +4644,10 @@ def small_cep_rules() -> None:
 
 SHARDS = 8
 SHARDED_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+# the event time the sharded and multiproc flagships span, two lengths of
+# the published 5 min window, so that windows fire full; their time is
+# set by the window ends to fire (one fold a shard each), not by the lines
+SHARDED_SPAN_S = 600
 
 
 def check_rolling_calls(box: dict):
@@ -4712,14 +4738,17 @@ def exchange_overflow_oracle(ids: np.ndarray, batch: int, shards: int,
     return total
 
 
-def sharded_flagship(n_lines: int) -> None:
+def sharded_flagship(n_lines: int) -> float:
     """The flagship's exact configuration at full width over SHARDS
     shards: every row against the host oracle (as a multiset: rows stack
-    shard by shard within a step), the loss and exchange counters 0."""
+    shard by shard within a step), the loss and exchange counters 0.
+    Returns its events/s."""
     t0 = time.perf_counter()
-    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3)
+    lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3,
+                                              span_s=SHARDED_SPAN_S)
     want = sorted(f"({c},{v!r})" for c, v in flagship_oracle(ts, ch, flow))
-    print(f"sharded flagship: {n_lines} lines, {len(want)} oracle rows "
+    print(f"sharded flagship: {n_lines} lines over {SHARDED_SPAN_S} s of "
+          f"event time, {len(want)} oracle rows "
           f"({time.perf_counter() - t0:.1f} s)")
     rows, m, wall = run_flagship(lines, SHARDED_DEVICE, parallelism=SHARDS)
     if sorted(rows) != want:
@@ -4732,6 +4761,7 @@ def sharded_flagship(n_lines: int) -> None:
           f"{len(rows)} rows equal the oracle; {losses}; window_fires="
           f"{m.window_fires}; {check_native('sharded flagship', m)}")
     print(f"sharded flagship {wall_split(m, wall)}")
+    return n_lines / wall
 
 
 def sharded_rolling(n_lines: int, reps: int) -> dict:
@@ -4762,7 +4792,7 @@ def sharded_rolling(n_lines: int, reps: int) -> dict:
                    min(len(got), len(want)))
         raise AssertionError(f"sharded rolling: {len(got)} rows vs "
                              f"{len(want)}, first difference at row {bad}")
-    if SHARDED_DEVICE == "cuda" and (launches < SHARDS * m.steps
+    if SHARDED_DEVICE == "cuda" and (launches != SHARDS * m.steps
                                      or box["checked"] != launches):
         raise AssertionError(
             f"sharded rolling: {launches} launches over {m.steps} steps of "
@@ -4823,7 +4853,7 @@ def sharded_avg(n_lines: int, reps: int, shards: int = 4,
                else None)
         raise AssertionError(f"sharded avg float32: {got.size} rows vs "
                              f"{want.size}, first difference at row {bad}")
-    if SHARDED_DEVICE == "cuda" and (launches < shards * (m.steps // 2)
+    if SHARDED_DEVICE == "cuda" and (launches != shards * m.steps
                                      or box["checked"] != launches):
         raise AssertionError(
             f"sharded avg float32: {launches} launches over {m.steps} steps "
@@ -4919,7 +4949,7 @@ def sharded_phase(flagship_lines: int, n_lines: int, reps: int) -> dict:
     every shard), a snapshot restored at 4 and 1, a counted overflow."""
     out = {}
     t0 = time.perf_counter()
-    sharded_flagship(flagship_lines)
+    out["flagship_events_per_s"] = sharded_flagship(flagship_lines)
     print(f"sharded flagship: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out["rolling"] = sharded_rolling(n_lines, reps)
@@ -4928,7 +4958,7 @@ def sharded_phase(flagship_lines: int, n_lines: int, reps: int) -> dict:
     out["avg"] = sharded_avg(n_lines, reps)
     print(f"sharded avg: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sharded_restore(4 * B_MAIN)
+    sharded_restore(2 * B_MAIN)
     print(f"sharded restore: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sharded_overflow(B_MAIN)
@@ -4936,17 +4966,392 @@ def sharded_phase(flagship_lines: int, n_lines: int, reps: int) -> dict:
     return out
 
 
+# -- phase multiproc: one sharded job over two processes --------------------
+
+MULTIPROC_DEVICE = "cuda"  # a CPU rehearsal sets "cpu"
+MULTIPROC_TIMEOUT_S = 400.0
+MULTIPROC_SNAPSHOT_LINES = 2 * B_MAIN
+
+
+def track_meshes() -> list:
+    """Every mesh the sharded programs build from here on, for the
+    counters of their collectives that cross processes."""
+    from tpustream_torch.runtime import sharded
+
+    made = []
+    plain = sharded.make_mesh
+
+    def tracked(*a, **k):
+        mesh = plain(*a, **k)
+        made.append(mesh)
+        return mesh
+
+    sharded.make_mesh = tracked
+    return made
+
+
+def pair_stats(m, wall: float, n_lines: int, meshes: list) -> dict:
+    """One process's run: events/s (its lines over its wall), the steps,
+    their median after the first, the waits on the card a step, and the
+    mesh's collectives that crossed processes (calls, seconds, bytes
+    this process sent)."""
+    rest = m.step_times_s[1:] or m.step_times_s
+    return {
+        "events_per_s": n_lines / wall, "wall_s": wall, "steps": m.steps,
+        "step_ms_median": statistics.median(rest) * 1e3,
+        "waits_per_step": m.d2h_syncs / max(1, m.steps),
+        "xproc_calls": sum(x.xproc_calls for x in meshes),
+        "xproc_s": sum(x.xproc_seconds for x in meshes),
+        "xproc_bytes": sum(x.xproc_bytes for x in meshes),
+    }
+
+
+def _host_call(call) -> list:
+    import torch
+
+    return [x.cpu() if isinstance(x, torch.Tensor) else x for x in call]
+
+
+def multiproc_worker(rank: int, port: int, out_dir: str) -> int:
+    """One process of the pair (``--multiproc-worker RANK PORT``): join
+    the group, run the phase's four runs at its shards on ``cuda:0``,
+    and leave its rows and numbers in ``out_dir``."""
+    global B_MAIN, K_MAIN, MULTIPROC_DEVICE
+    import torch
+
+    with open(os.path.join(out_dir, "config.json")) as f:
+        conf = json.load(f)
+    B_MAIN, K_MAIN = conf["batch"], conf["keys"]
+    MULTIPROC_DEVICE = dev = conf["device"]
+    n_lines, snap_lines = conf["lines"], conf["snapshot_lines"]
+    from tpustream_torch.jobs import chapter2_avg, chapter2_max
+    from tpustream_torch.ops import ordered_scatter as O
+    from tpustream_torch.ops import seq_rolling as S
+    from tpustream_torch.parallel import distributed
+
+    distributed.initialize(coordinator=f"127.0.0.1:{port}", num_processes=2,
+                           process_id=rank)
+    out = {"rank": rank}
+    meshes = track_meshes()
+    # (a) the flagship exact at 8 shards, 4 a process; first its first
+    # 1,024 lines (one batch at full width), untimed: a fresh process pays
+    # CUDA's loading of each kernel's module and the allocator's first
+    # allocation of the planes in its first step, which the one process
+    # of phase sharded paid in earlier phases
+    lines = make_flagship_input(n_lines, K_MAIN, seed=3,
+                                span_s=SHARDED_SPAN_S)[0]
+    t0 = time.perf_counter()
+    run_flagship(lines[:1024], dev, batch=B_MAIN, keys=K_MAIN,
+                 parallelism=SHARDS)
+    cold_s = time.perf_counter() - t0
+    meshes.clear()
+    rows, m, wall = run_flagship(lines, dev, batch=B_MAIN, keys=K_MAIN,
+                                 parallelism=SHARDS)
+    out["flagship"] = dict(pair_stats(m, wall, n_lines, meshes), rows=rows,
+                           cold_one_batch_s=cold_s,
+                           exchange_overflow=m.exchange_overflow,
+                           late_dropped=m.late_dropped,
+                           alert_overflow=m.alert_overflow,
+                           evicted_unfired=m.evicted_unfired)
+    # (b) the chapter-2 rolling max at 8 shards: every launch held
+    meshes.clear()
+    lines = make_lines(n_lines, K_MAIN, seed=7)
+    box = {"calls": 0, "checked": 0, "err": 0.0}
+    undo = check_rolling_calls(box)
+    S.reset_launches()
+    try:
+        items, m, wall = run_job(chapter2_max, lines, dev, "ComputeCpuMax",
+                                 batch_size=B_MAIN, key_capacity=K_MAIN,
+                                 parallelism=SHARDS)
+    finally:
+        undo()
+    out["rolling"] = dict(pair_stats(m, wall, n_lines, meshes),
+                          rows=[list(t.values()) for t in items],
+                          launches=S.seq_rolling_reduce.launches,
+                          checked=box["checked"], err=box["err"],
+                          exchange_overflow=m.exchange_overflow)
+    if rank == 0 and "call" in box:
+        torch.save(_host_call(box["call"]),
+                   os.path.join(out_dir, "rolling_call.pt"))
+    # (c) the chapter-2 mean under float32 at 4 shards, 2 a process
+    meshes.clear()
+    box = {"calls": 0, "checked": 0}
+    undo = check_scatter_calls(box)
+    O.reset_launches()
+    try:
+        items, m, wall = run_job(
+            chapter2_avg, with_minutes(lines, 100_000), dev, "ComputeCpuAvg",
+            batch_size=B_MAIN, key_capacity=K_MAIN, alert_capacity=1 << 18,
+            acc_dtype="float32", parallelism=4)
+    finally:
+        undo()
+    out["avg"] = dict(pair_stats(m, wall, n_lines, meshes),
+                      rows=[float(x) for x in items],
+                      launches=O.ordered_scatter_add.launches,
+                      checked=box["checked"],
+                      exchange_overflow=m.exchange_overflow)
+    if rank == 0 and "call" in box:
+        torch.save(_host_call(box["call"]),
+                   os.path.join(out_dir, "avg_call.pt"))
+    # (d) a snapshot of the chapter-2 job at 8 shards, written by the
+    # pair's coordinator alone
+    lines = make_lines(snap_lines, K_MAIN, seed=5)
+    items, m, wall = run_job(
+        chapter2_max, lines, dev, "ComputeCpuMax", batch_size=B_MAIN,
+        key_capacity=K_MAIN, parallelism=SHARDS,
+        checkpoint_dir=os.path.join(out_dir, "ck"),
+        checkpoint_interval_batches=1)
+    out["snapshot"] = {"rows": len(items), "wall_s": wall}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"multiproc worker {rank}: done", flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _check_parts(label: str, parts: list, union_len: int) -> None:
+    """Each process emitted a non-empty, strict part of the rows."""
+    if not all(0 < len(p) < union_len for p in parts):
+        raise AssertionError(f"multiproc {label}: the processes emitted "
+                             f"{[len(p) for p in parts]} of {union_len} rows")
+
+
+def multiproc_phase(n_lines: int, reps: int, sharded_eps=None) -> dict:
+    """One sharded job over two processes (``parallel/distributed.py``):
+    two workers of this script (``--multiproc-worker``) join a ``gloo``
+    group over ``tcp://127.0.0.1`` and share ``cuda:0``, 4 of the 8
+    shards each (2 of 4 for the mean). The union of both processes' rows
+    against the host oracle for the flagship exact, the chapter-2
+    rolling max (every kernel launch held against its plain version in
+    the workers) and the float32 mean (every merge call likewise), each
+    process emitting a non-empty, strict part; the pair's snapshot
+    restored here at 4 shards and at 1. Both kernels and the native
+    parser are built here first, so the workers only load them."""
+    import torch
+
+    from tpustream_torch import native
+    from tpustream_torch.jobs import chapter2_max
+    from tpustream_torch.runtime.checkpoint import load_checkpoint
+
+    native.available()
+    if MULTIPROC_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pair_")
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({"batch": B_MAIN, "keys": K_MAIN, "device": MULTIPROC_DEVICE,
+                   "lines": n_lines,
+                   "snapshot_lines": MULTIPROC_SNAPSHOT_LINES}, f)
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    logs = [open(os.path.join(out_dir, f"log{r}.txt"), "w") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multiproc-worker",
+         str(r), str(port), "--multiproc-dir", out_dir],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+        for r in (0, 1)]
+    try:
+        # the oracles, while the pair runs
+        lines, ts, ch, flow = make_flagship_input(n_lines, K_MAIN, seed=3,
+                                                  span_s=SHARDED_SPAN_S)
+        want_flagship = sorted(f"({c},{v!r})"
+                               for c, v in flagship_oracle(ts, ch, flow))
+        roll_lines = make_lines(n_lines, K_MAIN, seed=7)
+        want_rolling = sorted(oracle_rows(roll_lines))
+        hosts = make_hosts(n_lines, K_MAIN, seed=7)
+        usage = np.array([float(l.rsplit(" ", 1)[1]) for l in roll_lines])
+        key, minute = interned_ids(hosts), np.arange(n_lines) // 100_000
+        order = np.lexsort((key // 4, key % 4, minute))
+        cell = minute[order] * (1 << 21) + key[order]
+        starts = np.r_[True, cell[1:] != cell[:-1]]
+        group = np.empty(n_lines, np.int64)
+        group[order] = np.cumsum(starts) - 1
+        sums = np.zeros(int(starts.sum()), np.float32)
+        np.add.at(sums, group, usage.astype(np.float32))
+        want_avg = np.sort(sums.astype(np.float64) / np.bincount(group))
+        snap_lines = make_lines(MULTIPROC_SNAPSHOT_LINES, K_MAIN, seed=5)
+        want_snap = oracle_rows(snap_lines)
+        deadline = t0 + MULTIPROC_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    pair_wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r in (0, 1):
+            with open(os.path.join(out_dir, f"log{r}.txt")) as f:
+                print(f"multiproc worker {r} (rc {rcs[r]}):\n"
+                      + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"multiproc: worker exit codes {rcs}")
+    res = []
+    for r in (0, 1):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    card = card_line() if MULTIPROC_DEVICE == "cuda" else "cpu"
+    print(f"multiproc: the pair ran in {pair_wall:.1f} s ({card})")
+
+    def report(label, key_):
+        for r, x in enumerate(res):
+            st = x[key_]
+            cold = st.get("cold_one_batch_s")
+            if cold is not None:
+                print(f"multiproc {label} process {r}: the untimed first "
+                      f"run of its first 1,024 lines (a cold process) took "
+                      f"{cold} s")
+            print(f"multiproc {label} process {r}: events_per_s="
+                  f"{st['events_per_s']} wall_s={st['wall_s']} steps="
+                  f"{st['steps']} step_ms_median={st['step_ms_median']} "
+                  f"waits_per_step={st['waits_per_step']} cross_process_"
+                  f"collectives={st['xproc_calls']} cross_process_s="
+                  f"{st['xproc_s']} cross_process_bytes={st['xproc_bytes']} "
+                  f"({card})")
+        pair = n_lines / max(x[key_]["wall_s"] for x in res)
+        return pair
+
+    # (a) the flagship
+    parts = [x["flagship"]["rows"] for x in res]
+    union = sorted(parts[0] + parts[1])
+    if union != want_flagship:
+        raise AssertionError(f"multiproc flagship: {len(union)} rows vs "
+                             f"{len(want_flagship)} from the oracle")
+    _check_parts("flagship", parts, len(union))
+    for x in res:
+        # check_losses reads Metrics' attributes
+        check_losses("multiproc flagship", types.SimpleNamespace(**x["flagship"]), (
+            "late_dropped", "alert_overflow", "evicted_unfired",
+            "exchange_overflow"))
+    pair_eps = report("flagship", "flagship")
+    print(f"multiproc flagship: parallelism={SHARDS} over 2 processes, "
+          f"B={B_MAIN} K={K_MAIN}: {len(union)} rows equal the oracle "
+          f"(parts {[len(p) for p in parts]}); exchange_overflow=0; "
+          f"pair events_per_s={pair_eps} (lines over the slower process's "
+          f"wall) against one process's 8 shards in phase sharded "
+          f"events_per_s={sharded_eps} ({card})")
+    # (b) the rolling max
+    parts = [[tuple(r) for r in x["rolling"]["rows"]] for x in res]
+    union = sorted(parts[0] + parts[1])
+    if union != want_rolling:
+        raise AssertionError(f"multiproc rolling: {len(union)} rows vs "
+                             f"{len(want_rolling)} from the oracle")
+    _check_parts("rolling", parts, len(union))
+    launches = 0
+    for r, x in enumerate(res):
+        st = x["rolling"]
+        if MULTIPROC_DEVICE == "cuda" and (
+                st["launches"] != (SHARDS // 2) * st["steps"]
+                or st["checked"] != st["launches"]):
+            raise AssertionError(
+                f"multiproc rolling process {r}: {st['launches']} launches "
+                f"over {st['steps']} steps of {SHARDS // 2} local shards, "
+                f"{st['checked']} held against the plain version")
+        if st["exchange_overflow"]:
+            raise AssertionError("multiproc rolling: exchange_overflow")
+        launches += st["launches"]
+    report("rolling", "rolling")
+    print(f"multiproc rolling: {len(union)} rows equal the oracle (parts "
+          f"{[len(p) for p in parts]}); seq_rolling_reduce launches "
+          f"{[x['rolling']['launches'] for x in res]}, each bitwise equal "
+          f"to the plain version (max_abs_err="
+          f"{max(x['rolling']['err'] for x in res)})")
+    phase = {"rolling": {"launches": launches}}
+    # (c) the float32 mean
+    parts = [x["avg"]["rows"] for x in res]
+    union = np.sort(np.array(parts[0] + parts[1], dtype=np.float64))
+    if union.shape != want_avg.shape or union.tobytes() != want_avg.tobytes():
+        raise AssertionError(f"multiproc avg float32: {union.size} rows vs "
+                             f"{want_avg.size} from the oracle (bitwise)")
+    _check_parts("avg float32", parts, union.size)
+    launches = 0
+    for r, x in enumerate(res):
+        st = x["avg"]
+        if MULTIPROC_DEVICE == "cuda" and (
+                st["launches"] != 2 * st["steps"]
+                or st["checked"] != st["launches"]):
+            raise AssertionError(
+                f"multiproc avg float32 process {r}: {st['launches']} "
+                f"launches over {st['steps']} steps of 2 local shards, "
+                f"{st['checked']} held against the plain version")
+        launches += st["launches"]
+    report("avg float32", "avg")
+    print(f"multiproc avg float32: parallelism=4 over 2 processes: "
+          f"{union.size} rows equal the float32 oracle (bitwise, as a "
+          f"multiset); ordered_scatter_add launches "
+          f"{[x['avg']['launches'] for x in res]}, each bitwise equal to "
+          f"the plain version")
+    phase["avg"] = {"launches": launches}
+    if MULTIPROC_DEVICE == "cuda":
+        call = [x.cuda() if isinstance(x, torch.Tensor) else x for x in
+                torch.load(os.path.join(out_dir, "rolling_call.pt"))]
+        phase["rolling"]["case"] = path_kernel_case("multiproc rolling",
+                                                    call, reps)
+        call = [x.cuda() for x in
+                torch.load(os.path.join(out_dir, "avg_call.pt"))]
+        phase["avg"]["case"] = scatter_case(
+            "on the multiproc avg float32 path's call", *call, reps, 3)
+    # (d) the pair's snapshot, restored here alone at 4 shards and at 1
+    ckdir = os.path.join(out_dir, "ck")
+    snaps = sorted(f for f in os.listdir(ckdir) if f.startswith("ckpt-"))
+    total = sum(x["snapshot"]["rows"] for x in res)
+    snap = next(os.path.join(ckdir, f) for f in snaps
+                if 0 < load_checkpoint(os.path.join(ckdir, f)).emitted < total)
+    ck = load_checkpoint(snap)
+    if ck.parallelism != SHARDS or ck.emitted != ck.source_pos:
+        raise AssertionError(
+            f"multiproc snapshot: parallelism {ck.parallelism}, emitted "
+            f"{ck.emitted} of {ck.source_pos} consumed lines (one row a line)")
+    from tpustream_torch import StreamExecutionEnvironment
+    from tpustream_torch.config import StreamConfig
+    from tpustream_torch.runtime.sources import ReplaySource
+
+    for p in (4, 1):
+        t1 = time.perf_counter()
+        env = StreamExecutionEnvironment(StreamConfig(
+            device=MULTIPROC_DEVICE, batch_size=B_MAIN, key_capacity=K_MAIN,
+            parallelism=p))
+        env.restore_from_checkpoint(snap)
+        h = chapter2_max.build(env, env.add_source(
+            ReplaySource(snap_lines))).collect()
+        env.execute("restored")
+        resumed = sorted(tuple(t.values()) for t in h.items)
+        if not resumed or resumed != sorted(want_snap[ck.source_pos:]):
+            raise AssertionError(
+                f"multiproc restore at parallelism {p}: {len(resumed)} rows "
+                f"vs {len(want_snap) - ck.source_pos} of the oracle's rest")
+        print(f"multiproc restore: the pair's snapshot after {ck.emitted} "
+              f"rows (parallelism {SHARDS}, written by the coordinator "
+              f"alone) restored here at parallelism {p}: {len(resumed)} "
+              f"rows equal the uninterrupted run's rest "
+              f"({time.perf_counter() - t1:.1f} s)")
+    return phase
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernel,job,flagship,chain,ch1,avg,median,session,count,"
                             "cep,rules,fleet,obs,pipeline,recovery,analysis,"
-                            "acc32,sharded,small")
+                            "acc32,sharded,multiproc,small")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--lines", type=int, default=786_432)
     ap.add_argument("--flagship-lines", type=int, default=786_432,
                     help="input of the flagship and chain phases")
-    ap.add_argument("--new-lines", type=int, default=786_432,
+    ap.add_argument("--new-lines", type=int, default=524_288,
                     help="input of the ch1, avg and median phases")
     ap.add_argument("--window-lines", type=int, default=786_432,
                     help="input of the session and count phases")
@@ -4955,17 +5360,28 @@ def main() -> int:
     ap.add_argument("--obs-lines", type=int, default=262_144,
                     help="input of the obs phase's runs and of the acc32 "
                          "phase's ledger-cost pairs")
-    ap.add_argument("--pipeline-lines", type=int, default=393_216,
+    ap.add_argument("--pipeline-lines", type=int, default=327_680,
                     help="input of the pipeline phase's chapter-2, flagship "
                          "and chapter-4 runs")
-    ap.add_argument("--sharded-lines", type=int, default=524_288,
+    ap.add_argument("--sharded-lines", type=int, default=262_144,
                     help="input of the sharded phase's flagship, rolling and "
                          "mean runs")
-    ap.add_argument("--dead-letter-lines", type=int, default=100_000,
+    ap.add_argument("--multiproc-lines", type=int, default=262_144,
+                    help="input of the multiproc phase's flagship, rolling "
+                         "and mean runs")
+    ap.add_argument("--multiproc-worker", nargs=2, type=int, default=None,
+                    metavar=("RANK", "PORT"),
+                    help="run as one process of the multiproc phase's pair")
+    ap.add_argument("--multiproc-dir", default=None,
+                    help="the multiproc phase's working directory (workers)")
+    ap.add_argument("--dead-letter-lines", type=int, default=50_000,
                     help="chapter-1 input of the pipeline phase's dead "
                          "letters (one line in 10,000 malformed)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if args.multiproc_worker is not None:
+        rank, port = args.multiproc_worker
+        return multiproc_worker(rank, port, args.multiproc_dir)
 
     import torch
 
@@ -5024,6 +5440,9 @@ def main() -> int:
     sharded = (timed("sharded", sharded_phase, args.sharded_lines,
                      args.sharded_lines, args.reps)
                if "sharded" in phases else {})
+    multiproc = (timed("multiproc", multiproc_phase, args.multiproc_lines,
+                       args.reps, sharded.get("flagship_events_per_s"))
+                 if "multiproc" in phases else {})
     if "small" in phases:
         timed("small", small_phase)
         small_windows()
@@ -5055,7 +5474,10 @@ def main() -> int:
              acc32.get("rolling", {}).get("case")),
             ("sharded_rolling", "float64", "max",
              sharded.get("rolling", {}).get("launches"),
-             sharded.get("rolling", {}).get("case"))):
+             sharded.get("rolling", {}).get("case")),
+            ("multiproc_rolling", "float64", "max",
+             multiproc.get("rolling", {}).get("launches"),
+             multiproc.get("rolling", {}).get("case"))):
         if case is None:
             continue
         entries.append({
@@ -5082,7 +5504,8 @@ def main() -> int:
     for path, got in (("acc32_avg_float32", acc32.get("avg float32")),
                       ("acc32_avg_int32", acc32.get("avg int32")),
                       ("acc32_hot_host", acc32.get("hot host")),
-                      ("sharded_avg_float32", sharded.get("avg"))):
+                      ("sharded_avg_float32", sharded.get("avg")),
+                      ("multiproc_avg_float32", multiproc.get("avg"))):
         got = got or {}
         case = got.get("case")
         if case is None:

@@ -9,8 +9,8 @@ same number of shards (8 and 4), at the loss-free capacity and at a
 small capacity factor that overflows: every received column, ``valid``,
 ``ts`` and each shard's overflow count are equal, bit for bit, in place
 (the receive layout included). Also: the key-ownership helpers, the
-capacity rule, the mesh's refusal of too few devices, the multi-process
-refusal, and the group's failure path (one shard raises inside a
+capacity rule, the mesh's refusal of too few devices, and the group's
+failure path (one shard raises inside a
 collective, every shard fails, none hangs).
 
 Tolerance: none.
@@ -31,7 +31,6 @@ except AttributeError:  # older jax
 
 from tpustream.parallel import exchange as jax_exchange
 from tpustream.parallel import mesh as jax_mesh
-from tpustream_torch.parallel import distributed
 from tpustream_torch.parallel import exchange as torch_exchange
 from tpustream_torch.parallel import mesh as torch_mesh
 
@@ -202,13 +201,6 @@ def test_mesh_failure_aborts_every_shard():
     mesh.reset()
     out, errs = _run_shards(mesh, lambda i: mesh.psum(i, 1))
     assert not errs and out == [8] * 8
-
-
-def test_multi_process_start_refuses_by_name():
-    distributed.initialize()  # one process: nothing to join
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        distributed.initialize("localhost:1234", num_processes=2, process_id=0)
-    assert distributed.process_index() == 0 and distributed.is_coordinator()
 
 
 def test_mesh_rendezvous_under_thread_switch_stress():

@@ -407,29 +407,74 @@ def _sort(func, name: str, args: tuple, kwargs: dict):
 # the strict comparisons: XLA lowers ``where(a > b, a, b)`` and every
 # other select of exactly the two compared tensors after ``>``/``<`` (in
 # either order) to a max/min instruction, which returns the flushed
-# operand; after ``>=``/``<=``/``==``/``!=`` the select keeps the bits
+# operand; after ``>=``/``<=``/``==``/``!=`` the select keeps the bits.
+# Against a Python number ``c`` (either side: Python hands ``c > x`` over
+# as ``x < c``), taken in the tensor's dtype, the select of ``x`` and
+# ``c`` follows the probed rules of ``_select_of_constant``.
 _STRICT = frozenset(("gt", "lt", "greater", "less", "__gt__", "__lt__"))
+_NON_STRICT = frozenset(("ge", "le", "greater_equal", "less_equal",
+                         "__ge__", "__le__"))
+# the comparisons that can never hold against +inf (``x > inf``) and -inf
+_ABOVE, _BELOW = frozenset(("gt", "greater", "__gt__")), frozenset(
+    ("lt", "less", "__lt__"))
+_AS_STRICT = {"ge": torch.gt, "greater_equal": torch.gt, "__ge__": torch.gt,
+              "le": torch.lt, "less_equal": torch.lt, "__le__": torch.lt}
+
+
+def _dtype_number(c, dtype: torch.dtype):
+    """The Python number ``c`` as the float ``dtype`` holds it (numpy
+    scalar), or None for a non-float dtype."""
+    np_dtype = _NP_FLOATS.get(dtype)
+    if np_dtype is None or not _is_number(c):
+        return None
+    with np.errstate(over="ignore"):
+        return np_dtype(c)
+
+
+def _flush_number(c, dtype: torch.dtype):
+    """A comparison's Python number as XLA reads it against a ``dtype``
+    tensor: in that dtype, a subnormal read as a zero of its sign."""
+    v = _dtype_number(c, dtype)
+    if v is None or not (v != 0 and abs(v) < np.finfo(v.dtype).tiny):
+        return c
+    return math.copysign(0.0, float(v))
 
 
 def _record_compared(name: str, args: tuple, kwargs: dict, out) -> None:
-    if (name in _STRICT and not kwargs and len(args) == 2
-            and isinstance(out, torch.Tensor)
-            and all(isinstance(a, torch.Tensor) and a.is_floating_point()
-                    for a in args)):
-        out._xla_compared = (args[0], args[1], args[0]._version,
-                             args[1]._version, out._version)
+    if kwargs or len(args) != 2 or not isinstance(out, torch.Tensor):
+        return
+    a, b = args
+    if not (isinstance(a, torch.Tensor) and a.is_floating_point()):
+        return
+    if name in _STRICT and isinstance(b, torch.Tensor) and b.is_floating_point():
+        out._xla_compared = (a, b, a._version, b._version, out._version)
+    elif _dtype_number(b, a.dtype) is not None:
+        out._xla_compared_const = (a, _dtype_number(b, a.dtype), name,
+                                   a._version, out._version)
 
 
-def _select_of_compared(func, args: tuple, kwargs: dict):
-    """``where(mask, u, v)`` of the two tensors ``mask`` compared
-    strictly, unchanged since: the max/min instruction's select of the
-    flushed operands (fault 3.4 g). None for any other ``where``."""
+def _select_args(func, args: tuple, kwargs: dict):
     if kwargs or len(args) != 3:
         return None
     if func is torch.Tensor.where:
         u, cond, v = args
     else:
         cond, u, v = args
+    return cond, u, v
+
+
+def _select_of_compared(func, args: tuple, kwargs: dict):
+    """``where(mask, u, v)`` of the two tensors ``mask`` compared
+    strictly, unchanged since: the max/min instruction's select of the
+    flushed operands (fault 3.4 g); of a tensor and the number it was
+    compared with, :func:`_select_of_constant`. None for any other
+    ``where``."""
+    sel = _select_args(func, args, kwargs)
+    if sel is None:
+        return None
+    cond, u, v = sel
+    if getattr(cond, "_xla_compared_const", None) is not None:
+        return _select_of_constant(cond, u, v)
     rec = getattr(cond, "_xla_compared", None)
     if rec is None or rec[4] != cond._version:
         return None
@@ -440,6 +485,47 @@ def _select_of_compared(func, args: tuple, kwargs: dict):
     if not ((u0 is p and v0 is q) or (u0 is q and v0 is p)):
         return None
     return torch.where(cond, flush_subnormal(u), flush_subnormal(v))
+
+
+def _select_of_constant(cond, u, v):
+    """``where(x OP c, ...)`` selecting between ``x`` and the same number
+    ``c``, as XLA's CPU backend computes it (probed against jitted JAX
+    over float32 and float64, both sides, both orders, ``c`` in ±0.0,
+    ±1.0, 0.5, -2, 3, ±inf, NaN and a subnormal): a comparison that can
+    never hold (``x > inf``, ``x < -inf``, an ordered comparison with
+    NaN, ``== NaN``), ``==`` and ``!=``, and ``>=``/``<=`` against ±0.0
+    keep the bits; the strict comparisons, and ``>=``/``<=`` against any
+    other number, select the flushed operands; against a subnormal ``c``
+    (read as a zero) ``>=``/``<=`` select as ``>``/``<`` do. None when
+    the select is not of ``x`` and ``c``."""
+    x, c, name, xv, ov = cond._xla_compared_const
+    if ov != cond._version or x._version != xv:
+        return None
+    x0 = _same_as(x)
+    if _same_as(u) is x0:
+        other = v
+    elif _same_as(v) is x0:
+        other = u
+    else:
+        return None
+    o = _dtype_number(other, x.dtype)
+    if o is None or o.tobytes() != c.tobytes():
+        return None
+    if name in _STRICT or name in _NON_STRICT:
+        if math.isnan(c) or (name in _ABOVE and c == math.inf) or (
+                name in _BELOW and c == -math.inf):
+            return None  # never true: the false operand, its bits kept
+    else:
+        return None  # == and !=: the bits kept
+    sub = c != 0 and abs(c) < np.finfo(c.dtype).tiny
+    if name in _NON_STRICT and c == 0:
+        return None
+    if name in _NON_STRICT and sub:
+        cond = _AS_STRICT[name](flush_subnormal(x), 0.0)
+    return torch.where(cond, flush_subnormal(u) if isinstance(u, torch.Tensor)
+                       else float(_flush_number(u, x.dtype)),
+                       flush_subnormal(v) if isinstance(v, torch.Tensor)
+                       else float(_flush_number(v, x.dtype)))
 
 
 # -- fault 3.4 h: constant chains ----------------------------------------------
@@ -583,7 +669,12 @@ class _ReferenceArithmetic(torch.overrides.TorchFunctionMode):
             if (name in _MINMAX and not kwargs and len(args) == 2
                     and all(isinstance(a, torch.Tensor) for a in args)):
                 func = _MINMAX[name]
-            out = func(*(_flush_arg(a) for a in args), **kw)
+            fargs = [_flush_arg(a) for a in args]
+            if (name in COMPARED and len(fargs) == 2
+                    and isinstance(args[0], torch.Tensor)):
+                # a subnormal number reads as zero too
+                fargs[1] = _flush_number(fargs[1], args[0].dtype)
+            out = func(*fargs, **kw)
             if isinstance(kwargs.get("out"), torch.Tensor):
                 _flush_in_place(kwargs["out"])
             if name in COMPARED:

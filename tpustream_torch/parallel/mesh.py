@@ -1,27 +1,30 @@
-"""The shard mesh of a sharded streaming job, in one process.
+"""The shard mesh of a sharded streaming job.
 
 Counterpart of tpustream/parallel/mesh.py. The reference scales by
 running N parallel subtasks with a key-hash exchange between them
 (Flink's only shuffle, SURVEY.md §2.3); the mesh axis ``"shards"`` plays
 the subtask role: keyed state is sharded over it, and ``keyBy`` becomes
 an all-to-all. The reference builds a ``jax.sharding.Mesh`` and lets
-``shard_map`` supply the collectives; here a :class:`Mesh` is S shards
-of one process, shard ``i`` on ``devices[i % len(devices)]``, and it
-carries the collectives itself: each shard's step runs on a host thread
-of its own (``runtime/sharded.py``), and ``axis_index``, ``pmax``,
-``psum`` and ``all_to_all`` are rendezvous points of those threads. On
-one card all S shards sit on it, as the JAX package's tests put eight
-virtual devices on one CPU.
+``shard_map`` supply the collectives; here a :class:`Mesh` is S shards,
+shard ``i`` on one of the process's ``devices``, and it carries the
+collectives itself: each shard's step runs on a host thread of its own
+(``runtime/sharded.py``), and ``axis_index``, ``pmax``, ``psum`` and
+``all_to_all`` are rendezvous points of those threads. On one card all
+S shards sit on it, as the JAX package's tests put eight virtual
+devices on one CPU. Under a ``torch.distributed`` group
+(``parallel/distributed.py``) the shards span the processes, each
+process running the threads of its own contiguous block, and a
+collective adds one call on the group to the threads' rendezvous.
 
 If a shard fails, :meth:`Mesh.abort` breaks the rendezvous: every shard
 waiting in a collective (or reaching one later) raises
 :class:`MeshAborted`, so the group fails together instead of hanging.
-Several processes are ROADMAP item 12b (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -67,23 +70,47 @@ RENDEZVOUS_TIMEOUT_S = 600.0
 
 
 class Mesh:
-    """S shards of one process over ``devices`` (shard ``i`` on
+    """S shards over ``devices`` (in one process, shard ``i`` on
     ``devices[i % len(devices)]``), with the collectives ``shard_map``
     gives the reference. Every collective is called once by each of the
-    S shards (their threads), with the caller's ``shard`` index."""
+    process's shards (their threads), with the caller's global
+    ``shard`` index.
+
+    Under a process group of ``P`` ranks (``parallel/distributed.py``)
+    the S shards span the processes: rank ``p`` holds the contiguous
+    shards :attr:`local_shards`, ``p*S/P .. (p+1)*S/P - 1`` (the
+    reference sorts its devices by process for the same block). A
+    collective is then a rendezvous of the process's shard threads and
+    one call on the group, made by the thread that arrives last (the
+    barrier's action), so the group is never called by two threads of
+    a process at once; every result is in global shard order."""
 
     def __init__(self, n_shards: int, devices: Sequence[torch.device]):
+        from .distributed import process_count, process_index
+
         self.size = int(n_shards)
         self.devices = [torch.device(d) for d in devices]
-        self._slots: List = [None] * self.size
-        self._barrier = threading.Barrier(self.size,
-                                          timeout=RENDEZVOUS_TIMEOUT_S)
-        # one shard's thread issues work at a time, from one collective
-        # to the next (the host issue is serial under the interpreter
-        # lock anyway; without the baton, S threads issuing small ops
-        # hand the lock to each other after every op)
-        self._baton = threading.Lock()
+        self.n_procs = process_count()
+        self.process = process_index()
+        if self.size % self.n_procs:
+            raise ValueError(
+                f"parallelism ({self.size}) must divide evenly by the "
+                f"process count ({self.n_procs})")
+        self.n_local = self.size // self.n_procs
+        self.first = self.process * self.n_local
+        self.local_shards = range(self.first, self.first + self.n_local)
         self.axis_names = (AXIS,)
+        # what the collectives that crossed processes cost: calls, wall
+        # seconds and the bytes this process sent
+        self.xproc_calls = 0
+        self.xproc_seconds = 0.0
+        self.xproc_bytes = 0
+        self._aborted = False
+        self.reset()
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.n_procs > 1
 
     def run_shard(self, fn, *args):
         """Run ``fn(*args)`` as one shard's step: holding the baton,
@@ -92,19 +119,30 @@ class Mesh:
             return fn(*args)
 
     def device_of(self, shard: int) -> torch.device:
-        return self.devices[shard % len(self.devices)]
+        return self.devices[(shard - self.first) % len(self.devices)]
 
     # -- the group ------------------------------------------------------
     def abort(self) -> None:
         """Break the rendezvous: every shard in or entering a collective
-        raises :class:`MeshAborted`."""
+        raises :class:`MeshAborted`. Across processes the group is torn
+        down too, so a peer waiting in a collective raises at once
+        instead of waiting out its timeout (a pair that failed ends)."""
         self._barrier.abort()
+        if self.multiprocess and not self._aborted:
+            self._aborted = True
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
     def reset(self) -> None:
         """A fresh rendezvous for the next step (after an abort)."""
-        self._barrier = threading.Barrier(self.size,
-                                          timeout=RENDEZVOUS_TIMEOUT_S)
-        self._slots = [None] * self.size
+        self._barrier = threading.Barrier(
+            self.n_local,
+            action=self._cross if self.multiprocess else None,
+            timeout=RENDEZVOUS_TIMEOUT_S)
+        self._slots = [None] * self.n_local
+        self._result = None
         self._baton = threading.Lock()
 
     def _wait(self) -> None:
@@ -118,13 +156,72 @@ class Mesh:
         finally:
             self._baton.acquire()
 
-    def _gather(self, shard: int, value) -> list:
-        """Every shard's ``value``, in shard order, to every shard."""
-        self._slots[shard] = value
-        self._wait()  # all posted
-        out = list(self._slots)
+    def _rendezvous(self, shard: int, op: str, value):
+        """Post ``value``; once every local shard posted, the result of
+        ``op`` over all shards (a list in global shard order for
+        ``gather``, this shard's block for ``a2a``)."""
+        i = shard - self.first
+        self._slots[i] = (op, value)
+        self._wait()  # all posted (and, across processes, exchanged)
+        if self.multiprocess:
+            out = self._result
+            out = out[i] if op == "a2a" else out
+        else:
+            out = [v for _, v in self._slots]
         self._wait()  # all read before any shard posts again
         return out
+
+    def _gather(self, shard: int, value) -> list:
+        """Every shard's ``value``, in global shard order, to every
+        shard."""
+        return self._rendezvous(shard, "gather", value)
+
+    # -- the cross-process half (one thread a process) ---------------------
+    def _cross(self) -> None:
+        t0 = time.perf_counter()
+        op = self._slots[0][0]
+        vals = [v for _, v in self._slots]
+        if op == "a2a":
+            self._result = self._cross_all_to_all(vals)
+        else:
+            self._result = self._cross_gather(vals)
+        self.xproc_calls += 1
+        self.xproc_seconds += time.perf_counter() - t0
+
+    def _cross_gather(self, vals: list) -> list:
+        from .distributed import allgather_array, allgather_objects
+
+        x = vals[0]
+        if isinstance(x, torch.Tensor):
+            host = torch.stack([v.detach().to("cpu") for v in vals]).numpy()
+            self.xproc_bytes += host.nbytes
+            g = allgather_array(host).reshape((-1,) + host.shape[1:])
+            return list(torch.from_numpy(g).to(x.device).unbind(0))
+        if isinstance(x, np.ndarray):
+            host = np.stack(vals)
+            self.xproc_bytes += host.nbytes
+            g = allgather_array(host)
+            return list(g.reshape((-1,) + host.shape[1:]))
+        parts = allgather_objects(vals)
+        return [v for part in parts for v in part]
+
+    def _cross_all_to_all(self, vals: list) -> list:
+        import torch.distributed as dist
+
+        p, n = self.n_procs, self.n_local
+        x = vals[0]
+        rest = tuple(x.shape[1:])
+        # [L (source), S (dest), ...] -> [P (dest process), L, L, ...]
+        host = torch.stack([v.detach().to("cpu") for v in vals])
+        host = host.reshape((n, p, n) + rest).transpose(0, 1).contiguous()
+        send = host.reshape(-1).view(torch.uint8)
+        recv = torch.empty_like(send)
+        self.xproc_bytes += send.numel()
+        dist.all_to_all_single(recv, send)
+        got = recv.view(x.dtype).reshape((p, n, n) + rest)
+        # shard j's block: source shards in global order, then rows
+        return [got[:, :, j].reshape((self.size * rest[0],) + rest[1:])
+                .to(vals[j].device) for j in range(n)]
 
     # -- collectives ------------------------------------------------------
     def axis_index(self, shard: int) -> int:
@@ -142,7 +239,8 @@ class Mesh:
         return max(vals)
 
     def psum(self, shard: int, x):
-        """The sum of the shards' ``x``, added in shard order."""
+        """The sum of the shards' ``x``, added in global shard order (a
+        fixed float order, which ``gloo``'s own sum would not give)."""
         vals = self._gather(shard, x)
         if isinstance(x, torch.Tensor):
             dev = x.device
@@ -159,6 +257,8 @@ class Mesh:
         ``x`` of shape ``[S, cap, ...]`` on each shard, shard ``j`` gets
         the concatenation over source shards ``i = 0..S-1`` (in that
         order) of ``x_i[j]``."""
+        if self.multiprocess:
+            return self._rendezvous(shard, "a2a", x)
         parts = self._gather(shard, x)
         dev = x.device
         return torch.cat([p[shard].to(dev) for p in parts], dim=0)

@@ -28,7 +28,11 @@ A snapshot written by either package restores in the other, at any
 parallelism: the key-sharded leaves of a snapshot written at another
 ``parallelism`` are re-laid onto the restoring program's shard-major
 layout (``rescale_key_leaf``, the reference's
-tpustream/runtime/checkpoint.py:265-315; ROADMAP item 12a).
+tpustream/runtime/checkpoint.py:265-315; ROADMAP item 12a). Under
+several processes (ROADMAP item 12b) the capture is collective: each
+process's key-sharded rows gather into the global layout, and only the
+coordinator writes; a restore reads the whole snapshot on every process
+and each takes its own shards' rows.
 
 Retention is tiered: the ``keep`` newest snapshots, plus every
 ``keep_every``-th as durable, plus pinned **savepoints** (self-contained
@@ -550,7 +554,14 @@ def save_savepoint(
     ``savepoint-<source_pos>[-<tag>].npz``. Savepoints carry their full
     payload inline (restorable away from the chunk store — the
     rescale/migration artifact), are never named by the ``latest``
-    marker, and are exempt from pruning and GC by name."""
+    marker, and are exempt from pruning and GC by name. Under several
+    processes only the coordinator writes (snapshots live on storage
+    the processes share); the others return the path."""
+    suffix = f"-{re.sub(r'[^A-Za-z0-9_.-]', '_', str(tag))}" if tag else ""
+    name = f"savepoint-{pending.source_pos:010d}{suffix}.npz"
+    path = os.path.join(directory, name)
+    if not _writes():
+        return path
     os.makedirs(directory, exist_ok=True)
     meta = dict(pending.meta)
     meta["kind"] = "savepoint"
@@ -558,9 +569,6 @@ def save_savepoint(
     meta["durable"] = True
     if tag is not None:
         meta["tag"] = str(tag)
-    suffix = f"-{re.sub(r'[^A-Za-z0-9_.-]', '_', str(tag))}" if tag else ""
-    name = f"savepoint-{pending.source_pos:010d}{suffix}.npz"
-    path = os.path.join(directory, name)
     arrays = {f"L{i:04d}": l for i, l in enumerate(pending.leaves)}
     _atomic_write(
         directory, path,
@@ -568,6 +576,14 @@ def save_savepoint(
             json.dumps(meta).encode(), dtype=np.uint8)}),
     )
     return path
+
+
+def _writes() -> bool:
+    """Whether this process writes snapshots: the only process, or the
+    coordinator of several (tpustream/runtime/checkpoint.py:622,761)."""
+    from ..parallel.distributed import process_index
+
+    return process_index() == 0
 
 
 def _prune(directory: str, keep: int) -> int:
@@ -698,6 +714,9 @@ def save_checkpoint(
         rule_values=rule_values, rule_version=rule_version, tenancy=tenancy,
         ingest=ingest, ledger=ledger,
     )
+    if not _writes():
+        # the capture's gathers were collective; the coordinator writes
+        return os.path.join(directory, f"ckpt-{int(source_pos):010d}.npz")
     report = write_snapshot(
         directory, pending, keep=keep, keep_every=keep_every,
         incremental=incremental, fault=fault,

@@ -140,6 +140,12 @@ from ..obs.compilation import (
     CompileObs,
 )
 from ..obs.registry import TwinCounter
+from ..parallel.distributed import (
+    allgather_array,
+    allgather_objects,
+    process_count,
+    process_index,
+)
 from .metrics import Metrics, Stopwatch
 from .plan import JobPlan, build_plan_chain
 from .sinks import (
@@ -695,6 +701,26 @@ class Runner:
             self.program = build_program(plan, cfg)
             self.state = self.program.init_state()
         self.device = self.program.device
+        # -- several processes (parallel/distributed.py) -------------------
+        # every process runs this executor over the same replayed source;
+        # the sharded program feeds and steps this process's shards only,
+        # and each process dispatches its shards' emissions to its own
+        # sinks (Flink's task-manager-local sinks; the reference's
+        # tpustream/runtime/executor.py:501-524)
+        mesh = getattr(self.program, "mesh", None)
+        self._multiproc = process_count() > 1
+        if self._multiproc:
+            if mesh is None:
+                raise NotImplementedError(
+                    "multi-process execution needs a sharded program: set "
+                    "StreamConfig.parallelism to the global shard count")
+            if cfg.parallelism % process_count():
+                raise ValueError(
+                    f"parallelism ({cfg.parallelism}) must divide evenly "
+                    f"by the process count ({process_count()})")
+        # step epoch of each dispatch: the same on every process (one
+        # dispatch a step), so it leads the cross-process merge order
+        self._dispatch_seq = 0
         self.sinks, self.side_sinks = _make_sinks(plan, cfg)
         # per-operator observability scope: counters/histograms labelled
         # {job, operator} plus span minting. The null twin (obs disabled)
@@ -851,8 +877,9 @@ class Runner:
         self._empty: Optional[Batch] = None
         # chained stages: emissions feed the downstream runner as
         # columnar batches instead of the sinks. _chain_buf holds
-        # (cols, ts or None) a step; _chain_rows (item, ts, order) from
-        # process() fires; _lazy_plans the stages after a process()
+        # (cols, ts or None, step, order key 1, order key 2) a step
+        # (_buffer_chain); _chain_rows (item, ts, order) from process()
+        # fires; _lazy_plans the stages after a process()
         # stage, built once its collected rows give their schema
         self.downstream: Optional["Runner"] = None
         self._chain_buf: List[tuple] = []
@@ -899,8 +926,8 @@ class Runner:
         """Rows handed to the chain but not yet pumped downstream: the
         buffered term of the chain conservation edge."""
         n = len(self._chain_rows)
-        for cols, _ in self._chain_buf:
-            n += len(cols[0]) if len(cols) else 0
+        for b in self._chain_buf:
+            n += len(b[2])
         return n
 
     def chain(self) -> List["Runner"]:
@@ -995,6 +1022,51 @@ class Runner:
         self._chain_rows = []
         return cols, ts, kinds, tables
 
+    def _buffer_chain(self, main: dict, out: list) -> None:
+        """Park one step's main-stream rows for the downstream stage,
+        with the keys of the canonical hand-off order
+        (tpustream/runtime/executor.py:1718-1810, 2296-2310): the step,
+        then (window end, key) for a window stage on a mesh, whose
+        shards stack their rows where one device fires end-major then
+        key; else the row's place in the single-process emission order
+        (its global post-exchange row under several processes)."""
+        n = len(out[0])
+        wend, kcol = main.get("window_end"), main.get("key")
+        if wend is not None and kcol is not None and self.program.n_shards > 1:
+            k1, k2 = wend, kcol
+        else:
+            k1, k2 = main.get("row", np.arange(n)), np.zeros(n, np.int64)
+        ts_rows = None
+        if self._chain_ts:
+            ts_rows = wend - 1 if wend is not None else main["ts"]
+        self._chain_buf.append((
+            out, ts_rows, np.full(n, self._dispatch_seq, np.int64),
+            np.asarray(k1, np.int64), np.asarray(k2, np.int64)))
+        self._ledger_handed += n
+
+    def _take_chain_buf(self):
+        """The buffered hand-off rows of every process (this one's alone
+        in a single process) as one ``(cols, ts)`` batch in the canonical
+        order of :meth:`_buffer_chain`. Under several processes it is
+        called on every process alike, when some process holds a row."""
+        bufs, self._chain_buf = self._chain_buf, []
+        mine = None
+        if bufs:
+            mine = [np.concatenate([b[i] for b in bufs]) for i in (2, 3, 4)]
+            mine.append([np.concatenate([b[0][i] for b in bufs])
+                         for i in range(len(bufs[0][0]))])
+            mine.append(np.concatenate([b[1] for b in bufs])
+                        if self._chain_ts else None)
+        parts = [p for p in allgather_objects(mine) if p is not None]
+        seq, k1, k2 = (np.concatenate([p[i] for p in parts])
+                       for i in range(3))
+        o = np.lexsort((k2, k1, seq))
+        cols = [np.concatenate([p[3][i] for p in parts])[o]
+                for i in range(len(parts[0][3]))]
+        ts = (np.concatenate([p[4] for p in parts])[o]
+              if self._chain_ts else None)
+        return cols, ts
+
     def pump_chain(self, proc_now: int) -> None:
         """Move buffered emissions to the downstream runner (or tick its
         processing-time clock when there are none), then cascade. The
@@ -1004,6 +1076,21 @@ class Runner:
         follow the same cadence; :meth:`drain_chain` is the barrier."""
         if not self._chained:
             return
+        n_rows = len(self._chain_rows)
+        n_buf = sum(len(b[2]) for b in self._chain_buf)
+        if self._multiproc:
+            # every process feeds its downstream stage the same global
+            # batch: one gather of the counts a pump on every process
+            # alike (pumps follow the source batches, which replay
+            # identically); the rows' gathers only where some process
+            # holds one. A process()-fed stage's rows merge by their
+            # evaluation order (tpustream/runtime/executor.py:1718-1810)
+            n_rows, n_buf = allgather_array(
+                np.asarray([n_rows, n_buf], np.int64)).sum(axis=0)
+            if n_rows:
+                parts = allgather_objects(self._chain_rows)
+                self._chain_rows = sorted(
+                    (e for part in parts for e in part), key=lambda e: e[2])
         d = self.downstream
         if d is None and self._chain_rows and self._lazy_plans:
             d = self._build_lazy_downstream()
@@ -1015,13 +1102,10 @@ class Runner:
             d.accept_markers(self._marker_out)
             self._marker_out = []
         cols: List[np.ndarray] = []
-        if self._chain_rows:
+        if n_rows:
             cols, ts, kinds, tables = self._rows_to_cols()
-        elif self._chain_buf:
-            bufs, self._chain_buf = self._chain_buf, []
-            cols = [np.concatenate([b[0][i] for b in bufs])
-                    for i in range(len(bufs[0][0]))]
-            ts = np.concatenate([b[1] for b in bufs]) if self._chain_ts else None
+        elif n_buf:
+            cols, ts = self._take_chain_buf()
             kinds, tables = self.program.out_kinds, self.program.out_tables
         fed = False
         if cols and len(cols[0]):
@@ -1443,7 +1527,8 @@ class Runner:
     # -- staged uploads (tpustream/runtime/executor.py:1202-1270) -------------
 
     def _stage_ok(self) -> bool:
-        return (not self.program.emissions_reference_state
+        return (process_count() == 1
+                and not self.program.emissions_reference_state
                 and self.cfg.max_fires_per_step is None)
 
     def _stage_step(self, inputs: "_Packed", wm_lower: int, t_batch) -> None:
@@ -1631,7 +1716,10 @@ class Runner:
         """Steps whose count scalars are read with one wait
         (``StreamConfig.fetch_group``), clamped to the in-flight window
         minus one: a group covering the whole window would drain the
-        pipeline on every fetch."""
+        pipeline on every fetch. Several processes keep one step a
+        fetch, as the reference does (executor.py:1483)."""
+        if process_count() > 1:
+            return 1
         return max(1, min(self.cfg.fetch_group, max(1, self._max_inflight)))
 
     def drain_inflight(self) -> None:
@@ -1780,13 +1868,17 @@ class Runner:
             mask = got[0]
             if order is not None:
                 o = got[-1].astype(np.int64)
-                sel = o[np.nonzero(mask[o])[0]]
+                pos = np.nonzero(mask[o])[0]
+                sel = o[pos]
                 got = got[:-1]
             else:
-                sel = np.nonzero(mask)[0]
+                sel = pos = np.nonzero(mask)[0]
             rows = self._rows_from(stream, [a[sel] for a in got[1:]])
             if sub is not None:
                 rows["subtask"] = got[-1][sel]
+            if self._multiproc:
+                # each row's place in the single-process emission order
+                rows["row"] = pos + self._local_row_base(mask.shape[0])
             return rows
 
         return leaves, resolve_full
@@ -1872,6 +1964,7 @@ class Runner:
         stream, the late rows, the CEP timeouts."""
         m, obs = self.metrics, self.obs
         emitted_before = m.records_emitted
+        self._dispatch_seq += 1
         fire_info = entry.emissions.get("process_fire")
         if fire_info is not None:
             self._evaluate_fires(fire_info)
@@ -1880,25 +1973,7 @@ class Runner:
             with obs.span("emit", self._step_idx), Stopwatch() as sw:
                 out = main["cols"]
                 if self.downstream is not None:
-                    wend, kcol = main.get("window_end"), main.get("key")
-                    if (wend is not None and kcol is not None
-                            and self.program.n_shards > 1):
-                        # the canonical (end, key) order: sharded rows
-                        # stack per shard, which would reorder rows of
-                        # different keys that share a downstream key; one
-                        # device fires end-major then key
-                        # (tpustream/runtime/executor.py:2296-2310)
-                        o = np.lexsort((kcol, wend))
-                        out = [c[o] for c in out]
-                        main = dict(main, window_end=wend[o], key=kcol[o])
-                        if "ts" in main:
-                            main["ts"] = main["ts"][o]
-                    ts_rows = None
-                    if self._chain_ts:
-                        wend = main.get("window_end")
-                        ts_rows = wend - 1 if wend is not None else main["ts"]
-                    self._chain_buf.append((out, ts_rows))
-                    self._ledger_handed += len(out[0])
+                    self._buffer_chain(main, out)
                 else:
                     subtask = main.get("subtask")
                     if subtask is None and main.get("key") is not None:
@@ -1925,6 +2000,13 @@ class Runner:
             m.emit_latencies_s.append(time.perf_counter() - entry.t_batch)
         if entry.markers:
             self._record_markers(entry.markers)
+
+    def _local_row_base(self, n_rows: int) -> int:
+        """The global row of this process's first emission row, in a
+        sharded stream of ``n_rows`` local rows (its shards' blocks of
+        the global stacked rows; tpustream/runtime/executor.py:1127)."""
+        mesh = self.program.mesh
+        return mesh.first * (n_rows // mesh.n_local)
 
     def _to_host(self, tensors) -> List[np.ndarray]:
         """Copy device tensors to the host with one wait for them all."""
@@ -1953,6 +2035,9 @@ class Runner:
 
         def emit(item, subtask, ts=None, order=None):
             nonlocal emitted
+            if self._multiproc and order is not None:
+                # the step leads the cross-process merge order
+                order = (self._dispatch_seq,) + tuple(order)
             item, keep = _apply_ops(self.post_ops, item)
             if keep:
                 self._emit_row(item, subtask, ts, order)
@@ -2383,6 +2468,13 @@ def execute_job(env, sink_nodes) -> JobResult:
 
         _install_restore_drill_health_rules(env)
     if env.config.restart_strategy is not None:
+        if process_count() > 1:
+            # a failed pair tears its group down (Mesh.abort): an attempt
+            # restarted in the process would have no peers
+            raise NotImplementedError(
+                "supervised restarts of a job over several processes are "
+                "not supported: restart the processes from the latest "
+                "snapshot (env.restore_from_checkpoint)")
         from .supervisor import supervise
 
         return supervise(env, sink_nodes, _run_attempt)
@@ -2571,13 +2663,24 @@ def _execute_job(env, sink_nodes) -> JobResult:
     # one breadcrumb a resolution clamp
     for note in resolve_notes:
         job_obs.flight.record("config_clamped", **note)
+    # several processes (parallel/distributed.py): each runs this loop
+    # over the same replayed source, and every host decision before a
+    # collective must come out the same on each; what reads a local
+    # clock or a local count is off (tpustream/runtime/executor.py:
+    # 2755-2800, 3450-3470, 3548-3556)
+    single = process_count() == 1
+    is_coordinator = process_index() == 0
     # the adaptive pipeline controller (runtime/controller.py): moves the
-    # barrier-safe depths at snapshot ticks; it reads the live registry
+    # barrier-safe depths at snapshot ticks; it reads the live registry,
+    # whose locally timed decisions would differ between processes
     controller = None
     if job_obs.enabled and getattr(cfg.obs, "adaptive", False):
-        from .controller import AdaptiveController
+        if single:
+            from .controller import AdaptiveController
 
-        controller = AdaptiveController(cfg, job_obs)
+            controller = AdaptiveController(cfg, job_obs)
+        else:
+            job_obs.flight.record("controller_disabled", reason="multiprocess")
     # dead-letter quarantine output (StreamConfig.dead_letter): on the
     # env, where the user reads it after execute
     dead_letters = getattr(env, "dead_letters", None)
@@ -2590,7 +2693,11 @@ def _execute_job(env, sink_nodes) -> JobResult:
     ledger = None
     from ..obs.ledger import ledger_effective
 
-    if ledger_effective(cfg.obs):
+    if ledger_effective(cfg.obs) and not single:
+        # a process's counts are partial: every edge's residual would be
+        # off
+        job_obs.flight.record("ledger_disabled", reason="multiprocess")
+    elif ledger_effective(cfg.obs):
         from ..obs.ledger import ConservationLedger
 
         ledger = ConservationLedger(
@@ -2816,8 +2923,10 @@ def _execute_job(env, sink_nodes) -> JobResult:
     # the async plane: the barrier pays the capture only; encode, write,
     # prune and GC run on one background writer thread. _run_attempt
     # closes it, so a failed attempt never leaks a writer thread
+    # the coordinator alone writes; the other processes still capture,
+    # the gathers of a capture being collective
     ckpt_plane = None
-    if ckpt_enabled and cfg.checkpoint_async:
+    if ckpt_enabled and cfg.checkpoint_async and is_coordinator:
         from .checkpoint import CheckpointPlane
 
         ckpt_plane = env._checkpoint_plane = CheckpointPlane(
@@ -2865,12 +2974,18 @@ def _execute_job(env, sink_nodes) -> JobResult:
         runner.drain_chain(proc_now)
         stages = runner.chain()
         jax_states = [r.program.state_to_jax_numpy(r.state) for r in stages]
+        emitted = metrics.records_emitted
+        if not single:
+            # each process emits its shards' rows: the snapshot records
+            # the global count
+            emitted = int(allgather_array(
+                np.asarray([emitted], np.int64)).sum())
         return capture_checkpoint(
             state=jax_states if len(stages) > 1 else jax_states[0],
             plan=plan,
             source_pos=lines_consumed,
             proc_now=proc_now,
-            emitted=metrics.records_emitted,
+            emitted=emitted,
             batches=metrics.batches,
             job_name=env.job_name,
             parallelism=max(1, cfg.parallelism),
@@ -2917,7 +3032,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 ckpt_plane.submit(pending)
                 job_obs.gauge("checkpoint_async_inflight").set(
                     float(ckpt_plane.inflight()))
-            else:
+            elif is_coordinator:
                 from .checkpoint import write_snapshot
 
                 with Stopwatch() as wr_sw:
@@ -2961,7 +3076,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
     drill_last = [time.monotonic()]
 
     def maybe_restore_drill() -> None:
-        if (drill_interval <= 0 or not ckpt_enabled
+        if (drill_interval <= 0 or not ckpt_enabled or not is_coordinator
                 or time.monotonic() - drill_last[0] < drill_interval):
             return
         drill_last[0] = time.monotonic()
@@ -3012,14 +3127,14 @@ def _execute_job(env, sink_nodes) -> JobResult:
         from .ingest import build_ingest_plane
 
         ingest_plane = env._ingest_plane = build_ingest_plane(
-            host, cfg, plan, job_obs, single_process=True, fault=fault,
+            host, cfg, plan, job_obs, single_process=single, fault=fault,
             skip_lines=skip_lines)
         if ingest_plane is not None:
             prepared = ingest_plane.frames(source_batches, prepare)
             resources = getattr(job_obs, "resources", None)
             if resources is not None:
                 resources.attach_lanes(ingest_plane.lane_pids)
-    prefetched = cfg.parse_ahead > 0 and ingest_plane is None
+    prefetched = cfg.parse_ahead > 0 and ingest_plane is None and single
     if prefetched:
         # source and parse on their own thread: batch N+1 parses while N
         # steps (the native parser releases the GIL)
@@ -3084,7 +3199,9 @@ def _execute_job(env, sink_nodes) -> JobResult:
                 with Stopwatch() as bw:
                     runner = env._runner = _make_runner_chain(plans, cfg, metrics)
                 metrics.build_time_s += bw.elapsed
-            idle = t_iter_done is not None and src_gap > IDLE_GAP_S
+            # the idle test reads the local clock: several processes keep
+            # the pipelined path, or one could drain (and gather) alone
+            idle = single and t_iter_done is not None and src_gap > IDLE_GAP_S
             if marker_backlog:
                 runner.accept_markers(marker_backlog)
                 marker_backlog = []

@@ -1,4 +1,4 @@
-"""Sharded program variants: a keyed job over S shards in one process.
+"""Sharded program variants: a keyed job over S shards.
 
 Counterpart of tpustream/runtime/sharded.py. There, a single-chip
 program becomes SPMD by overriding its hooks (``_exchange``: keyBy as an
@@ -33,6 +33,14 @@ holds global key ``r * S + s``, so snapshots stay interchangeable with
 the JAX package's, and restore at any parallelism
 (``rescale_key_leaf``).
 
+Under a process group (``parallel/distributed.py``) the S shards span
+the processes: a process builds and steps only its own contiguous block
+of shards (``Mesh.local_shards``), feeds their rows of each batch (the
+reference's ``_gshard``), and merges only their emissions, which go to
+its own sinks; the counters are summed over every process's shards,
+and a snapshot gathers every process's key-sharded rows into the same
+global layout.
+
 All shards issue their device work on the caller's current stream, so
 what a shard hands another across a collective is ordered on the card;
 the two hand kernels launch on that stream too. If a shard raises, the
@@ -42,6 +50,7 @@ mesh is aborted and every shard fails: the step raises the first error.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -174,8 +183,10 @@ class _ShardedMixin:
         self.exchange_capacity = exchange_capacity(
             cfg.batch_size, s, cfg.exchange_capacity_factor)
         shard_cls = _shard_class(self._family)
+        # this process's shards only: under a process group the others
+        # run in the peer processes (``Mesh.local_shards``)
         self.shards = []
-        for i in range(s):
+        for i in self.mesh.local_shards:
             dev = self.mesh.device_of(i)
             shard_cfg = cfg.replace(key_capacity=cfg.key_capacity // s,
                                     device=str(dev))
@@ -208,11 +219,12 @@ class _ShardedMixin:
 
     # -- running the shards -----------------------------------------------
     def _run_shards(self, fn) -> list:
-        """``fn(i)`` for every shard, each on a thread of its own for the
-        step: every shard issues its device work on the caller's stream.
+        """``fn(i)`` for every local shard ``i`` (its index in
+        :attr:`shards`), each on a thread of its own for the step: every
+        shard issues its device work on the caller's stream.
         If a shard raises, the mesh is aborted (no shard waits forever in
         a collective) and the first error is raised."""
-        mesh, n = self.mesh, self.n_shards
+        mesh, n = self.mesh, len(self.shards)
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
         results, errors = [None] * n, [None] * n
@@ -229,8 +241,8 @@ class _ShardedMixin:
                 mesh.abort()
 
         threads = [threading.Thread(target=work, args=(i,),
-                                    name=f"tpustream-shard-{i}")
-                   for i in range(n)]
+                                    name=f"tpustream-shard-{p.shard}")
+                   for i, p in enumerate(self.shards)]
         for t in threads:
             t.start()
         for t in threads:
@@ -244,7 +256,9 @@ class _ShardedMixin:
 
     def _blocks(self, cols, valid, ts):
         """The batch padded to ``batch_size`` and split into S contiguous
-        row blocks, each on its shard's device."""
+        row blocks, each on its shard's device: this process's blocks
+        only (the reference's ``_gshard``: every process holds the whole
+        batch and feeds its own rows)."""
         b, s = self.cfg.batch_size, self.n_shards
         n = valid.shape[0]
         if n < b:
@@ -258,7 +272,7 @@ class _ShardedMixin:
             raise ValueError(f"a step of {n} rows exceeds batch_size {b}")
         blk = b // s
         out = []
-        for i in range(s):
+        for i in self.mesh.local_shards:
             dev = self.mesh.device_of(i)
             sl = slice(i * blk, (i + 1) * blk)
             out.append(([c[sl].to(dev) for c in cols], valid[sl].to(dev),
@@ -284,34 +298,53 @@ class _ShardedMixin:
         xovf = [p.xovf for p in self.shards if p.xovf is not None]
         for p in self.shards:
             p.xovf = None
-        state = self._assemble(new_states, state)
-        if xovf:
-            state["exchange_overflow"] = state["exchange_overflow"] + \
-                torch.stack([x.to(self.device) for x in xovf]).sum()
+        state = self._assemble(new_states, state, xovf)
         return state, self._merge_emissions([o[1] for o in out])
 
     def step(self, state, cols, valid, ts=None, wm_lower=None):
         return self.run_step(state, cols, valid, ts, wm_lower)
 
     # -- the global state ---------------------------------------------------
-    def _assemble(self, shard_states: list, prev: dict = None) -> dict:
+    def _assemble(self, shard_states: list, prev: dict = None,
+                  xovf: list = ()) -> dict:
         """The executor's view of the shards' states: the states, the
-        summed counters, the replicated clocks and the rule tensors."""
+        counters summed over every shard (across processes too: one
+        gather on the group, the reference's ``psum``), the replicated
+        clocks and the rule tensors. ``xovf`` is this step's exchange
+        overflow of each local shard."""
         first = shard_states[0]
         out = {"shards": shard_states}
+        summed = [k for k, v in first.items()
+                  if k in SUMMED and isinstance(v, torch.Tensor)]
         for k, v in first.items():
-            if k in SUMMED and isinstance(v, torch.Tensor):
-                out[k] = torch.stack(
-                    [st[k].to(self.device) for st in shard_states]).sum()
-            elif k in REPLICATED:
+            if k in REPLICATED:
                 out[k] = v
         if RULES_KEY in first:
             out[RULES_KEY] = first[RULES_KEY]
             out[RULE_VERSION_KEY] = first[RULE_VERSION_KEY]
+        dev = self.device
+        parts = [torch.stack([st[k].to(dev).to(torch.int64).reshape(())
+                              for st in shard_states]).sum() for k in summed]
+        parts.append(torch.stack([x.to(dev).reshape(()) for x in xovf]).sum()
+                     if xovf else torch.zeros((), dtype=torch.int64,
+                                              device=dev))
+        vec = torch.stack(parts)
+        if self.mesh.multiprocess:
+            from ..parallel.distributed import allgather_array
+
+            t0 = time.perf_counter()
+            host = vec.cpu().numpy()
+            vec = torch.from_numpy(
+                allgather_array(host).sum(axis=0)).to(dev)
+            self.mesh.xproc_calls += 1
+            self.mesh.xproc_bytes += host.nbytes
+            self.mesh.xproc_seconds += time.perf_counter() - t0
+        for j, k in enumerate(summed):
+            out[k] = vec[j].to(first[k].dtype)
         xo = None if prev is None else prev.get("exchange_overflow")
-        out["exchange_overflow"] = (
-            xo if xo is not None
-            else torch.zeros((), dtype=torch.int64, device=self.device))
+        if xo is None:
+            xo = torch.zeros((), dtype=torch.int64, device=dev)
+        out["exchange_overflow"] = xo + vec[-1] if xovf else xo
         return out
 
     def init_state(self, key_capacity: int = None) -> dict:
@@ -333,14 +366,15 @@ class _ShardedMixin:
         return self._assemble(grown, state)
 
     def key_capacity(self, state) -> int:
-        return sum(p.key_capacity(st)
-                   for p, st in zip(self.shards, state["shards"]))
+        return self.mesh.n_procs * sum(
+            p.key_capacity(st) for p, st in zip(self.shards, state["shards"]))
 
     # -- snapshots in the reference's global layout ----------------------------
-    def _merge_jax(self, parts: list, concat, xovf) -> dict:
+    def _merge_jax(self, parts: list, concat, xovf, total=None) -> dict:
         """The shards' reference-layout states as one global state:
-        key-sharded leaves stacked shard-major, summed counters summed,
-        every other leaf shard 0's."""
+        key-sharded leaves stacked shard-major, summed counters summed
+        (``total`` adds a local sum over the processes), every other
+        leaf shard 0's."""
         flags = tree_leaves(self.shards[0].key_sharded_leaves(parts[0]))
         names = _leaf_names(parts[0])
         per = [tree_leaves(p) for p in parts]
@@ -352,8 +386,10 @@ class _ShardedMixin:
             elif name == "exchange_overflow":
                 leaves.append(np.asarray(xovf, dtype=np.int64))
             elif name in SUMMED:
-                leaves.append(np.asarray(sum(int(x) for x in col),
-                                         dtype=np.asarray(col[0]).dtype))
+                local = sum(int(x) for x in col)
+                leaves.append(np.asarray(
+                    local if total is None else total(local),
+                    dtype=np.asarray(col[0]).dtype))
             else:
                 leaves.append(col[0])
         return tree_unflatten(parts[0], leaves)
@@ -362,7 +398,23 @@ class _ShardedMixin:
         parts = [p.state_to_jax_numpy(st)
                  for p, st in zip(self.shards, state["shards"])]
         xovf = int(state["exchange_overflow"])
-        return self._merge_jax(parts, lambda c: np.concatenate(c, axis=0), xovf)
+        if not self.mesh.multiprocess:
+            return self._merge_jax(parts, lambda c: np.concatenate(c, axis=0),
+                                   xovf)
+        # a collective: every process's rows of each key-sharded leaf, in
+        # process order, which is global shard order (the reference's
+        # ``process_allgather(tiled=True)``, tpustream/runtime/
+        # checkpoint.py:145-158)
+        from ..parallel.distributed import allgather_array
+
+        def gathered(col):
+            local = np.concatenate(col, axis=0)
+            g = allgather_array(local)
+            return g.reshape((-1,) + local.shape[1:])
+
+        return self._merge_jax(
+            parts, gathered, xovf,
+            total=lambda n: int(allgather_array(np.asarray(n, np.int64)).sum()))
 
     def jax_state_spec(self, key_capacity: int = None) -> dict:
         spec = self.shards[0].jax_state_spec(self._local_capacity(key_capacity))
@@ -381,7 +433,8 @@ class _ShardedMixin:
         leaves = tree_leaves(state_np)
         s = self.n_shards
         states = []
-        for i, p in enumerate(self.shards):
+        for p in self.shards:
+            i = p.shard  # this process's shards take their own rows
             mine = []
             for flag, name, x in zip(flags, names, leaves):
                 x = np.asarray(x)
