@@ -29,6 +29,9 @@ and run in order
   of its first run's; the pair's 8-shard snapshot then restores here,
   in one process, at 4 shards and at 1, in the port and in the JAX
   package: ``sorted(resumed) == sorted(full[ck.emitted:])``;
+* a job with a restart strategy: both processes refuse it by name
+  before any call on the group, and a ``psum`` after it is bitwise the
+  one-process mesh's;
 * last, a fault injected at ``exchange`` on rank 1: both processes exit
   non-zero, well inside the pair's limit.
 
@@ -41,6 +44,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 
 import numpy as np
@@ -68,6 +72,16 @@ CKPT_VARIANTS = ["chained", "process_chained"]
 PAIR_TIMEOUT_S = 300
 PSUM_SEED, EXCHANGE_SEED, EXCHANGE_B = 11, 5, 128
 STRESS_ROUNDS = 100
+# the calls on a group that the refusal act counts
+COLLECTIVES = (
+    "all_gather", "all_gather_object", "all_to_all", "all_to_all_single",
+    "all_reduce", "barrier", "broadcast", "broadcast_object_list", "gather",
+    "gather_object", "reduce", "reduce_scatter", "scatter", "send", "recv")
+# execute_job's refusal of a supervised job under several processes
+REFUSAL = (
+    "supervised restarts of a job over several processes are not "
+    "supported: restart the processes from the latest snapshot "
+    "(env.restore_from_checkpoint)")
 
 
 def port_snippet(snippet: str, device: str = "cpu") -> str:
@@ -201,10 +215,42 @@ WORKER_TAIL = textwrap.dedent(
         ok = 0 < len(r2) < len(r1) and r2 == r1[len(r1) - len(r2):]
         print(f"CKPT\\t{variant}\\t{int(ok)}\\t{len(r1)}\\t{len(r2)}", flush=True)
 
-    print(f"FAULT_NEXT\\t{pid}", flush=True)
+    # a supervised job under two processes is refused before any call on
+    # the group, and the group stays usable
+    import torch.distributed as dist
     from tpustream_torch import StreamExecutionEnvironment
     from tpustream_torch.config import StreamConfig
     from tpustream_torch.runtime.sources import ReplaySource
+    from tpustream_torch.runtime.supervisor import fixed_delay
+    group_calls = []
+    originals = {name: getattr(dist, name) for name in COLLECTIVES}
+    def counted(name, fn):
+        def call(*a, **kw):
+            group_calls.append(name)
+            return fn(*a, **kw)
+        return call
+    for name, fn in originals.items():
+        setattr(dist, name, counted(name, fn))
+    env = StreamExecutionEnvironment(StreamConfig(
+        device=device, batch_size=16, key_capacity=64, parallelism=8))
+    env.set_restart_strategy(fixed_delay(3, 0.0))
+    text = env.add_source(ReplaySource(lines))
+    text.map(lambda l: (l.split(" ")[1], int(l.split(" ")[2]))).key_by(0).max(1).collect()
+    try:
+        env.execute("supervised")
+        refused = "none"
+    except Exception as e:
+        refused = f"{type(e).__name__}\\t{e}"
+    for name, fn in originals.items():
+        setattr(dist, name, fn)
+    print(f"REFUSED\\t{pid}\\t{len(group_calls)}\\t{refused}", flush=True)
+    got = shard_threads(mesh, lambda i: mesh.psum(
+        i, torch.from_numpy(vals[i].copy()).to(device)))
+    for i, v in got.items():
+        print(f"AFTER_REFUSAL\\t{i}\\t{v.cpu().numpy().tobytes().hex()}",
+              flush=True)
+
+    print(f"FAULT_NEXT\\t{pid}", flush=True)
     from tpustream_torch.testing import FaultInjector, FaultPoint
     cfg = StreamConfig(device=device, batch_size=16, key_capacity=64,
                        parallelism=8)
@@ -222,7 +268,8 @@ WORKER_TAIL = textwrap.dedent(
 def worker_script(device: str) -> str:
     consts = (f"PSUM_SEED, EXCHANGE_SEED, EXCHANGE_B = {PSUM_SEED}, "
               f"{EXCHANGE_SEED}, {EXCHANGE_B}\nSTRESS_ROUNDS = {STRESS_ROUNDS}\n"
-              f"VARIANTS = {VARIANTS!r}\nCKPT_VARIANTS = {CKPT_VARIANTS!r}\n")
+              f"VARIANTS = {VARIANTS!r}\nCKPT_VARIANTS = {CKPT_VARIANTS!r}\n"
+              f"COLLECTIVES = {COLLECTIVES!r}\n")
     return (WORKER_HEAD + consts + WORKER_CHECKS
             + port_snippet(MULTI_VARIANT_SNIPPET, device)
             + port_snippet(CKPT_VARIANT_SNIPPET, device) + WORKER_TAIL)
@@ -235,7 +282,9 @@ def free_port() -> int:
 
 
 def start_pair(tmp_dir, device: str = "cpu"):
-    """The two workers, started, each reading JOB_LINES from a file."""
+    """The two workers, started, each reading JOB_LINES from a file, and
+    a thread a worker that reads its output to the end and notes when
+    it exited."""
     script = os.path.join(tmp_dir, "pair_worker.py")
     with open(script, "w") as f:
         f.write(worker_script(device))
@@ -254,21 +303,36 @@ def start_pair(tmp_dir, device: str = "cpu"):
         stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, env=env, text=True, cwd=ROOT)
         for i in range(2)]
-    return procs, ckdir
+    return [watch(p) for p in procs], ckdir
 
 
-def finish_pair(procs, t0):
-    outs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=max(1.0, PAIR_TIMEOUT_S
-                                               - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append(out)
-    return outs, time.perf_counter() - t0
+def watch(proc):
+    """``(proc, thread, box)``: the thread reads ``proc``'s output into
+    ``box["out"]`` and notes its exit in ``box["exited"]``."""
+    box = {}
+
+    def read():
+        box["out"] = proc.stdout.read()
+        proc.wait()
+        box["exited"] = time.perf_counter()
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    return proc, t, box
+
+
+def finish_pair(workers, t0):
+    """The outputs of the pair and its own wall: from ``t0`` to the
+    second worker's exit, however long this process took meanwhile. A
+    pair still running at ``PAIR_TIMEOUT_S`` is killed."""
+    for _, t, _ in workers:
+        t.join(timeout=max(0.0, t0 + PAIR_TIMEOUT_S - time.perf_counter()))
+    if any(t.is_alive() for _, t, _ in workers):
+        for p, _, _ in workers:
+            p.kill()
+        raise subprocess.TimeoutExpired("the worker pair", PAIR_TIMEOUT_S)
+    outs = [box["out"] for _, _, box in workers]
+    return outs, max(box["exited"] for _, _, box in workers) - t0
 
 
 def parse_rows(outs):
@@ -286,15 +350,16 @@ def parse_rows(outs):
 def pair(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("pair"))
     t0 = time.perf_counter()
-    procs, ckdir = start_pair(tmp)
+    workers, ckdir = start_pair(tmp)
     # the JAX package's references, while the pair runs
     ns = {}
     exec(MULTI_VARIANT_SNIPPET, ns)
     refs = {(v, p): sorted(ns["run_job"](JOB_LINES, v, parallelism=p))
             for v in VARIANTS for p in (8, 1)}
-    outs, wall = finish_pair(procs, t0)
+    refs_s = time.perf_counter() - t0
+    outs, wall = finish_pair(workers, t0)
     return {"outs": outs, "wall": wall, "refs": refs, "ckdir": ckdir,
-            "rcs": [p.returncode for p in procs]}
+            "refs_s": refs_s, "rcs": [p.returncode for p, _, _ in workers]}
 
 
 def lines_of(pair, tag):
@@ -324,12 +389,12 @@ def test_pair_records_why_features_are_off(pair):
         "controller_disabled", "ingest_lanes_disabled", "ledger_disabled")]
 
 
-def test_pair_psum_bitwise_equals_one_process_mesh(pair):
+def assert_psum_bitwise_equals_one_process_mesh(rows):
+    """The pair's ``psum`` rows (shard, result bytes) equal the
+    one-process mesh's sum of the same values, bitwise."""
     vals = np.random.default_rng(PSUM_SEED).normal(size=(8, 5)) * np.logspace(
         -8, 8, 5)
     mesh = torch_mesh.make_mesh(8, device="cpu")
-    import threading
-
     got = {}
 
     def work(i):
@@ -341,10 +406,13 @@ def test_pair_psum_bitwise_equals_one_process_mesh(pair):
         t.start()
     for t in ts:
         t.join()
-    rows = lines_of(pair, "PSUM")
     assert sorted(int(r[0]) for r in rows) == list(range(8))
     for shard, hexed in rows:
         assert hexed == got[int(shard)].numpy().tobytes().hex()
+
+
+def test_pair_psum_bitwise_equals_one_process_mesh(pair):
+    assert_psum_bitwise_equals_one_process_mesh(lines_of(pair, "PSUM"))
 
 
 def test_pair_rendezvous_under_thread_switch_stress(pair):
@@ -412,6 +480,16 @@ def test_pair_snapshot_restores_alone(pair, package, parallelism):
     assert sorted(resumed) == sorted(full[ck.emitted:])
 
 
+def test_pair_refuses_a_supervised_job_before_any_collective(pair):
+    """A job with a restart strategy under two processes raises
+    ``NotImplementedError`` by name in both processes, before any call
+    on the group, and the group still sums bitwise afterwards."""
+    rows = sorted(lines_of(pair, "REFUSED"))
+    assert rows == [[str(p), "0", "NotImplementedError", REFUSAL]
+                    for p in (0, 1)], pair["outs"]
+    assert_psum_bitwise_equals_one_process_mesh(lines_of(pair, "AFTER_REFUSAL"))
+
+
 def test_pair_fault_on_one_rank_fails_both(pair):
     """The last act of the pair: an injected ``exchange`` fault on rank
     1's shard 7 fails rank 1, and rank 0, waiting in the all-to-all,
@@ -420,4 +498,38 @@ def test_pair_fault_on_one_rank_fails_both(pair):
     assert not lines_of(pair, "NOT_FAILED")
     assert all(rc != 0 for rc in pair["rcs"]), pair["rcs"]
     assert "FaultInjected" in pair["outs"][1]
-    assert pair["wall"] < PAIR_TIMEOUT_S
+    # the pair's own wall; the JAX references in this process may take
+    # longer under load
+    assert pair["wall"] < PAIR_TIMEOUT_S, (pair["wall"], pair["refs_s"])
+
+
+def test_mesh_abort_tears_the_group_down_once(monkeypatch):
+    """Every failing shard of a process calls ``Mesh.abort``, on its own
+    thread and at about the same time: the group is destroyed once,
+    never by two threads together."""
+    import torch.distributed as dist
+
+    mesh = torch_mesh.make_mesh(8, device="cpu")
+    mesh.n_procs = 2  # as under a group of two processes
+    live, calls = [True], []
+
+    def destroy():
+        calls.append(threading.get_ident())
+        time.sleep(0.05)  # a teardown that takes a while
+        live[0] = False
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: live[0])
+    monkeypatch.setattr(dist, "destroy_process_group", destroy)
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=mesh.abort) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+    finally:
+        sys.setswitchinterval(prev)
+    assert len(calls) == 1
+    with pytest.raises(torch_mesh.MeshAborted):
+        mesh.run_shard(mesh.psum, 0, 1.0)

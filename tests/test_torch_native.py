@@ -6,7 +6,10 @@ running and says why (tests/test_native_fallback.py); the library is
 built under ``build/`` with a hashed name. Tolerance: identical
 columns and rows."""
 
+import os
 import subprocess
+import sys
+from importlib import import_module
 
 import numpy as np
 import pytest
@@ -198,3 +201,45 @@ def test_dlopen_failure_triggers_one_rebuild(monkeypatch, tmp_path):
     assert len(calls) == 1
     err = native.build_error()
     assert "dlopen" in err and "rebuild failed too" in err
+
+
+def _flight_events(side, kind):
+    """The flight events of ``kind`` of a chapter-2 job with obs on,
+    with the recorder's own fields (time, sequence) left out."""
+    pkg = tpustream if side == "jax" else tpustream_torch
+    config = import_module(pkg.__name__ + ".config")
+    sources = import_module(pkg.__name__ + ".runtime.sources")
+    cfg = dict(batch_size=4, obs=config.ObsConfig(enabled=True))
+    if side == "torch":
+        cfg["device"] = "cpu"
+    env = pkg.StreamExecutionEnvironment(config.StreamConfig(**cfg))
+    text = env.add_source(sources.ReplaySource(CH1_LINES[:8]))
+    JOBS[pkg]["ch2"].build(env, text).collect()
+    res = env.execute("flavor")
+    return [{k: v for k, v in e.items() if k not in ("t", "seq", "t_s")}
+            for e in res.metrics.job_obs.flight.events() if e["kind"] == kind]
+
+
+def test_native_parse_ready_names_the_build_flavor_as_the_jax_package():
+    got = _flight_events("torch", "native_parse_ready")
+    assert got == _flight_events("jax", "native_parse_ready")
+    assert got == [{"kind": "native_parse_ready", "flavor": "default"}]
+
+
+@pytest.mark.parametrize("flavor", ["asan", "default", "no-such-flavor"])
+def test_build_flavor_follows_the_environment_as_the_jax_package(flavor):
+    """``TPUSTREAM_NATIVE_FLAVOR`` selects the flavor in both packages
+    (an unknown one falls back to ``default``), and the asan build is a
+    library of its own."""
+    code = ("import {m}.native as n; print(n.build_flavor(), "
+            "getattr(n, 'library_path', lambda: '')())")
+    env = {**os.environ, "TPUSTREAM_NATIVE_FLAVOR": flavor}
+    out = {m: subprocess.run(
+        [sys.executable, "-c", code.format(m=m)], env=env,
+        capture_output=True, text=True, check=True,
+        cwd=str(native.NATIVE_DIR.parents[1])).stdout.split()
+        for m in ("tpustream", "tpustream_torch")}
+    want = "asan" if flavor == "asan" else "default"
+    assert out["tpustream_torch"][0] == out["tpustream"][0] == want
+    stem = "libfastparse_asan-" if want == "asan" else "libfastparse-"
+    assert out["tpustream_torch"][1].rsplit("/", 1)[1].startswith(stem)

@@ -152,3 +152,28 @@ def test_rolling_state_bytes_shrink_under_float32():
         return series[("operator_hbm_state_bytes", "rolling")]
 
     assert total("float64") - total("float32") == 4 * 32
+
+
+def test_sharded_state_bytes_are_eight_one_device_states():
+    """At parallelism 8 each shard holds a whole program state over
+    ``key_capacity / 8`` keys, its sink cells and scalar leaves
+    included: every shard's ``operator_hbm_state_bytes`` is a one-device
+    run's at that capacity, and the total is their sum, so it exceeds
+    the one-device total by seven states' fixed parts. The JAX package
+    counts one global state pytree, whose total at parallelism 8 is its
+    one-device total (``tests/test_obs_sharded.py``)."""
+    lines = _lines(n=120, channels=4)
+
+    def totals(side, **kw):
+        _, series = _run(lines, side=side, **kw)
+        return {s["labels"].get("shard"): s["value"]
+                for s in series[("operator_hbm_state_bytes", "window")]}
+
+    sharded = dict(parallelism=8, print_parallelism=1)
+    port8, jax8 = totals("torch", **sharded), totals("jax", **sharded)
+    one_state = totals("torch", key_capacity=8)[None]
+    assert port8 == {None: 8 * one_state,
+                     **{str(i): one_state for i in range(8)}}
+    port1 = totals("torch")[None]
+    assert port8[None] > port1
+    assert jax8[None] == totals("jax")[None]

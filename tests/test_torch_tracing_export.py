@@ -144,7 +144,7 @@ ET_LINES = [
 ]
 
 
-def _run_traced(pk, sample_rate, lanes=1, parallelism=1):
+def _run_traced(pk, sample_rate, lanes=1, parallelism=1, **over):
     obs = pk.ObsConfig(
         enabled=True,
         latency_marker_interval_ms=1e-6 if sample_rate else 0.0,
@@ -157,6 +157,7 @@ def _run_traced(pk, sample_rate, lanes=1, parallelism=1):
     if parallelism > 1:
         kw["parallelism"] = parallelism
         kw["print_parallelism"] = 1
+    kw.update(over)
     if kw:
         cfg = cfg.replace(**kw)
     env = pk.StreamExecutionEnvironment(cfg)
@@ -173,34 +174,13 @@ def _run_traced(pk, sample_rate, lanes=1, parallelism=1):
 
 
 def test_traced_job_timeline_carries_all_tracks(pk):
-    """The JAX package's run parses in two ingest lanes; the port has no
-    lanes yet, so its timeline has every track but the lane one, and its
-    host-to-device hop is ``h2d`` where the JAX package's is ``pack``."""
-    lanes = 2 if pk.side == "jax" else 1
-    m, _ = _run_traced(pk, 1.0, lanes=lanes)
+    m, _ = _run_traced(pk, 1.0, lanes=2)
     snap = m.obs_snapshot()
     assert snap.get("record_traces"), "sampled lineage must reach the sink"
     # each trace walked the full flight path, source -> sink
     spans = [s["name"] for s in snap["record_traces"][0]["spans"]]
     assert spans[0] == "source" and spans[-1] == "sink0"
-    upload = "pack" if pk.side == "jax" else "h2d"
-    assert "device_step" in spans and upload in spans and "fetch" in spans
-    # the unified timeline: valid JSON with every track populated
-    tl = pk.timeline_from_snapshot(json.loads(json.dumps(snap, default=str)))
-    meta = tl["meta"]
-    assert meta["n_device_spans"] > 0
-    assert meta["n_record_traces"] > 0
-    assert meta["n_flight_instants"] > 0
-    evs = tl["traceEvents"]
-    assert any(e["pid"] == pk.PID_RECORDS and e["name"] == "sink0"
-               for e in evs)
-    # the sampling counter is a real registry series
-    sampled = [s for s in snap["metrics"]["series"]
-               if s["name"] == "record_traces_sampled_total"]
-    assert sampled and sampled[0]["value"] == snap["record_traces_total"]
-    if lanes == 1:
-        assert meta["n_lane_spans"] == 0
-        return
+    assert "device_step" in spans and "pack" in spans and "fetch" in spans
     lane_traced = [
         t for t in snap["record_traces"]
         if any(s["name"] == "lane_parse" for s in t["spans"])
@@ -224,6 +204,30 @@ def test_traced_job_timeline_carries_all_tracks(pk):
     sampled = [s for s in snap["metrics"]["series"]
                if s["name"] == "record_traces_sampled_total"]
     assert sampled and sampled[0]["value"] == snap["record_traces_total"]
+
+
+@pytest.mark.parametrize("setting", [
+    dict(), dict(lanes=2), dict(async_depth=1, h2d_depth=1)],
+    ids=["defaults", "lanes", "unstaged"])
+def test_trace_spans_equal_the_jax_package(setting):
+    """The step tracer's spans (one ``emit`` a dispatched step, whatever
+    it emitted; an ``h2d`` hop only for a staged upload) and every
+    sampled record's hops, in order (``pack`` on the batch it rode),
+    are the JAX package's."""
+    from tests.test_torch_obs import PKG
+
+    got = {}
+    for side in ("jax", "torch"):
+        m, rows = _run_traced(PKG[side], 1.0, **setting)
+        snap = m.obs_snapshot()
+        kinds = {}
+        for e in snap["trace"]["events"]:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        hops = [[s["name"] for s in t["spans"]] for t in snap["record_traces"]]
+        got[side] = (rows, kinds, hops)
+    assert got["torch"][0] == got["jax"][0]
+    assert got["torch"][1] == got["jax"][1]
+    assert got["torch"][2] == got["jax"][2] and got["jax"][2]
 
 
 def test_trace_parity_single_chip(pk):

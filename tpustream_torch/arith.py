@@ -79,8 +79,11 @@ through a jitted JAX function on the CPU
   remembers which two tensors it compared (a copy the simplifier
   removed counts as its source). After ``>=``, ``<=``, ``==`` or
   ``!=``, or of any other values, the select keeps the bits. A select
-  against a Python number follows rules that depend on the constant's
-  value; it is not copied (ROADMAP 3.4).
+  between a tensor and the Python number it was compared with is
+  copied too (``_select_of_constant``): the bits are kept when the
+  comparison can never hold, after ``==``/``!=`` and after
+  ``>=``/``<=`` against ±0.0; otherwise the flushed operands are
+  selected (ROADMAP 3.4 g).
 * ``sqrt`` (and ``x ** 0.5``, which XLA computes as a square root) is
   correctly rounded, as XLA's is: torch's CPU ``sqrt`` and ``pow`` of
   float32 and float64 tensors are one ulp off for about one value in a

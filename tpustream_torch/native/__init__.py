@@ -10,6 +10,13 @@ rebuilt and a stale build is never loaded; nothing is built beside the
 source. When the build fails, ``available()`` is False, ``build_error()``
 says why, and callers keep the numpy path.
 
+Two build flavors, as in the reference: ``default``, the tuned library,
+and ``asan`` (``TPUSTREAM_NATIVE_FLAVOR=asan``, with libasan preloaded
+into the interpreter), the Makefile's ``asan`` target with
+``-fsanitize=address,undefined`` for memory-safety runs of the same
+parser. :func:`build_flavor` names the one this process selected; the
+executor's ``native_parse_ready`` flight event carries it.
+
 Nothing is built or loaded when this module is imported.
 """
 
@@ -32,9 +39,21 @@ KIND_ISO = 3
 
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parents[1] / "build" / "torch_native"
-# the portable line, tried when the Makefile's tuned one (-march=native)
-# fails on this host's toolchain
-FALLBACK_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# the portable line of each flavor, tried when the Makefile's (tuned:
+# -march=native) fails on this host's toolchain; with the Makefile's
+# target and the library's name stem
+_FLAVORS = {
+    "default": ("all", "libfastparse",
+                ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")),
+    "asan": ("asan", "libfastparse_asan",
+             ("-O1", "-g", "-fno-omit-frame-pointer",
+              "-fsanitize=address,undefined", "-shared", "-fPIC",
+              "-std=c++17", "-pthread")),
+}
+_flavor = os.environ.get("TPUSTREAM_NATIVE_FLAVOR", "default")
+if _flavor not in _FLAVORS:
+    _flavor = "default"
+_MAKE_TARGET, _STEM, FALLBACK_FLAGS = _FLAVORS[_flavor]
 
 _lock = threading.Lock()
 _lib = None
@@ -48,7 +67,13 @@ def library_path() -> Path:
     for name in ("fastparse.cpp", "Makefile"):
         h.update((NATIVE_DIR / name).read_bytes())
     h.update(" ".join(FALLBACK_FLAGS).encode())
-    return BUILD_DIR / f"libfastparse-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{_STEM}-{h.hexdigest()[:16]}.so"
+
+
+def build_flavor() -> str:
+    """The build flavor this process selected (``"default"`` or
+    ``"asan"``, from ``TPUSTREAM_NATIVE_FLAVOR``)."""
+    return _flavor
 
 
 def _tail(text: bytes, limit: int = 400) -> str:
@@ -66,7 +91,7 @@ def _build(out: Path) -> bool:
     src = str(NATIVE_DIR / "fastparse.cpp")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     attempts = [
-        ["make", "-s", "-C", str(NATIVE_DIR), f"OUT={tmp}"],
+        ["make", "-s", "-C", str(NATIVE_DIR), _MAKE_TARGET, f"OUT={tmp}"],
         ["g++", *FALLBACK_FLAGS, src, "-o", str(tmp)],
     ]
     errors = []

@@ -106,6 +106,7 @@ class Mesh:
         self.xproc_seconds = 0.0
         self.xproc_bytes = 0
         self._aborted = False
+        self._abort_lock = threading.Lock()
         self.reset()
 
     @property
@@ -126,14 +127,20 @@ class Mesh:
         """Break the rendezvous: every shard in or entering a collective
         raises :class:`MeshAborted`. Across processes the group is torn
         down too, so a peer waiting in a collective raises at once
-        instead of waiting out its timeout (a pair that failed ends)."""
+        instead of waiting out its timeout (a pair that failed ends).
+        Every failing shard calls this; one of them tears the group
+        down, once."""
         self._barrier.abort()
-        if self.multiprocess and not self._aborted:
+        if not self.multiprocess:
+            return
+        with self._abort_lock:
+            if self._aborted:
+                return
             self._aborted = True
-            import torch.distributed as dist
+        import torch.distributed as dist
 
-            if dist.is_initialized():
-                dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     def reset(self) -> None:
         """A fresh rendezvous for the next step (after an abort)."""

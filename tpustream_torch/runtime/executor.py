@@ -1329,6 +1329,10 @@ class Runner:
         self._check_capacity()
         if self._state_mem is not None:
             self._state_mem.observe_batch(batch)
+        # sampled flight-path probes get the pack hop timed, once (the
+        # first sub-batch), on the batch they ride
+        traced = [m for m in self._pending_markers
+                  if getattr(m, "trace_id", 0)]
         size = self.cfg.batch_size
         for start in range(0, batch.n, size):
             stop = min(start + size, batch.n)
@@ -1339,8 +1343,12 @@ class Runner:
                 # they hold two rows (arith.plus_zero): one row alone
                 # steps with one invalid row beside it
                 sub = sub.pad_to(2)
-            with self.obs.span("pack", self._step_idx + 1):
+            with self.obs.span("pack", self._step_idx + 1), Stopwatch() as pw:
                 inputs = self._pack_batch(sub)
+            for mk in traced:
+                mk.add_span("pack", t0=pw.t0, dur=pw.elapsed,
+                            step=self._step_idx + 1)
+            traced = []
             self._stage_step(inputs, wm_lower, t_batch)
             if self.count_input:
                 self.metrics.records_in += stop - start
@@ -1677,11 +1685,9 @@ class Runner:
         self._stepped = True
         step_markers = self._take_markers() if markers is None else markers
         if uploaded is None:
-            with obs.span("h2d", self._step_idx), Stopwatch() as hw:
-                uploaded = self._wire.put(inputs)
-            for mk in step_markers:
-                if getattr(mk, "trace_id", 0):
-                    mk.add_span("h2d", t0=hw.t0, dur=hw.elapsed)
+            # unstaged, the copy rides the step: no h2d hop of its own in
+            # the trace, as in the reference (only staging times one)
+            uploaded = self._wire.put(inputs)
         reads = self.program.host_reads
         self._flight.set_active(obs.name or self.program.operator_name)
         # the span times the host's issue of the step only: the wait for
@@ -1961,7 +1967,15 @@ class Runner:
     def _dispatch(self, entry, rows) -> None:
         """One step's emissions to the sinks (or the chain buffer), in
         the reference's order: a full-window program's fires, the main
-        stream, the late rows, the CEP timeouts."""
+        stream, the late rows, the CEP timeouts; all of it under one
+        ``emit`` span a step, as the reference's, then the step's
+        markers."""
+        with self.obs.span("emit", self._step_idx):
+            self._dispatch_rows(entry, rows)
+        if entry.markers:
+            self._record_markers(entry.markers)
+
+    def _dispatch_rows(self, entry, rows) -> None:
         m, obs = self.metrics, self.obs
         emitted_before = m.records_emitted
         self._dispatch_seq += 1
@@ -1970,7 +1984,7 @@ class Runner:
             self._evaluate_fires(fire_info)
         main = rows.get("main")
         if main is not None and len(main["cols"]) and len(main["cols"][0]):
-            with obs.span("emit", self._step_idx), Stopwatch() as sw:
+            with Stopwatch() as sw:
                 out = main["cols"]
                 if self.downstream is not None:
                     self._buffer_chain(main, out)
@@ -1998,8 +2012,6 @@ class Runner:
         if emitted_delta:
             obs.records_emitted.inc(emitted_delta)
             m.emit_latencies_s.append(time.perf_counter() - entry.t_batch)
-        if entry.markers:
-            self._record_markers(entry.markers)
 
     def _local_row_base(self, n_rows: int) -> int:
         """The global row of this process's first emission row, in a
@@ -2623,7 +2635,10 @@ def _make_job_obs(env, cfg: StreamConfig, supervision=None):
             "native_parse_unavailable",
             error=_native_mod.build_error() or "build not attempted")
     else:
-        job_obs.flight.record("native_parse_ready")
+        # the build flavor (default, or the asan sanitizer build) names
+        # which parser ran
+        job_obs.flight.record(
+            "native_parse_ready", flavor=_native_mod.build_flavor())
     # pre-flight analysis findings (stashed by execute_job; popped so a
     # supervised restart doesn't double-count): WARN/ERROR go to the
     # flight ring, every finding increments the per-code counter
