@@ -1,0 +1,6 @@
+"""Host parse (``Metrics.host_times_s``) over the window's events, in
+microseconds an event."""
+
+
+def read(run):
+    return run.stage["host_times_s"] / run.events * 1e6 if run.events else None
