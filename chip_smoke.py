@@ -55,7 +55,7 @@ the obs layer on (spans, snapshots, chapter 1's health rules, latency
 markers, the live endpoint scraped while it runs), then the layer
 without the scraper and the registry alone: equal rows, equal waits on
 the card, one build, parsed scrapes, health at OK; then a short run
-under ``torch.profiler`` with the profiler bridge. Phase ``small`` holds the
+under ``torch.profiler``, whose events name the spans. Phase ``small`` holds the
 goldens of the new jobs, ``max_by``, the allowed-lateness cases (main
 and side-output rows), the session and count goldens, integer rolling
 goldens, the chained-stage goldens, a punctuated-watermark job, the
@@ -2500,7 +2500,7 @@ def obs_phase(n_lines: int) -> None:
     run's rows equal the oracle, every run waits on the card as often,
     each builds once with no recompile; every scrape parses, health ends
     at OK. Prints each run's events/s and step times. Then a short run
-    with the profiler bridge under ``torch.profiler``: the span names
+    under ``torch.profiler``: the span names, ``step.fold`` among them,
     are among its events."""
     import torch
 
@@ -2597,19 +2597,20 @@ def obs_phase(n_lines: int) -> None:
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, traced, _, _ = obs_run(short, ObsConfig(enabled=True,
-                                                   profiler_bridge=True))
+        _, traced, _, _ = obs_run(short, ObsConfig(enabled=True))
     names = {e.name for e in prof.events()}
-    # every span kind the run traced; the int32 config's fire budget keeps
-    # its uploads unstaged, so it has no h2d hop, as in the reference
+    # every span kind the run traced (the int32 config's fire budget keeps
+    # its uploads unstaged, so it has no h2d hop, as in the reference),
+    # and the fold's sub-span, which only the profiler sees
     kinds = sorted({e["kind"] for e in traced.obs_snapshot()["trace"]["events"]})
-    missing = [k for k in kinds if f"tpustream.{k}" not in names]
+    missing = [k for k in kinds + ["step.fold"] if f"tpustream.{k}" not in names]
     if missing or not {"parse", "pack", "dispatch", "fetch", "emit"} <= set(kinds):
         raise AssertionError(f"obs: spans {missing} of {kinds} not among the "
                              f"profiler's events")
     cuda = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
-    print(f"obs: profiler bridge run ({len(short)} lines): every span kind "
-          f"{list(kinds)} among the profiler's events, beside {cuda} CUDA events")
+    print(f"obs: profiled run ({len(short)} lines): every span kind "
+          f"{list(kinds)} and step.fold among the profiler's events, beside "
+          f"{cuda} CUDA events")
 
 
 # -- phase small: the new jobs on the card equal the same jobs on the CPU ---

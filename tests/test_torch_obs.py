@@ -16,7 +16,7 @@ on the CPU.
 * The same obs-enabled job in both packages mints the same series
   names and label sets, apart from the JAX-only series listed by name
   in ``JAX_ONLY_SERIES``.
-* The ``torch.profiler`` bridge: span names appear among the
+* The spans under ``torch.profiler``: span names appear among the
   profiler's events.
 """
 
@@ -599,8 +599,11 @@ def test_same_series_as_the_jax_package():
 
 
 def test_profiler_bridge_names_spans_in_a_torch_profile():
+    """The job's span recorder opens a ``record_function`` range a span
+    whenever a capture records (the reference's ``profiler_bridge``
+    knob has no counterpart): the ring's kinds and a sub-span."""
     cfg = StreamConfig(batch_size=16, key_capacity=64, device="cpu",
-                       obs=ObsConfig(enabled=True, profiler_bridge=True))
+                       obs=ObsConfig(enabled=True))
     env = T.StreamExecutionEnvironment(cfg)
     env.set_stream_time_characteristic(T.TimeCharacteristic.EventTime)
     build_et(env, env.add_source(ReplaySource(ET_LINES[:64])),
@@ -610,7 +613,7 @@ def test_profiler_bridge_names_spans_in_a_torch_profile():
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         env.execute("bridge")
     names = {e.name for e in prof.events()}
-    for kind in ("parse", "h2d", "dispatch", "fetch", "emit"):
+    for kind in ("parse", "h2d", "dispatch", "fetch", "emit", "step.fold"):
         assert f"tpustream.{kind}" in names, kind
 
 

@@ -26,10 +26,6 @@ class ObsConfig:
     enabled: bool = False             # master switch for the obs layer
     trace: bool = True                # record step spans (when enabled)
     trace_ring_size: int = 4096       # retained spans (oldest overwritten)
-    profiler_bridge: bool = False     # wrap spans in
-                                      # torch.profiler.record_function so a
-                                      # torch.profiler capture shows the
-                                      # host spans beside the CUDA kernels
     step_histogram_samples: int = 8192  # per-operator histogram ring bound
                                         # (count/sum stay exact past it)
     snapshot_interval_s: float = 0.0  # periodic registry+trace snapshots

@@ -22,6 +22,7 @@ import numpy as np
 from .api.functions import as_callable
 from .api.tuples import TupleBase
 from .records import BOOL, F64, I64, STR, StringTable
+from .runtime.spans import NULL_SPANS
 from .utils.timeutil import iso_local_to_epoch_sec_np
 
 
@@ -340,15 +341,16 @@ class PlanEvaluator:
             return np.asarray(va, np.float64) / np.asarray(vb, np.float64)
         return va // vb
 
-    def parse_bytes(self, data: bytes, n_lines: int) -> Optional[List[np.ndarray]]:
+    def parse_bytes(self, data: bytes, n_lines: int,
+                    spans=NULL_SPANS) -> Optional[List[np.ndarray]]:
         """Native path over a raw newline-separated buffer; None if the
         native parser is unavailable for this plan, or if any line of
         the batch is malformed (the native parser zero-fills a bad field
         rather than raise, so such a batch takes the strict numpy path,
-        which raises)."""
+        which raises). ``spans``: the job's span recorder."""
         if self._native is None:
             return None
-        base_vals, bad = self._native.parse(data, n_lines)
+        base_vals, bad = self._native.parse(data, n_lines, spans=spans)
         if bad or len(base_vals[0]) != n_lines:
             return None
         self.native_calls += 1
@@ -404,10 +406,10 @@ class PlanEvaluator:
                 return va // vb
         raise NotSymbolic(f"cannot evaluate {e.op}")
 
-    def __call__(self, lines: Sequence[str]) -> List[np.ndarray]:
+    def __call__(self, lines: Sequence[str], spans=NULL_SPANS) -> List[np.ndarray]:
         n = len(lines)
         if self._native is not None and n:
-            out = self.parse_bytes("\n".join(lines).encode("utf-8"), n)
+            out = self.parse_bytes("\n".join(lines).encode("utf-8"), n, spans)
             if out is not None:
                 return out
         self.numpy_calls += 1

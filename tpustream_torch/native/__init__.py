@@ -32,6 +32,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..runtime.spans import NULL_SPANS
+
 KIND_STR = 0
 KIND_F64 = 1
 KIND_I64 = 2
@@ -230,11 +232,13 @@ class NativeParser:
             *[t.ptr if t is not None else None for t in self.tables]
         )
 
-    def parse(self, data: bytes, max_rows: int, threads: Optional[int] = None):
+    def parse(self, data: bytes, max_rows: int, threads: Optional[int] = None,
+              spans=NULL_SPANS):
         """Parse into fresh numpy columns. ``threads`` > 1 uses the
         chunked multi-threaded kernel (identical output, including
         intern-id assignment order); default: TPUSTREAM_PARSE_THREADS or
-        the core count, engaged only for buffers >= 1 MiB."""
+        the core count, engaged only for buffers >= 1 MiB. ``spans``:
+        the job's span recorder (``parse.native``, ``parse.intern``)."""
         if threads is None:
             try:
                 threads = int(
@@ -258,25 +262,27 @@ class NativeParser:
             cols.append(c)
             ptrs[i] = c.ctypes.data_as(ctypes.c_void_p)
         bad = ctypes.c_int64(0)
-        rows = self._lib.tsp_parse_mt(
-            data,
-            len(data),
-            self.sep,
-            n,
-            self._field,
-            self._kind,
-            self._tz,
-            self._tbl_ptrs,
-            ptrs,
-            max_rows,
-            ctypes.byref(bad),
-            max(1, threads),
-        )
+        with spans.span("parse.native"):
+            rows = self._lib.tsp_parse_mt(
+                data,
+                len(data),
+                self.sep,
+                n,
+                self._field,
+                self._kind,
+                self._tz,
+                self._tbl_ptrs,
+                ptrs,
+                max_rows,
+                ctypes.byref(bad),
+                max(1, threads),
+            )
         out = []
-        for c, t in zip(cols, self.tables):
-            c = c[:rows]
-            if t is not None:
-                remap = t.sync()
-                c = remap[c] if len(remap) else c
-            out.append(c)
+        with spans.span("parse.intern"):
+            for c, t in zip(cols, self.tables):
+                c = c[:rows]
+                if t is not None:
+                    remap = t.sync()
+                    c = remap[c] if len(remap) else c
+                out.append(c)
         return out, int(bad.value)

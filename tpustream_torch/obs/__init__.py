@@ -12,9 +12,10 @@ Prometheus reporter). This package provides:
   Counter/Gauge/Histogram instruments scoped by ``job``/``operator``/
   ``shard`` label hierarchy.
 * :mod:`tpustream_torch.obs.tracing` — per-step span events (parse,
-  h2d, dispatch, fetch, emit) in a bounded ring buffer, optionally
-  bridged to ``torch.profiler.record_function`` so a profiler capture
-  shows the host spans beside the CUDA kernels.
+  pack, h2d, dispatch, fetch, emit) in a bounded ring buffer, fed by
+  the job's span recorder (``runtime/spans.py``), which also opens a
+  ``torch.profiler.record_function`` range a span whenever a profiler
+  capture records.
 * :mod:`tpustream_torch.obs.timeseries` — bounded ``(timestamp,
   value)`` history rings behind every registry instrument with windowed
   ``rate()``/``delta()``/``mean()``/``quantile()``, mergeable.

@@ -6,7 +6,8 @@ the job's device for its environment fingerprint).
 The executor talks to observability exclusively through two small
 objects — :class:`JobObs` (one per job: shared registry, tracer,
 snapshotter, job-scope gauges) and :class:`OperatorObs` (one per runner:
-the operator-labelled counters/histograms/gauges plus span minting).
+the operator-labelled counters/histograms/gauges, and the ring the
+runner's spans go to through the job's span recorder).
 Both have null twins with the identical surface, installed when
 ``StreamConfig.obs.enabled`` is False, so every hot-path call site is an
 unconditional attribute call with no ``if obs:`` branches.
@@ -77,9 +78,6 @@ class OperatorObs:
             "operator_" + name, max_samples=self._hist_samples
         )
 
-    def span(self, kind: str, step: int = -1):
-        return self.tracer.span(kind, step, self.name)
-
 
 class JobObs:
     """Per-job observability root: one registry + tracer + snapshotter
@@ -94,7 +92,6 @@ class JobObs:
         cfg = obs_cfg
         trace = getattr(cfg, "trace", True)
         ring = getattr(cfg, "trace_ring_size", 4096)
-        bridge = getattr(cfg, "profiler_bridge", False)
         self.hist_samples = getattr(cfg, "step_histogram_samples", 8192)
         self.registry = registry or MetricsRegistry()
         # history/retention knobs must land before any series is minted
@@ -107,7 +104,7 @@ class JobObs:
         )
         self.job_name = str(job_name)
         self.group = self.registry.group(job=self.job_name)
-        self.tracer = StepTracer(ring, bridge) if trace else NULL_TRACER
+        self.tracer = StepTracer(ring) if trace else NULL_TRACER
         # completed record flight paths (obs/tracing_export.py): the
         # executor's terminal stage feeds this when trace_sample_rate>0
         self.traces = RecordTraceLog(getattr(cfg, "trace_max_records", 256))
@@ -454,9 +451,6 @@ class _NullOperatorObs:
 
     def histogram(self, name: str):
         return NULL_HISTOGRAM
-
-    def span(self, kind: str, step: int = -1):
-        return NULL_TRACER.span(kind, step)
 
 
 NULL_OPERATOR_OBS = _NullOperatorObs()

@@ -1,22 +1,19 @@
 """Structured step tracing: lightweight span events per executor step.
 
-Counterpart of tpustream/obs/tracing.py; the profiler bridge is
-``torch.profiler.record_function``.
+Counterpart of tpustream/obs/tracing.py.
 
 Each hot-path phase records one span per *batch/step* — never per
 record — into a bounded ring buffer. The port's executor records
-``parse``, ``h2d`` (a step's columns staged and copied to the device),
-``dispatch``, ``fetch`` and ``emit``; ``pack`` and ``lane_parse`` stay
-in ``SPAN_KINDS`` for the JAX package's packed uploads and ingest
-lanes.
-
-The bridge wraps each span in ``torch.profiler.record_function`` so a
-``torch.profiler.profile(...)`` capture shows the host spans (named
-``tpustream.<kind>``) beside the CUDA kernels they issued. It is opt-in
-(``ObsConfig.profiler_bridge``) because annotations add a little
-per-span overhead even when no trace is active. A span never waits on
-the device: ``dispatch`` times the host's issue of a step, and device
-time is the profiler's business.
+``parse``, ``pack``, ``h2d`` (a step's columns staged and copied to the
+device), ``dispatch``, ``fetch`` and ``emit`` through the job's span
+recorder (``Metrics.span``, runtime/spans.py), which times each once
+and hands the interval to :meth:`StepTracer._record`; ``lane_parse``
+is the ingest lanes'. The recorder, not the ring, opens the
+``torch.profiler.record_function`` ranges (``tpustream.<name>``),
+whenever a capture records, obs on or off: the reference's
+``ObsConfig.profiler_bridge`` has no counterpart here. A span never
+waits on the device: ``dispatch`` times the host's issue of a step, and
+device time is the profiler's business.
 
 ``NULL_TRACER`` is the disabled twin: same surface, no state, no work.
 """
@@ -37,7 +34,7 @@ SPAN_KINDS = ("parse", "pack", "h2d", "dispatch", "fetch", "emit",
 class _Span:
     """Context manager handed out by :meth:`StepTracer.span`."""
 
-    __slots__ = ("_tracer", "kind", "step", "operator", "_t0", "_ann")
+    __slots__ = ("_tracer", "kind", "step", "operator", "_t0")
 
     def __init__(self, tracer: "StepTracer", kind: str, step: int, operator: str):
         self._tracer = tracer
@@ -45,20 +42,13 @@ class _Span:
         self.step = step
         self.operator = operator
         self._t0 = 0.0
-        self._ann = None
 
     def __enter__(self) -> "_Span":
-        if self._tracer._annotate is not None:
-            self._ann = self._tracer._annotate(f"tpustream.{self.kind}")
-            self._ann.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
-            self._ann = None
         self._tracer._record(self.kind, self.step, self.operator, self._t0, t1 - self._t0)
 
 
@@ -73,7 +63,7 @@ class StepTracer:
 
     enabled = True
 
-    def __init__(self, capacity: int = 4096, profiler_bridge: bool = False):
+    def __init__(self, capacity: int = 4096):
         self.capacity = max(1, int(capacity))
         self._ring: List[tuple] = []
         self._pos = 0
@@ -85,14 +75,6 @@ class StepTracer:
         # overflow is never silent.
         self.drop_counter = None
         self.on_first_drop = None
-        self._annotate = None
-        if profiler_bridge:
-            try:
-                from torch.profiler import record_function
-
-                self._annotate = record_function
-            except Exception:
-                self._annotate = None
 
     def span(self, kind: str, step: int = -1, operator: str = "") -> _Span:
         return _Span(self, kind, step, operator)

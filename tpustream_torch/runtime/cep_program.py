@@ -240,7 +240,8 @@ class CepProgram(BaseProgram):
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """One device-to-host copy of a small tensor (one wait)."""
         self.host_reads += 1
-        return t.cpu().numpy()
+        with self.spans.span("step.read"):
+            return t.cpu().numpy()
 
     # ------------------------------------------------------------------
     def _advance_round(self, sel, sk_c, sts, s_ok, s_cols, occ, start, caps,

@@ -108,6 +108,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from itertools import islice
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -156,7 +157,13 @@ from .sinks import (
     PrintSink,
     RetryingSink,
 )
+from .spans import NULL_SPANS
 from .step import RULE_VERSION_KEY, RULES_KEY, build_program, resolve_device
+
+
+# rows formatted and handed to the sinks at a time: few enough that
+# their row objects stay under the collector's first threshold (700)
+EMIT_CHUNK = 512
 
 
 class HostStage:
@@ -176,6 +183,9 @@ class HostStage:
         # nothing, so a quarantine re-parse cannot count twice);
         # account_source drains it a batch. None: the ledger is off.
         self.ledger_counts: Optional[Dict[str, int]] = None
+        # the job's span recorder (the native parser's sub-spans); set
+        # by execute_job
+        self.spans = NULL_SPANS
         if plan.ts_expr is not None:
             self._ts_eval = PlanEvaluator([plan.ts_expr], [None])
 
@@ -228,7 +238,7 @@ class HostStage:
             self._raw_eval_built = True
         if self._raw_eval is None:
             return None, None
-        cols = self._raw_eval.parse_bytes(raw, n)
+        cols = self._raw_eval.parse_bytes(raw, n, self.spans)
         if cols is None:
             return None, None
         ts = None
@@ -255,7 +265,7 @@ class HostStage:
         if plan.ts_assigner is None:
             return None
         if self._ts_eval is not None:
-            (ts,) = self._ts_eval(lines)
+            (ts,) = self._ts_eval(lines, self.spans)
             return np.asarray(ts, dtype=np.int64)
         extract = plan.ts_assigner.extract_timestamp
         return np.asarray([extract(l) for l in lines], dtype=np.int64)
@@ -335,7 +345,7 @@ class HostStage:
                     ]
                     ev = PlanEvaluator(hop.plan.outputs, tables)
                     self._map_evals[i] = ev
-                cols = ev(lines)
+                cols = ev(lines, self.spans)
             else:
                 fb = hop.plan.fallback_fn if hop.plan else as_callable(hop.fn, "map")
                 cols, kinds = run_fallback_map(fb, lines, plan.tables)
@@ -697,8 +707,10 @@ class Runner:
         self.plan = plan
         self.cfg = cfg
         self.metrics = metrics
-        with Stopwatch() as build_sw:
+        with metrics.span("build.program") as build_prog:
             self.program = build_program(plan, cfg)
+        self.program.spans = metrics.spans
+        with metrics.span("build.state") as build_state:
             self.state = self.program.init_state()
         self.device = self.program.device
         # -- several processes (parallel/distributed.py) -------------------
@@ -723,8 +735,9 @@ class Runner:
         self._dispatch_seq = 0
         self.sinks, self.side_sinks = _make_sinks(plan, cfg)
         # per-operator observability scope: counters/histograms labelled
-        # {job, operator} plus span minting. The null twin (obs disabled)
-        # makes every obs call below a no-op attribute call.
+        # {job, operator}, and the ring the stage spans reach through
+        # metrics.span. The null twin (obs disabled) makes every obs
+        # call below a no-op attribute call.
         self.obs = metrics.job_obs.operator(self.program.operator_name)
         self._flight = metrics.job_obs.flight
         self._step_idx = 0
@@ -903,7 +916,7 @@ class Runner:
         )
         if self._compile_obs is not None:
             self._compile_obs.record_compile(
-                CAUSE_INITIAL, build_sw.elapsed * 1e3)
+                CAUSE_INITIAL, (build_prog.elapsed + build_state.elapsed) * 1e3)
 
     # -- chained stages ---------------------------------------------------
 
@@ -1343,7 +1356,7 @@ class Runner:
                 # they hold two rows (arith.plus_zero): one row alone
                 # steps with one invalid row beside it
                 sub = sub.pad_to(2)
-            with self.obs.span("pack", self._step_idx + 1), Stopwatch() as pw:
+            with self.metrics.span("pack", self.obs, self._step_idx + 1) as pw:
                 inputs = self._pack_batch(sub)
             for mk in traced:
                 mk.add_span("pack", t0=pw.t0, dur=pw.elapsed,
@@ -1552,8 +1565,8 @@ class Runner:
             return
         traced = [m for m in self._pending_markers
                   if getattr(m, "trace_id", 0)]
-        with self.obs.span("h2d", self._step_idx + len(self._upload_q) + 1), \
-                Stopwatch() as sw:
+        with self.metrics.span("h2d", self.obs,
+                               self._step_idx + len(self._upload_q) + 1) as sw:
             uploaded = self._wire.put(inputs)
         for m in traced:
             m.add_span("h2d", t0=sw.t0, dur=sw.elapsed)
@@ -1692,7 +1705,7 @@ class Runner:
         self._flight.set_active(obs.name or self.program.operator_name)
         # the span times the host's issue of the step only: the wait for
         # the card is the fetch's
-        with obs.span("dispatch", self._step_idx), Stopwatch() as dw:
+        with m.span("dispatch", obs, self._step_idx) as dw:
             self._wire.ready(uploaded)
             cols, valid, ts = self._decode(uploaded)
             self.state, emissions = self.program.run_step(
@@ -1895,7 +1908,7 @@ class Runner:
         others on the stream), then one copy of every stream still worth
         fetching, then each entry's rows to the sinks."""
         m = self.metrics
-        with self.obs.span("fetch", self._step_idx), Stopwatch() as sw:
+        with m.span("fetch", self.obs, self._step_idx) as sw:
             with Stopwatch() as ww:
                 self._wire.wait_counts(entries, m)
             plans = []
@@ -1970,7 +1983,7 @@ class Runner:
         stream, the late rows, the CEP timeouts; all of it under one
         ``emit`` span a step, as the reference's, then the step's
         markers."""
-        with self.obs.span("emit", self._step_idx):
+        with self.metrics.span("emit", self.obs, self._step_idx):
             self._dispatch_rows(entry, rows)
         if entry.markers:
             self._record_markers(entry.markers)
@@ -1993,9 +2006,21 @@ class Runner:
                     if subtask is None and main.get("key") is not None:
                         n_shards = max(1, self.cfg.parallelism)
                         subtask = main["key"].astype(np.int64) % n_shards
-                    for j, row in enumerate(self.formatter.rows(out)):
-                        self._emit_row(
-                            row, None if subtask is None else int(subtask[j]))
+                    # columns to rows, then rows to the sinks, a chunk
+                    # at a time: a whole step's rows held at once would
+                    # wake the garbage collector over them
+                    fmt = m.spans.phase("emit.format")
+                    sink = m.spans.phase("emit.sink")
+                    rows_it = self.formatter.rows(out)
+                    for start in range(0, len(out[0]), EMIT_CHUNK):
+                        with fmt:
+                            chunk = list(islice(rows_it, EMIT_CHUNK))
+                        with sink:
+                            for j, row in enumerate(chunk, start):
+                                self._emit_row(
+                                    row, None if subtask is None else int(subtask[j]))
+                    fmt.close()
+                    sink.close()
                     m.records_emitted += len(out[0])
             m.emit_times_s.append(sw.elapsed)
         late = rows.get("late")
@@ -2675,6 +2700,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
     metrics, job_obs = _make_job_obs(env, cfg, supervision)
     env.metrics = metrics
     metrics.build_time_s = setup.elapsed
+    host.spans = metrics.spans
     # one breadcrumb a resolution clamp
     for note in resolve_notes:
         job_obs.flight.record("config_clamped", **note)
@@ -2911,7 +2937,7 @@ def _execute_job(env, sink_nodes) -> JobResult:
             # resume: drop the source lines the snapshot already consumed
             sb, taken = _skip_lines(sb, skip_state[0])
             skip_state[0] -= taken
-        with job_obs.tracer.span("parse"), Stopwatch() as hw:
+        with metrics.span("parse", job_obs) as hw:
             if fault is not None:
                 fault("parse")
             try:

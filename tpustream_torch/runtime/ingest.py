@@ -78,7 +78,6 @@ import numpy as np
 
 from ..parallel.lanes import LaneSpec, ShmRing, spawn_lane, unpack_columns
 from ..records import STR, Batch, Column
-from .metrics import Stopwatch
 from .watchdog import IngestStallError, StallWatchdog
 
 #: default per-direction shared-memory ring bytes per lane
@@ -259,6 +258,7 @@ def build_ingest_plane(
         job_obs=job_obs,
         fault=fault,
         skip_lines=skip_lines,
+        spans=host.spans,
         ring_bytes=int(extra.get("ingest_ring_bytes", DEFAULT_RING_BYTES)),
         stall_limit_s=max(0.0, stall_ms) / 1000.0,
         restart_budget=int(getattr(cfg, "ingest_lane_restarts", 0)),
@@ -279,7 +279,7 @@ class IngestPlane:
     def __init__(
         self, lanes: int, spec: LaneSpec, global_tables: list,
         has_ts: bool, record_kinds: list, record_tables: list,
-        job_obs, fault, skip_lines: int, ring_bytes: int,
+        job_obs, spans, fault, skip_lines: int, ring_bytes: int,
         stall_limit_s: float = 0.0, restart_budget: int = 0,
         watchdog_limit_s: float = 30.0, fault_points: Optional[list] = None,
     ):
@@ -292,6 +292,7 @@ class IngestPlane:
         self._record_kinds = record_kinds
         self._record_tables = record_tables
         self._job_obs = job_obs
+        self._spans = spans  # the job's span recorder (the parse span)
         self._fault = fault
         self._skip_left = int(skip_lines)
         self._ring_bytes = ring_bytes
@@ -836,7 +837,7 @@ class IngestPlane:
                 f"got {dseq}"
             )
         job_obs = self._job_obs
-        with job_obs.tracer.span("parse"), Stopwatch() as hw:
+        with self._spans.span("parse", job_obs) as hw:
             if self._fault is not None:
                 self._fault("parse")
             payload = inc.out_ring.read(off, nbytes)

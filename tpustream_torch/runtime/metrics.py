@@ -10,7 +10,16 @@ counters accumulate on the device and are folded in once per job
 (``Runner.finalize_metrics``); a full-window ``process()`` job counts
 its fires on the host. The summary carries every key of the
 reference's; the sharded exchange's counter has no source in this
-runtime yet and reads 0.
+runtime yet and reads 0. Its ``device_time_s`` and
+``events_per_sec_device`` keep the reference's names but are host-clock
+step time (the sum of ``step_times_s``), not time on the device.
+
+Every stage and sub-stage is timed by one recorder, ``Metrics.spans``
+(:class:`tpustream_torch.runtime.spans.SpanRecorder`, through
+:meth:`Metrics.span`): each span's duration under its name, the same
+interval in the obs ring for the stage spans when obs is on, and a
+``torch.profiler`` range while a capture records. The stage lists
+above are taken from those spans' intervals, as before.
 
 ``Metrics`` is a facade over :class:`tpustream_torch.obs.registry
 .MetricsRegistry`, as the reference's is: every counter the reference
@@ -35,6 +44,7 @@ from typing import List, Optional
 from ..obs.registry import MetricsRegistry
 from ..obs.runtime import NULL_JOB_OBS
 from ..obs.snapshot import job_snapshot
+from .spans import SpanRecorder
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -110,10 +120,24 @@ class Metrics:
         # write's report (runtime/checkpoint.py write_snapshot)
         self.checkpoint_capture_ms: List[float] = []
         self.checkpoint_reports: List[dict] = []
+        # every span of the job (stages and sub-stages) and the host
+        # counters beside them (runtime/spans.py)
+        self.spans = SpanRecorder()
         # replaced with a live JobObs by execute_job when
         # StreamConfig.obs.enabled; every Runner hot-path obs call routes
         # through it (or its no-op null twin)
         self.job_obs = NULL_JOB_OBS
+
+    def span(self, name: str, obs=None, step: int = -1):
+        """A span of the job's recorder (:meth:`SpanRecorder.span`)."""
+        return self.spans.span(name, obs, step)
+
+    @property
+    def fires(self) -> int:
+        """Window ends folded on the host (each ``_fire_one`` that found
+        a pane); the device's ``window_fires`` counts (key, window)
+        pairs."""
+        return self.spans.counts["fires"]
 
     def overflow_counts(self) -> dict:
         """The loss counters a strict job must keep at zero."""
@@ -148,6 +172,8 @@ class Metrics:
             "numpy_parses": self.numpy_parses,
             "host_time_s": sum(self.host_times_s),
             "upload_time_s": sum(self.upload_times_s),
+            # this and events_per_sec_device: the reference's names for
+            # host-clock step time (issue plus the wait's share)
             "device_time_s": step,
             "fetch_time_s": sum(self.fetch_times_s),
             "emit_time_s": sum(self.emit_times_s),

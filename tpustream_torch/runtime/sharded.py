@@ -68,6 +68,7 @@ from .count_program import (
 from .plan import JobPlan
 from .process_program import ProcessWindowProgram
 from .session_program import SessionProcessProgram, SessionWindowProgram
+from .spans import NULL_SPANS
 from .step import RULE_VERSION_KEY, RULES_KEY, RollingProgram
 from .window_program import WindowProgram
 
@@ -206,6 +207,17 @@ class _ShardedMixin:
         self._emit_ts = v
         for p in getattr(self, "shards", ()):
             p.emit_ts = v
+
+    # the job's span recorder, the same for every shard
+    @property
+    def spans(self):
+        return getattr(self, "_spans", NULL_SPANS)
+
+    @spans.setter
+    def spans(self, rec) -> None:
+        self._spans = rec
+        for p in getattr(self, "shards", ()):
+            p.spans = rec
 
     # the executor counts the device reads a step made
     @property

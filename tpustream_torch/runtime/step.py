@@ -41,6 +41,7 @@ from ..records import I64, STR
 from ..utils.tree import to_host, tree_leaves, tree_unflatten
 from .device import DeviceChain, record_combiner
 from .plan import JobPlan
+from .spans import NULL_SPANS
 
 # dynamic-rule leaves ride the state under these keys (only when the plan
 # declares a RuleSet: rule-less jobs keep their exact state layout)
@@ -103,6 +104,9 @@ class BaseProgram:
     # per-component state bytes (obs/memory.py); keys absent from a
     # family's state count nothing, other keys count as "scalars"
     STATE_COMPONENT_KEYS: dict = {}
+    # the job's span recorder (runtime/spans.py), set by the Runner
+    # that builds the program; the null twin for a direct call
+    spans = NULL_SPANS
 
     def state_components(self) -> dict:
         """Flat ``state key -> component name`` map derived from

@@ -448,7 +448,8 @@ class WindowProgram(BaseProgram):
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """One device-to-host copy of a small tensor (one wait)."""
         self.host_reads += 1
-        return t.cpu().numpy()
+        with self.spans.span("step.read"):
+            return t.cpu().numpy()
 
     def _emission_keys(self, kk: int) -> torch.Tensor:
         """The GLOBAL key id of each of this shard's ``kk`` state rows
@@ -654,9 +655,11 @@ class WindowProgram(BaseProgram):
             # of a stream's first minutes reach back to panes before its
             # start)
             occupied = self._read(self._occupancy(state)).astype(bool)
+        spans = self.spans
         for jj in np.flatnonzero(fire_now):
-            self._fire_one(state, int(cand[jj]), int(ends[jj]), p_win,
-                           occupied, emission)
+            with spans.span("step.fold"):
+                self._fire_one(state, int(cand[jj]), int(ends[jj]), p_win,
+                               occupied, emission)
         return ft, n_deferred
 
     def _occupancy(self, state) -> torch.Tensor:
@@ -703,6 +706,9 @@ class WindowProgram(BaseProgram):
             has = has | present
         if has is None:
             return  # no pane of the window is in the ring
+        # a window end folded (the stream's first pass also calls this
+        # for candidate ends before its first record, which fold nothing)
+        self.spans.count("fires")
 
         full = [None] * len(self.acc_kinds)
         for posi, i in enumerate(self.live_idx):
@@ -799,9 +805,10 @@ class WindowProgram(BaseProgram):
         may_evict = bool(np.any(stale & (last_end - 1 > ft0) & (slot_pane >= 0)))
         emission = _Emission()
         if not may_evict and min_live_pane > hi - n:
-            if hi > state["hi"]:
-                self._retarget(state, hi, ft0)
-            touched = self._scatter_words(state, keys, lifted, live, pane)
+            with self.spans.span("step.merge"):
+                if hi > state["hi"]:
+                    self._retarget(state, hi, ft0)
+                touched = self._scatter_words(state, keys, lifted, live, pane)
             new_ft, pending = self._fire_dense(
                 state, hi, wm_old, wm_new, ft0, touched, emission)
         else:
@@ -863,11 +870,12 @@ class WindowProgram(BaseProgram):
             min_unscat = -self._global_max(-min_unscat)
             hi_next = min(hi_target, unsafe_min + (n - 1), min_unscat + (n - p_win))
             hi_next = max(hi_next, hi_cur)
-            if hi_next > hi_cur:
-                self._retarget(state, hi_next, ft)
-            touched = self._scatter_words(
-                state, keys, lifted, unscat & (pane <= hi_next), pane
-            )
+            with self.spans.span("step.merge"):
+                if hi_next > hi_cur:
+                    self._retarget(state, hi_next, ft)
+                touched = self._scatter_words(
+                    state, keys, lifted, unscat & (pane <= hi_next), pane
+                )
             is_final = hi_next >= hi_target
             wm_eff = wm_new if is_final else min(wm_new, hi_next * g - 1)
             ft, pending = self._fire_dense(
