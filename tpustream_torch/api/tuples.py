@@ -18,14 +18,6 @@ class TupleBase:
     ARITY: int = 0
     _FIELDS: tuple = ()
 
-    def __init__(self, *values: Any):
-        if len(values) != self.ARITY:
-            raise TypeError(
-                f"{type(self).__name__} expects {self.ARITY} values, got {len(values)}"
-            )
-        for name, v in zip(self._FIELDS, values):
-            object.__setattr__(self, name, v)
-
     # --- positional access -------------------------------------------------
     def __getitem__(self, i: int) -> Any:
         return getattr(self, self._FIELDS[i])
@@ -58,6 +50,12 @@ class TupleBase:
         return f"({inner})"
 
 
+def _wrong_arity(t: TupleBase, values: tuple) -> None:
+    raise TypeError(
+        f"{type(t).__name__} expects {t.ARITY} values, got {len(values)}"
+    )
+
+
 def _java_str(v: Any) -> str:
     """Format one field the way Java's ``Tuple.toString`` would.
 
@@ -76,19 +74,37 @@ def _java_str(v: Any) -> str:
     return str(v)
 
 
+# Each arity assigns its fields directly, with no loop over ``_FIELDS``:
+# the emission formatter builds a step's rows with one constructor call
+# each.
 class Tuple2(TupleBase):
     ARITY = 2
     _FIELDS = ("f0", "f1")
+
+    def __init__(self, *values: Any):
+        if len(values) != 2:
+            _wrong_arity(self, values)
+        self.f0, self.f1 = values
 
 
 class Tuple3(TupleBase):
     ARITY = 3
     _FIELDS = ("f0", "f1", "f2")
 
+    def __init__(self, *values: Any):
+        if len(values) != 3:
+            _wrong_arity(self, values)
+        self.f0, self.f1, self.f2 = values
+
 
 class Tuple4(TupleBase):
     ARITY = 4
     _FIELDS = ("f0", "f1", "f2", "f3")
+
+    def __init__(self, *values: Any):
+        if len(values) != 4:
+            _wrong_arity(self, values)
+        self.f0, self.f1, self.f2, self.f3 = values
 
 
 TUPLE_CLASSES = {2: Tuple2, 3: Tuple3, 4: Tuple4}

@@ -25,6 +25,13 @@ BOOL = "bool"
 NUMPY_DTYPES = {F64: np.float64, I64: np.int64, STR: np.int32, BOOL: np.bool_}
 
 
+def _gather(values: list, ids) -> list:
+    """``values[i]`` for each id of a column, indexed by Python ints."""
+    if isinstance(ids, np.ndarray):
+        ids = ids.tolist()
+    return list(map(values.__getitem__, ids))
+
+
 class StringTable:
     """Bidirectional string <-> dense int32 id map.
 
@@ -59,9 +66,10 @@ class StringTable:
     def lookup(self, i: int) -> str:
         return self._to_str[i]
 
-    def lookup_many(self, ids: np.ndarray) -> List[str]:
-        table = self._to_str
-        return [table[i] for i in ids]
+    def lookup_many(self, ids) -> List[str]:
+        """``lookup`` of each id in a column (an array or a list of
+        non-negative ids), in one pass over Python ints."""
+        return _gather(self._to_str, ids)
 
     def state_dict(self) -> dict:
         return {"strings": list(self._to_str)}
@@ -133,6 +141,11 @@ class DerivedKeyTable(StringTable):
 
     def lookup(self, i: int):
         return self._originals[i]
+
+    def lookup_many(self, ids) -> List:
+        """The original values, as ``lookup`` gives them, never the
+        canonical strings the ids were interned under."""
+        return _gather(self._originals, ids)
 
     def state_dict(self) -> dict:
         # capture-then-truncate UNDER the intern mutex: the parse-ahead

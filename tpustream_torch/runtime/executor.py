@@ -2011,6 +2011,9 @@ class Runner:
                     # wake the garbage collector over them
                     fmt = m.spans.phase("emit.format")
                     sink = m.spans.phase("emit.sink")
+                    if subtask is not None:
+                        with fmt:
+                            subtask = subtask.tolist()
                     rows_it = self.formatter.rows(out)
                     for start in range(0, len(out[0]), EMIT_CHUNK):
                         with fmt:
@@ -2018,7 +2021,7 @@ class Runner:
                         with sink:
                             for j, row in enumerate(chunk, start):
                                 self._emit_row(
-                                    row, None if subtask is None else int(subtask[j]))
+                                    row, None if subtask is None else subtask[j])
                     fmt.close()
                     sink.close()
                     m.records_emitted += len(out[0])

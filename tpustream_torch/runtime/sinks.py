@@ -15,8 +15,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from ..api.tuples import _java_str, make_tuple
-from ..records import BOOL, F64, I64, STR
+from ..api.tuples import TUPLE_CLASSES, _java_str
+from ..records import BOOL, F64, STR
 
 
 class _NullCounter:
@@ -33,35 +33,57 @@ NULL_COUNTER = _NullCounter()
 
 class EmissionFormatter:
     """Turns emission columns (numpy, already masked/compacted) into Python
-    row values using the planned field kinds and string tables."""
+    row values using the planned field kinds and string tables.
+
+    Each column is converted to Python values once, whole, by its kind;
+    each row is then one constructor call for the planned arity: the
+    value itself at arity 1, a ``Tuple2``-``Tuple4`` at 2-4, a plain
+    tuple above (CEP timeout records). The values and their Python types
+    are those ``float(v)``, ``bool(v)``, ``int(v)`` and the table's
+    ``lookup`` give one value at a time. ``rows`` yields lazily, so its
+    caller decides how many rows are live at once."""
 
     def __init__(self, kinds: List[str], tables: List[Optional[object]]):
         self.kinds = kinds
         self.tables = tables
 
     def rows(self, cols: List[np.ndarray]):
-        n = len(cols[0]) if cols else 0
-        converted = []
-        for kind, col, table in zip(self.kinds, cols, self.tables):
-            if kind == STR:
-                converted.append(
-                    [table.lookup(int(i)) if int(i) >= 0 else None for i in col]
-                )
-            elif kind == F64:
-                converted.append([float(v) for v in col])
-            elif kind == BOOL:
-                converted.append([bool(v) for v in col])
-            else:
-                converted.append([int(v) for v in col])
-        for j in range(n):
-            vals = tuple(c[j] for c in converted)
-            if len(vals) == 1:
-                yield vals[0]
-            elif len(vals) <= 4:
-                yield make_tuple(*vals)
-            else:
-                # wider than Tuple4 (e.g. CEP timeout records): plain tuple
-                yield vals
+        converted = [self._column(kind, col, table)
+                     for kind, col, table in zip(self.kinds, cols, self.tables)]
+        arity = len(converted)
+        if arity == 1:
+            yield from converted[0]
+        elif arity in TUPLE_CLASSES:
+            yield from map(TUPLE_CLASSES[arity], *converted)
+        elif arity > 4:
+            yield from zip(*converted)
+
+    def _column(self, kind: str, col: np.ndarray, table) -> list:
+        if kind == STR:
+            return self._strings(col, table)
+        if kind == F64:
+            # (a float32 column's .tolist() widens each value as float()
+            # does, signalling NaNs included, where astype would warn)
+            return (col if col.dtype.kind == "f" else col.astype(np.float64)).tolist()
+        if kind == BOOL:
+            return col.astype(bool, copy=False).tolist()
+        if col.dtype.kind in "iu":
+            return col.tolist()
+        return list(map(int, col.tolist()))
+
+    @staticmethod
+    def _strings(col: np.ndarray, table) -> list:
+        """The table's values of an id column; a negative id gives None."""
+        many = table.lookup_many
+        absent = col < 0
+        if not absent.any():
+            return many(col)
+        if absent.all():
+            return [None] * len(col)
+        out = many(np.where(absent, 0, col))
+        for j in np.flatnonzero(absent).tolist():
+            out[j] = None
+        return out
 
 
 class PrintSink:
