@@ -119,6 +119,37 @@ def test_multithreaded_parse_identical_to_serial():
         assert np.array_equal(x, y)
 
 
+@pytest.mark.parametrize("threads", [1, 4])
+def test_intern_ids_follow_first_sight_across_batches(threads):
+    """Keys of 0-40 bytes (either side of a slot's inline bytes), enough
+    of them to grow the table many times, repeats within and across
+    batches and empty lines: every id maps back to its key, the native
+    ids are assigned in the order of first sight, and a batch with no
+    new key leaves the remap array as it was."""
+    rng = np.random.default_rng(7)
+    pool = [f"k{i}" + "x" * int(n) for i, n in
+            enumerate(rng.integers(0, 39, 9000))] + [""]
+    specs = [(0, native.KIND_STR, 0), (1, native.KIND_I64, 0)]
+    table = StringTable()
+    parser = native.NativeParser(" ", specs, [table, None])
+    first_sight = {}
+    for b in range(3):
+        keys = [pool[int(i)] for i in rng.integers(0, len(pool), 40000)]
+        lines = [f"{k} {j}" for j, k in enumerate(keys)]
+        data = ("\n\n".join(lines[:50]) + "\n" + "\n".join(lines[50:]) + "\n").encode()
+        assert len(data) > 1 << 20  # the chunked kernel's threshold
+        (ids, seq), bad = parser.parse(data, len(lines), threads=threads)
+        assert bad == 0 and np.array_equal(seq, np.arange(len(lines)))
+        assert [table.lookup(int(i)) for i in ids] == keys
+        for k in keys:
+            first_sight.setdefault(k, len(first_sight))
+    nt = parser.tables[0]
+    assert nt._lib.tsp_table_size(nt.ptr) == len(first_sight)
+    remap = nt.sync()
+    assert nt.sync() is remap
+    assert [table.lookup(int(remap[i])) for i in range(len(first_sight))] == list(first_sight)
+
+
 def job_of(name):
     """A side-by-side builder of the chapter job ``name``."""
     return lambda ns, text: JOBS[ns.pkg][name].build(None, text)

@@ -187,7 +187,7 @@ class NativeTable:
         self._lib = lib
         self.ptr = lib.tsp_table_new()
         self.py_table = py_table
-        self._remap: List[int] = []
+        self._remap = np.empty(0, dtype=np.int32)
 
     def __del__(self):  # pragma: no cover - interpreter teardown
         try:
@@ -197,16 +197,22 @@ class NativeTable:
 
     def sync(self) -> np.ndarray:
         """Extend the remap for newly-interned native ids; returns the
-        int32 remap array (native id -> python id)."""
+        int32 remap array (native id -> python id). The array is kept
+        between calls and grows only by the new ids, so a batch whose
+        strings are all known costs no pass over the table."""
         lib = self._lib
         n = lib.tsp_table_size(self.ptr)
-        if n > len(self._remap):
+        have = len(self._remap)
+        if n > have:
             buf = ctypes.create_string_buffer(4096)
-            for i in range(len(self._remap), n):
+            new = []
+            for i in range(have, n):
                 ln = lib.tsp_table_get(self.ptr, i, buf, 4096)
                 s = buf.raw[: min(ln, 4096)].decode("utf-8", "replace")
-                self._remap.append(self.py_table.intern(s))
-        return np.asarray(self._remap, dtype=np.int32)
+                new.append(self.py_table.intern(s))
+            self._remap = np.concatenate(
+                [self._remap, np.asarray(new, dtype=np.int32)])
+        return self._remap
 
 
 class NativeParser:

@@ -20,24 +20,97 @@
 #include <cstring>
 #include <string>
 #include <thread>
-#include <unordered_map>
 #include <vector>
 
 namespace {
 
+// An intern table: ids in first-seen order, found through an open-
+// addressed (linear probing) array of slots. A slot holds its string's
+// id, a 32-bit tag of its hash and, up to kInline bytes, the string
+// itself, so a hit on a short key reads one cache line, which the parse
+// prefetches for a group of lines before it resolves them (at a million
+// keys each lookup is otherwise a cache miss, and a node-based map takes
+// several in turn).
 struct Table {
-    std::unordered_map<std::string, int32_t> to_id;
+    static constexpr uint32_t kInline = 20;
+    struct Slot {
+        int32_t id;  // -1: empty
+        uint32_t tag;
+        uint32_t len;
+        char key[kInline];
+    };
     std::vector<std::string> to_str;
+    std::vector<Slot> slots;  // a power of two long, at most 3/4 full
+    size_t mask = 0;
 
-    int32_t intern(const char* s, size_t n) {
-        std::string key(s, n);
-        auto it = to_id.find(key);
-        if (it != to_id.end()) return it->second;
-        int32_t id = static_cast<int32_t>(to_str.size());
-        to_id.emplace(std::move(key), id);
+    static uint64_t hash(const char* s, size_t n) {
+        uint64_t h = 0x9E3779B97F4A7C15ull ^ (static_cast<uint64_t>(n) * 0xFF51AFD7ED558CCDull);
+        size_t i = 0;
+        for (; i + 8 <= n; i += 8) {
+            uint64_t w;
+            std::memcpy(&w, s + i, 8);
+            h = (h ^ w) * 0xC4CEB9FE1A85EC53ull;
+            h ^= h >> 29;
+        }
+        if (i < n) {
+            uint64_t w = 0;
+            std::memcpy(&w, s + i, n - i);
+            h = (h ^ w) * 0xC4CEB9FE1A85EC53ull;
+        }
+        h ^= h >> 33;
+        h *= 0xFF51AFD7ED558CCDull;
+        h ^= h >> 33;
+        return h;
+    }
+
+    void prefetch(uint64_t h) const {
+        if (!slots.empty()) __builtin_prefetch(&slots[h & mask]);
+    }
+
+    // the id of s (hash h), or -1 when s was never interned
+    int32_t find(const char* s, size_t n, uint64_t h) const {
+        if (slots.empty()) return -1;
+        const uint32_t tag = static_cast<uint32_t>(h >> 32);
+        for (size_t i = h & mask;; i = (i + 1) & mask) {
+            const Slot& sl = slots[i];
+            if (sl.id < 0) return -1;
+            if (sl.tag != tag || sl.len != n) continue;
+            const char* t = n <= kInline ? sl.key : to_str[static_cast<size_t>(sl.id)].data();
+            if (std::memcmp(t, s, n) == 0) return sl.id;
+        }
+    }
+
+    void place(const std::string& t, uint64_t h, int32_t id) {
+        size_t i = h & mask;
+        while (slots[i].id >= 0) i = (i + 1) & mask;
+        Slot& sl = slots[i];
+        sl.id = id;
+        sl.tag = static_cast<uint32_t>(h >> 32);
+        sl.len = static_cast<uint32_t>(t.size());
+        if (t.size() <= kInline) std::memcpy(sl.key, t.data(), t.size());
+    }
+
+    void grow() {
+        size_t cap = slots.empty() ? 1024 : slots.size() * 2;
+        slots.assign(cap, Slot{-1, 0, 0, {}});
+        mask = cap - 1;
+        for (size_t id = 0; id < to_str.size(); id++) {
+            const std::string& t = to_str[id];
+            place(t, hash(t.data(), t.size()), static_cast<int32_t>(id));
+        }
+    }
+
+    int32_t intern(const char* s, size_t n, uint64_t h) {
+        int32_t id = find(s, n, h);
+        if (id >= 0) return id;
+        id = static_cast<int32_t>(to_str.size());
         to_str.emplace_back(s, n);
+        if (to_str.size() * 4 > slots.size() * 3) grow();  // places every id
+        else place(to_str.back(), h, id);
         return id;
     }
+
+    int32_t intern(const char* s, size_t n) { return intern(s, n, hash(s, n)); }
 };
 
 // Howard Hinnant's days-from-civil algorithm (public-domain formula).
@@ -110,7 +183,12 @@ constexpr int KIND_ISO = 3;
 // parameterized: serial passes locals == nullptr and interns straight
 // into the shared tables; MT workers read the shared tables (read-only
 // during the parallel phase) and assign negative placeholder ids from
-// their thread-local tables for unseen strings.
+// their thread-local tables for unseen strings. Lines go in groups of
+// kGroup: the first pass converts every other field and hashes each
+// string, prefetching its slot; the second resolves the strings in line
+// order, so ids are assigned in the order of a plain line-by-line pass.
+constexpr int64_t kGroup = 32;
+
 int64_t parse_range(const char* p, const char* end, char sep, int32_t n_out,
                     const int32_t* field_idx, const int32_t* kinds,
                     const int32_t* tz_hours, Table** tables, Table* locals,
@@ -121,68 +199,89 @@ int64_t parse_range(const char* p, const char* end, char sep, int32_t n_out,
         if (field_idx[i] > max_field) max_field = field_idx[i];
     std::vector<const char*> tok_start(static_cast<size_t>(max_field) + 1);
     std::vector<size_t> tok_len(static_cast<size_t>(max_field) + 1);
+    std::vector<int32_t> str_out;  // the KIND_STR outputs, in order
+    for (int32_t i = 0; i < n_out; i++)
+        if (kinds[i] == KIND_STR) str_out.push_back(i);
+    const size_t ns = str_out.size();
+    struct Pending {
+        const char* s;
+        size_t n;
+        uint64_t h;
+    };
+    std::vector<Pending> pending(static_cast<size_t>(kGroup) * ns);
 
     int64_t bad = 0;
     while (p < end && row < row_limit) {
-        const char* nl = static_cast<const char*>(
-            std::memchr(p, '\n', static_cast<size_t>(end - p)));
-        const char* line_end = nl ? nl : end;
-        int32_t nt = 0;
-        const char* q = p;
-        while (q <= line_end && nt <= max_field) {
-            const char* t = q;
-            while (q < line_end && *q != sep) q++;
-            tok_start[static_cast<size_t>(nt)] = t;
-            tok_len[static_cast<size_t>(nt)] = static_cast<size_t>(q - t);
-            nt++;
-            if (q < line_end) q++;  // skip separator
-            else break;
-        }
-        if (line_end > p) {  // skip empty lines entirely
-            bool row_bad = false;
-            for (int32_t i = 0; i < n_out; i++) {
-                int32_t fi = field_idx[i];
-                const char* ts = fi < nt ? tok_start[static_cast<size_t>(fi)] : "";
-                size_t tn = fi < nt ? tok_len[static_cast<size_t>(fi)] : 0;
-                if (fi >= nt) row_bad = true;
-                switch (kinds[i]) {
-                    case KIND_STR: {
-                        int32_t id;
-                        if (locals == nullptr) {
-                            id = tables[i]->intern(ts, tn);
-                        } else {
-                            std::string key(ts, tn);
-                            auto it = tables[i]->to_id.find(key);
-                            if (it != tables[i]->to_id.end()) {
-                                id = it->second;
-                            } else {
-                                id = -locals[i].intern(ts, tn) - 1;
-                            }
+        const int64_t first = row;
+        // pass 1: up to kGroup non-empty lines
+        while (row - first < kGroup && p < end && row < row_limit) {
+            const char* nl = static_cast<const char*>(
+                std::memchr(p, '\n', static_cast<size_t>(end - p)));
+            const char* line_end = nl ? nl : end;
+            int32_t nt = 0;
+            const char* q = p;
+            while (q <= line_end && nt <= max_field) {
+                const char* t = q;
+                while (q < line_end && *q != sep) q++;
+                tok_start[static_cast<size_t>(nt)] = t;
+                tok_len[static_cast<size_t>(nt)] = static_cast<size_t>(q - t);
+                nt++;
+                if (q < line_end) q++;  // skip separator
+                else break;
+            }
+            if (line_end > p) {  // skip empty lines entirely
+                bool row_bad = false;
+                size_t k = 0;
+                for (int32_t i = 0; i < n_out; i++) {
+                    int32_t fi = field_idx[i];
+                    const char* ts = fi < nt ? tok_start[static_cast<size_t>(fi)] : "";
+                    size_t tn = fi < nt ? tok_len[static_cast<size_t>(fi)] : 0;
+                    if (fi >= nt) row_bad = true;
+                    switch (kinds[i]) {
+                        case KIND_STR: {
+                            Pending& pd = pending[static_cast<size_t>(row - first) * ns + k++];
+                            pd.s = ts;
+                            pd.n = tn;
+                            pd.h = Table::hash(ts, tn);
+                            tables[i]->prefetch(pd.h);
+                            break;
                         }
-                        static_cast<int32_t*>(out_cols[i])[row] = id;
-                        break;
-                    }
-                    case KIND_F64:
-                        static_cast<double*>(out_cols[i])[row] =
-                            tn ? parse_f64_tok(ts, tn) : 0.0;
-                        break;
-                    case KIND_I64:
-                        static_cast<int64_t*>(out_cols[i])[row] =
-                            tn ? parse_i64_tok(ts, tn) : 0;
-                        break;
-                    case KIND_ISO: {
-                        int64_t v = 0;
-                        if (!parse_iso(ts, tn, tz_hours[i], &v)) row_bad = true;
-                        static_cast<int64_t*>(out_cols[i])[row] = v;
-                        break;
+                        case KIND_F64:
+                            static_cast<double*>(out_cols[i])[row] =
+                                tn ? parse_f64_tok(ts, tn) : 0.0;
+                            break;
+                        case KIND_I64:
+                            static_cast<int64_t*>(out_cols[i])[row] =
+                                tn ? parse_i64_tok(ts, tn) : 0;
+                            break;
+                        case KIND_ISO: {
+                            int64_t v = 0;
+                            if (!parse_iso(ts, tn, tz_hours[i], &v)) row_bad = true;
+                            static_cast<int64_t*>(out_cols[i])[row] = v;
+                            break;
+                        }
                     }
                 }
+                if (row_bad) bad++;
+                row++;
             }
-            if (row_bad) bad++;
-            row++;
+            p = nl ? nl + 1 : end;
         }
-        if (!nl) break;
-        p = nl + 1;
+        // pass 2: the group's strings, line by line
+        for (int64_t r = first; r < row; r++) {
+            for (size_t k = 0; k < ns; k++) {
+                const int32_t i = str_out[k];
+                const Pending& pd = pending[static_cast<size_t>(r - first) * ns + k];
+                int32_t id;
+                if (locals == nullptr) {
+                    id = tables[i]->intern(pd.s, pd.n, pd.h);
+                } else {
+                    id = tables[i]->find(pd.s, pd.n, pd.h);
+                    if (id < 0) id = -locals[i].intern(pd.s, pd.n, pd.h) - 1;
+                }
+                static_cast<int32_t*>(out_cols[i])[r] = id;
+            }
+        }
     }
     if (bad_out) *bad_out += bad;
     return row;

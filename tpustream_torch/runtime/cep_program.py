@@ -35,6 +35,12 @@ One step (the reference's event-time skeleton):
      window the NEW watermark reached (``wm >= start + within``) emit on
      the ``timeout`` stream, in key id then register order, and clear.
 
+Spans (``Metrics.spans``): ``step.read`` around the one wait of step 3,
+``step.advance`` around its rounds, ``step.timeout`` around step 4's
+``within`` scan, its compaction and its gathers; the counter ``rounds``
+adds each step's round count. They time the host's launches and wait
+on nothing.
+
 The watermark and the newest timestamp are host ints; the counters
 (``cep_matches``, ``cep_timeouts``, ``cep_partials``, ``late_dropped``,
 ``alert_overflow``, ``exchange_overflow``) accumulate on the device.
@@ -377,14 +383,16 @@ class CepProgram(BaseProgram):
         caps = [state[f"cap{i}"] for i in range(C)]
         m_mask = torch.zeros((B,), dtype=torch.bool, device=dev)
         m_cols = [torch.zeros((B, L), dtype=c.dtype, device=dev) for c in s_cols]
-        for r in range(n_rounds):
-            sel = sv & (ranks == r)
-            matched, mc = self._advance_round(
-                sel, sk_c, sts, s_ok, s_cols, occ, start, caps, kk)
-            m_mask = m_mask | matched
-            m_cols = [torch.where(matched[:, None], c_new, c_old)
-                      for c_new, c_old in zip(mc, m_cols)]
+        with self.spans.span("step.advance"):
+            for r in range(n_rounds):
+                sel = sv & (ranks == r)
+                matched, mc = self._advance_round(
+                    sel, sk_c, sts, s_ok, s_cols, occ, start, caps, kk)
+                m_mask = m_mask | matched
+                m_cols = [torch.where(matched[:, None], c_new, c_old)
+                          for c_new, c_old in zip(mc, m_cols)]
         self.rounds.append(n_rounds)
+        self.spans.count("rounds", n_rounds)
 
         # matches back to arrival order, flattened event-major, through
         # the post chain (select adapter + user map/filter), then
@@ -415,29 +423,33 @@ class CepProgram(BaseProgram):
         # passed can never complete (any extending event would now be
         # late beyond allowed lateness): emit and clear
         if self.within_ms is not None:
-            occ_k, start_k = occ[:kk], start[:kk]
-            tmo = occ_k & (start_k + self.within_ms <= wm_new)
-            idx, t_count = pane_ops.compact_positions(tmo.reshape(-1), cap)
-            idx = idx.to(torch.int64)
-            reg_idx = idx % R                            # register of the row
-            t_cols = [reg_idx + 1, start_k.reshape(-1)[idx]]  # n_matched, start
-            planes = [caps[c][:kk].reshape(kk * R, R)[idx] for c in range(C)]
-            for e in range(R):
-                for c in range(C):
-                    # slots past the register's capture count are padded
-                    # so the emitted rows are deterministic
-                    plane = planes[c][:, e]
-                    pad = torch.tensor(self._cap_pad(self.mid_kinds[c]),
-                                       dtype=plane.dtype, device=dev)
-                    t_cols.append(torch.where(reg_idx >= e, plane, pad))
-            emissions["timeout"] = {
-                "count": torch.clamp(t_count, max=cap),
-                "cols": tuple(t_cols),
-            }
-            occ_k &= ~tmo
-            state["cep_timeouts"] += tmo.sum(dtype=torch.int64)
-            state["alert_overflow"] += torch.clamp(
-                t_count - cap, min=0).to(torch.int64)
+            with self.spans.span("step.timeout"):
+                occ_k, start_k = occ[:kk], start[:kk]
+                tmo = occ_k & (start_k + self.within_ms <= wm_new)
+                idx, t_count = pane_ops.compact_positions(tmo.reshape(-1),
+                                                          cap)
+                idx = idx.to(torch.int64)
+                reg_idx = idx % R  # register of the row
+                # n_matched, start
+                t_cols = [reg_idx + 1, start_k.reshape(-1)[idx]]
+                planes = [caps[c][:kk].reshape(kk * R, R)[idx]
+                          for c in range(C)]
+                for e in range(R):
+                    for c in range(C):
+                        # slots past the register's capture count are padded
+                        # so the emitted rows are deterministic
+                        plane = planes[c][:, e]
+                        pad = torch.tensor(self._cap_pad(self.mid_kinds[c]),
+                                           dtype=plane.dtype, device=dev)
+                        t_cols.append(torch.where(reg_idx >= e, plane, pad))
+                emissions["timeout"] = {
+                    "count": torch.clamp(t_count, max=cap),
+                    "cols": tuple(t_cols),
+                }
+                occ_k &= ~tmo
+                state["cep_timeouts"] += tmo.sum(dtype=torch.int64)
+                state["alert_overflow"] += torch.clamp(
+                    t_count - cap, min=0).to(torch.int64)
 
         state["cep_matches"] += m_mask.sum(dtype=torch.int64)
         # point-in-time gauge of the partial matches held

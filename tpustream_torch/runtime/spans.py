@@ -16,11 +16,13 @@ of clock reads, three records:
 Stage spans: ``parse``, ``pack``, ``h2d``, ``dispatch``, ``fetch``,
 ``emit``. Sub-spans: ``step.merge`` (the window merge's host issue),
 ``step.fold`` (one window end's fold), ``step.read`` (a small
-device-to-host read inside a step), ``emit.format`` (columns to Python
-rows), ``emit.sink`` (post ops and sinks), ``parse.native`` (the native
-parser), ``parse.intern`` (the string tables' sync and remap),
-``build.program`` and ``build.state``. Counter: ``fires`` (window ends
-folded, host side).
+device-to-host read inside a step), ``step.advance`` (a CEP step's
+arrival-rank rounds), ``step.timeout`` (a CEP step's ``within`` scan),
+``emit.format`` (columns to Python rows), ``emit.sink`` (post ops and
+sinks), ``parse.native`` (the native parser), ``parse.intern`` (the
+string tables' sync and remap), ``build.program`` and ``build.state``.
+Counters: ``fires`` (window ends folded, host side), ``rounds`` (a CEP
+step's rounds, summed).
 
 A span is taken once a step, a fire or a batch, never once a record,
 and it never waits on the device. Code with no job (a program called
